@@ -1,0 +1,94 @@
+"""Build ``csrc/hist.cu`` with ``nvcc`` and bind it with ``ctypes``.
+
+The library is compiled at first use from the sources in the checkout into
+``build/torch_kernels/libdmlc_hist.so`` under the repository root (listed in
+``.gitignore``), and rebuilt when the source is newer than the library.
+The source has a plain C interface and includes no PyTorch header, so the
+build takes seconds.  Nothing here runs at import time: the CPU tests import
+every module on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, Optional
+
+__all__ = ["load_library", "BUILD_INFO", "SOURCE", "LIBRARY"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "hist.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+LIBRARY = os.path.join(BUILD_DIR, "libdmlc_hist.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# what the last build did: seconds, the nvcc command and its -Xptxas -v
+# report (registers, shared memory, spills), or cached=True
+BUILD_INFO: Dict[str, object] = {}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA histogram kernels cannot be built")
+
+
+def _build() -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    BUILD_INFO.update(seconds=seconds, command=" ".join(cmd),
+                      ptxas=proc.stderr + proc.stdout, cached=False)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    # every pointer and the stream are c_void_p: without argtypes ctypes
+    # would pass Python ints as 32-bit C ints and cut the pointers
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dmlc_hist_tile.argtypes = []
+    lib.dmlc_hist_tile.restype = i
+    lib.dmlc_hist_error_string.argtypes = [i]
+    lib.dmlc_hist_error_string.restype = ctypes.c_char_p
+    lib.dmlc_hist_matmul.argtypes = [p, p, i, ll, i, i, i, i, ll, i, p, p, p]
+    lib.dmlc_hist_matmul.restype = i
+    lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, ll, i, i, i, i, ll,
+                                         i, p, p, p]
+    lib.dmlc_grad_hist_fused.restype = i
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use; raises when the
+    build fails."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if (not os.path.isfile(LIBRARY)
+                    or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
+                _build()
+            else:
+                BUILD_INFO.setdefault("cached", True)
+            _lib = _bind(ctypes.CDLL(LIBRARY))
+        return _lib
