@@ -17,12 +17,28 @@ Phases (any failure exits non-zero and prints no result line):
    card (rtol 1e-4, atol 1e-3: f32 sums in another order), bitwise
    repeatability of two launches, and CUDA-event times beside the bound and
    one ``index_add_`` over precomputed flat ids (the scatter formulation);
+   at 32 nodes also both kernels on the column window 14..27 read in place
+   (row stride 28, offset 14) against the plain version on a copy;
 4. GBDT: ``fit_binned`` (10 rounds, depth 6, 256 bins, learning rate 0.3)
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, through the
    K1 path (``hist_method="auto"``) and the K3 path (``"pallas_fused"``),
    with launch counts read around that run; ``predict`` on 200,000
    held-out rows; then a 200,000-row fit on the card against the same fit
-   on the CPU with the plain versions.
+   on the CPU with the plain versions;
+5. distributed GBDT: four worker processes of this script share the card
+   as a 2 x 2 data x model mesh over gloo (NCCL refuses two ranks on one
+   card).  Each takes the 1,000,000 rows of its data coordinate of the
+   phase-4 shape, makes the bin edges with the distributed quantile sketch,
+   bins them to uint8 and fits ``GBDT(model_axis="model")`` with
+   ``"pallas"`` and ``"pallas_fused"``, so every level runs K4 (the
+   windowed kernel on the rank's 14 columns, the data all-reduce, the model
+   all-gather).  All ranks must hold the same edges and ensembles, K4 must
+   launch on every level, the global accuracy must reach 0.8, and a
+   single-process card fit with the same edges must grow the same first
+   tree.  Inside the workers K4 at 32 nodes is held against the plain
+   histogram of the whole global array and timed beside its bound and the
+   collectives.  Then one worker with world size 1 over NCCL fits 200,000
+   rows with ``model_axis`` and must match the plain card fit bitwise.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -30,6 +46,8 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -45,6 +63,10 @@ NUM_BINS = 256
 MAX_DEPTH = 6
 ROUNDS = 10
 RTOL, ATOL = 1e-4, 1e-3
+MESH = {"data": 2, "model": 2}
+QUANTILE_SAMPLE = 50_000      # rows per shard the bin edges are fit on
+WORKER_TIMEOUT_S = 420       # wall clock of each phase-5 launch
+COLLECTIVE_TIMEOUT_S = 300   # a dead peer fails the run after this
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 
@@ -186,6 +208,20 @@ def phase_kernels():
                     replaces="dmlc_core_tpu/ops/hist_pallas.py:250",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=library_ms)
+        if n == 32:
+            # the column window K4 hands the kernels: columns 14..27 of the
+            # 28-column rows, read in place (row stride 28, offset 14)
+            f0 = F // 2
+            want_w = hist_cuda.grad_hist_ref(bins[:, f0:].contiguous(), node,
+                                             grad, hess, n, nb)
+            for name, fn in (("grad_hist_cuda", hist_cuda.grad_hist_cuda),
+                             ("grad_hist_fused_cuda",
+                              hist_cuda.grad_hist_fused_cuda)):
+                got = fn(bins, node, grad, hess, n, nb, f0, F - f0)
+                _check_close(f"{name} at f_offset={f0}", got, want_w)
+                print(f"{name:22s} n={n:3d} columns {f0}..{F - 1} in place: "
+                      f"max_abs_err={_max_err(got, want_w):.3g}", flush=True)
+            del want_w, got
         # K1 alone on the weight matrix grad_hist_cuda builds (one sweep)
         if hist_cuda.hist_node_block(n, F, nb) == n:
             w = hist_cuda.node_weights(node, grad, hess, n)
@@ -326,9 +362,328 @@ def phase_gbdt(card):
     return launches
 
 
-def main():
-    card = phase_device()
+# -- phase 5: distributed GBDT ---------------------------------------------
+def _free_port():
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_workers(mode, world, outdir, timeout_s):
+    """Run ``world`` worker processes of this script with the DMLC_* env
+    contract and a fresh coordinator port; fail on any failure or
+    timeout, with each failed worker's stderr tail."""
     here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(outdir, exist_ok=True)
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, DMLC_NUM_WORKER=str(world),
+                   DMLC_TASK_ID=str(rank),
+                   DMLC_COORDINATOR_URI="127.0.0.1",
+                   DMLC_COORDINATOR_PORT=str(port), OMP_NUM_THREADS="2")
+        out = open(os.path.join(outdir, f"{mode}{rank}.out"), "w")
+        err = open(os.path.join(outdir, f"{mode}{rank}.err"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", mode,
+             outdir], env=env, cwd=here, stdout=out, stderr=err), out, err))
+    deadline = time.monotonic() + timeout_s
+    failed = []
+    try:
+        for rank, (proc, _, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                failed.append((rank, rc))
+    finally:
+        for proc, out, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    for rank, rc in failed:
+        with open(os.path.join(outdir, f"{mode}{rank}.err")) as f:
+            tail = f.read()[-3000:]
+        print(f"--- {mode} worker {rank} ({rc}) stderr tail:\n{tail}",
+              file=sys.stderr, flush=True)
+    if failed:
+        fail(f"{mode} workers failed: {failed}")
+    with open(os.path.join(outdir, f"{mode}0.out")) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+
+
+def _ensemble_arrays(ens):
+    return {k: (None if a is None else a.cpu())
+            for k, a in ens._asdict().items()}
+
+
+def phase_distributed(card):
+    from dmlc_core_tpu_torch.bridge.binning import HostBinner
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam, TreeEnsemble
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    print(f"== phase 5: distributed GBDT, {MESH} mesh of 4 ranks on one "
+          f"card (gloo)", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(here, "build", "chip_smoke_workers")
+    shutil.rmtree(outdir, ignore_errors=True)     # no earlier run's results
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    _launch_workers("gloo", 4, outdir, WORKER_TIMEOUT_S)
+    print(f"4 workers done in {time.perf_counter() - start:.1f} s")
+    # written by the workers just above
+    ranks = [torch.load(os.path.join(outdir, f"gloo{r}.pt"),
+                        weights_only=False) for r in range(4)]
+    need = ROUNDS * MAX_DEPTH
+    x, y = make_higgs_like(N_ROWS, N_FEATURES)
+    bounds = ranks[0]["boundaries"]
+    for r in ranks:
+        if not np.array_equal(r["boundaries"], bounds):
+            fail(f"rank {r['rank']} has other bin edges than rank 0")
+    wire = HostBinner(bounds, NUM_BINS).transform(x)
+    dev = torch.device("cuda")
+    bins = torch.from_numpy(wire).to(dev)
+    y_t = torch.from_numpy(y).to(dev)
+    param = dict(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                 num_bins=NUM_BINS, learning_rate=0.3)
+    for method in ("pallas", "pallas_fused"):
+        fits = [r["fits"][method] for r in ranks]
+        for r, f in zip(ranks, fits):
+            for k, a in f["ensemble"].items():
+                if not torch.equal(a, fits[0]["ensemble"][k]):
+                    fail(f"{method}: rank {r['rank']}'s {k} differs from "
+                         f"rank 0's")
+            k4 = f["launches"]["grad_hist_sharded_cuda"]
+            if k4 < need:
+                fail(f"{method}: rank {r['rank']} launched K4 {k4} times, "
+                     f"expected >= {need}")
+        correct = sum(f["correct"] for r, f in zip(ranks, fits)
+                      if r["coord"]["model"] == 0)
+        acc = correct / N_ROWS
+        stages = {k: round(v, 4) for k, v in fits[0]["stages"].items()}
+        print(f"{method}: 4 ranks bitwise identical; rank 0 fit "
+              f"{fits[0]['seconds']:.3f} s (stages timed: {stages} s), "
+              f"launches {fits[0]['launches']}, global train acc "
+              f"{acc:.4f} [{card}]", flush=True)
+        if acc < 0.8:
+            fail(f"{method}: global train accuracy {acc:.4f} < 0.8")
+        single = GBDT(GBDTParam(hist_method=method, **param),
+                      num_feature=N_FEATURES)
+        single.set_boundaries(bounds)
+        (ens, margin), sec = device_time(single.fit_binned, bins, y_t)
+        single_acc = ((margin > 0).float() == y_t).float().mean().item()
+        dist_ens = TreeEnsemble(**fits[0]["ensemble"])
+        one = TreeEnsemble(**_ensemble_arrays(ens))
+        agree = _split_agreement(dist_ens, one)
+        first = _same_tree(dist_ens, one, 0)
+        print(f"{method}: single-card fit {sec:.3f} s, acc "
+              f"{single_acc:.4f}; split agreement {agree:.4f}; first tree "
+              f"identical {first}; accuracy gap {abs(acc - single_acc):.5f}",
+              flush=True)
+        if not first:
+            fail(f"{method}: the distributed first tree differs from the "
+                 f"single-card fit's")
+        if abs(acc - single_acc) > 0.005:
+            fail(f"{method}: distributed and single-card accuracies differ "
+                 f"by more than 0.005")
+    del bins, y_t, wire, x, y
+    torch.cuda.empty_cache()
+    k4 = ranks[0]["k4"]
+    k4["launches"] = sum(ranks[0]["fits"][m]["launches"]
+                         ["grad_hist_sharded_cuda"]
+                         for m in ("pallas", "pallas_fused"))
+
+    print("== phase 5b: world size 1 over NCCL, model_axis fit vs the "
+          "plain card fit", flush=True)
+    _launch_workers("nccl", 1, outdir, WORKER_TIMEOUT_S)
+    return k4
+
+
+def _time_serially(rank, fn):
+    """``fn()`` on one rank at a time, the others waiting at a barrier, so
+    kernel times are not shared with the other ranks on the card."""
+    from dmlc_core_tpu_torch import collective
+
+    out = None
+    for r in range(collective.get_world_size()):
+        if r == rank:
+            out = fn()
+        collective.allreduce(np.zeros(1, np.float32))    # barrier
+    return out
+
+
+def _k4_check(mesh, rank, lo, hi):
+    """K4 at 32 nodes on the phase-3 shape, every rank taking part: the
+    result after the collectives against the plain histogram of the whole
+    global array, two calls bitwise, and times."""
+    from dmlc_core_tpu_torch.collective.mesh_collectives import (
+        MeshCollective)
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import cuda_event_ms
+
+    B, F, nb, n = N_ROWS, N_FEATURES, NUM_BINS, 32
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    gbins = torch.from_numpy(rng.randint(0, nb, (B, F)).astype(np.uint8))
+    gnode = torch.from_numpy(rng.randint(-1, n, B).astype(np.int32))
+    gg = torch.from_numpy(rng.randn(B).astype(np.float32))
+    gh = torch.from_numpy(rng.rand(B).astype(np.float32))
+    local = [t[lo:hi].contiguous().to(dev) for t in (gbins, gnode, gg, gh)]
+    want = hist_cuda.grad_hist_ref(*(t.to(dev) for t in
+                                     (gbins, gnode, gg, gh)), n, nb)
+    del gbins, gnode, gg, gh
+    out = {}
+    for fused in (False, True):
+        def k4():
+            return hist_cuda.grad_hist_sharded_cuda(*local, n, nb, mesh,
+                                                    "model", fused=fused)
+        got = k4()
+        for a, b in zip(got, want):
+            if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+                fail(f"K4 (fused={fused}) disagrees with the plain global "
+                     f"histogram: max abs err {_max_err(got, want):.3g}")
+        again = k4()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K4 (fused={fused}) is not bitwise repeatable")
+        out[f"max_abs_err_fused{int(fused)}"] = _max_err(got, want)
+        out[f"k4_ms_fused{int(fused)}"] = cuda_event_ms(k4, iters=5,
+                                                        warmup=1)
+    del want
+    f_count = F // mesh.shape["model"]
+    f0 = mesh.coord("model") * f_count
+    lb, ln, lg, lh = local
+    piece = torch.stack(hist_cuda.grad_hist_cuda(lb, ln, lg, lh, n, nb, f0,
+                                                 f_count))
+    data_c = MeshCollective(mesh, "data")
+    model_c = MeshCollective(mesh, "model")
+    out["all_reduce_ms"] = cuda_event_ms(lambda: data_c.psum(piece),
+                                         iters=10, warmup=2)
+    out["all_gather_ms"] = cuda_event_ms(
+        lambda: model_c.allgather(piece, dim=2), iters=10, warmup=2)
+    out["all_reduce_bytes"] = piece.numel() * 4
+    out["all_gather_bytes"] = piece.numel() * 4 * mesh.shape["model"]
+
+    def alone():
+        res = {}
+        res["ms"] = cuda_event_ms(lambda: hist_cuda.grad_hist_cuda(
+            lb, ln, lg, lh, n, nb, f0, f_count), iters=5, warmup=1)
+        res["ms_fused"] = cuda_event_ms(lambda: hist_cuda.grad_hist_fused_cuda(
+            lb, ln, lg, lh, n, nb, f0, f_count), iters=5, warmup=1)
+        res["plain_ms"] = cuda_event_ms(lambda: hist_cuda.grad_hist_ref(
+            lb[:, f0:f0 + f_count].contiguous(), ln, lg, lh, n, nb),
+            iters=3, warmup=1)
+        # the scatter formulation as one library call on the window
+        rows = hi - lo
+        ids = (ln.long()[:, None] * (f_count * nb)
+               + torch.arange(f_count, device=dev)[None, :] * nb
+               + lb[:, f0:f0 + f_count].long())
+        nseg = n * f_count * nb
+        ok = (ln >= 0)[:, None].expand(rows, f_count)
+        flat = torch.cat([torch.where(ok, ids, 2 * nseg),
+                          torch.where(ok, ids + nseg, 2 * nseg)]).reshape(-1)
+        src = torch.cat([lg[:, None].expand(rows, f_count),
+                         lh[:, None].expand(rows, f_count)]).reshape(-1)
+        acc = torch.zeros(2 * nseg + 1, device=dev)
+        res["library_ms"] = cuda_event_ms(lambda: acc.index_add_(0, flat,
+                                                                 src),
+                                          iters=5, warmup=1)
+        live = int((ln >= 0).sum().item())
+        nbytes = rows * f_count + 12 * rows + 2 * n * f_count * nb * 4
+        res["bound_ms"], res["bound_by"] = _bound_ms(nbytes,
+                                                     2 * live * f_count)
+        res["bound_bytes"] = nbytes
+        return res
+
+    res = _time_serially(rank, alone)
+    if res is not None:
+        out.update(res)
+    return out
+
+
+def worker_main(mode, outdir):
+    """One rank of phase 5 (``--worker gloo|nccl OUTDIR``)."""
+    from dmlc_core_tpu_torch import collective
+    from dmlc_core_tpu_torch.bridge.binning import HostBinner
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.parallel.mesh import make_mesh, row_range
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    if mode == "gloo":
+        collective.init({"backend": "gloo", "timeout": COLLECTIVE_TIMEOUT_S})
+        mesh, n_rows = make_mesh(MESH), N_ROWS
+    else:
+        collective.init({"timeout": COLLECTIVE_TIMEOUT_S})  # nccl, the card
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"backend {torch.distributed.get_backend()}, not nccl")
+        mesh, n_rows = make_mesh({"data": 1, "model": 1}), N_AGREE
+    rank = collective.get_rank()
+    dev = torch.device("cuda")
+    x, y = make_higgs_like(n_rows, N_FEATURES)
+    lo, hi = row_range(mesh, n_rows)
+    x, y = x[lo:hi], y[lo:hi]
+    param = dict(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                 num_bins=NUM_BINS, learning_rate=0.3)
+    probe = GBDT(GBDTParam(**param), N_FEATURES, model_axis="model")
+    bounds = probe.make_bins(x[:QUANTILE_SAMPLE], comm=collective,
+                             count=hi - lo)
+    bins = torch.from_numpy(HostBinner(bounds, NUM_BINS).transform(x)).to(dev)
+    y_t = torch.from_numpy(y).to(dev)
+    result = {"rank": rank, "boundaries": bounds, "fits": {},
+              "coord": {a: mesh.coord(a) for a in mesh.axis_names}}
+    for method in ("pallas", "pallas_fused"):
+        model = GBDT(GBDTParam(hist_method=method, **param), N_FEATURES,
+                     model_axis="model")
+        model.set_boundaries(bounds)
+        # the main path: counts set to 0 just before, read just after
+        hist_cuda.reset_launches()
+        hist_cuda.STAGE_SECONDS = {}
+        with mesh:
+            (ens, margin), sec = device_time(model.fit_binned, bins, y_t)
+        stages, hist_cuda.STAGE_SECONDS = hist_cuda.STAGE_SECONDS, None
+        launches = dict(hist_cuda.LAUNCHES)
+        if launches["grad_hist_sharded_cuda"] < ROUNDS * MAX_DEPTH:
+            fail(f"{method}: K4 launched {launches} times")
+        result["fits"][method] = dict(
+            ensemble=_ensemble_arrays(ens), seconds=sec, stages=stages,
+            launches=launches,
+            correct=int(((margin > 0).float() == y_t).sum().item()))
+        print(f"rank {rank} {method}: fit {sec:.3f} s, launches {launches}",
+              flush=True)
+        if mode == "nccl":
+            # the same rows and edges without a mesh: the plain card fit
+            plain = GBDT(GBDTParam(hist_method=method, **param), N_FEATURES)
+            plain.set_boundaries(bounds)
+            ref, ref_margin = plain.fit_binned(bins, y_t)
+            same = all(torch.equal(a, b) for a, b in zip(ens, ref)) \
+                and torch.equal(margin, ref_margin)
+            print(f"nccl world 1, {method}: ensemble and margin bitwise "
+                  f"equal to the plain card fit: {same}", flush=True)
+            if not same:
+                fail(f"{method}: the NCCL world-1 fit differs from the "
+                     f"plain card fit")
+    if mode == "gloo":
+        result["k4"] = _k4_check(mesh, rank, lo, hi)
+        if rank == 0:
+            print(f"K4 at n=32 on rank 0: {json.dumps(result['k4'])}",
+                  flush=True)
+    torch.save(result, os.path.join(outdir, f"{mode}{rank}.pt"))
+    collective.finalize()
+
+
+def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is False")
+        sys.path.insert(0, here)
+        worker_main(sys.argv[2], sys.argv[3])
+        return
+    card = phase_device()
     if not os.path.isdir(os.path.join(here, "dmlc_core_tpu_torch")):
         fail(f"no dmlc_core_tpu_torch package beside {__file__}")
     sys.path.insert(0, here)
@@ -337,6 +692,14 @@ def main():
     launches = phase_gbdt(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    k4 = phase_distributed(card)
+    kernels.append(dict(
+        name="grad_hist_sharded_cuda", route="cuda",
+        source="dmlc_core_tpu_torch/csrc/hist.cu",
+        replaces="dmlc_core_tpu/ops/hist_pallas.py:350",
+        launches=k4["launches"], max_abs_err=k4["max_abs_err_fused0"],
+        ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+        bound_by=k4["bound_by"], library_ms=k4["library_ms"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))

@@ -14,6 +14,21 @@
 //    (and H from h), with the node one-hot built in the kernel from 12 B of
 //    node/g/h per row.
 //
+// Both read a window of feature columns, bins[i * ld_bins + f_offset + f]
+// for f < num_feature, straight from a row-major [B, ld_bins] array
+// (ld_bins = num_feature, f_offset = 0 for the whole array).  That is the
+// counterpart of grad_hist_pallas_sharded (K4, hist_pallas.py:350): each
+// model shard of the TPU program slices its F/mp columns with a
+// dynamic_slice and runs K2/K3 on the copy; a rank here hands its window to
+// the same kernels instead, so no B x F/mp copy is made per tree level.
+// Outputs stay [..., num_feature * nbins] for the window.  A window of 14
+// uint8 columns of a 28-byte row still touches every 32-byte sector of the
+// row, so the window costs as many DRAM sectors as the whole row; a layout
+// that stores each rank's columns contiguously would fix that (later work).
+// K4's bound at chip_smoke.py's shape (1,000,000 rows and a 14-column window
+// per rank, 32 nodes, 256 bins): 14 MB of bins (28 MB of sectors), 12 MB of
+// node/g/h and 0.92 MB of output, about 8 us at 3.35 TB/s.
+//
 // Design.  The Pallas kernels keep one [M, F*nbins] f32 accumulator resident
 // in VMEM across a sequential grid of row tiles.  A CTA has at most 227 KB of
 // shared memory and CTAs run in parallel with nothing carried between them,
@@ -51,6 +66,7 @@ template <typename BinT>
 __global__ void hist_matmul_kernel(const __nv_bfloat16* __restrict__ w,
                                    const BinT* __restrict__ bins,
                                    long long num_rows, int num_feature,
+                                   int ld_bins, int f_offset,
                                    int m_total, int num_bins, int m_block,
                                    long long rows_per_chunk,
                                    float* __restrict__ partial) {
@@ -78,7 +94,7 @@ __global__ void hist_matmul_kernel(const __nv_bfloat16* __restrict__ w,
                                         r_end - t0));
     __syncthreads();  // the previous tile is consumed
     for (int r = threadIdx.x; r < tn; r += blockDim.x)
-      sbin[r] = static_cast<int>(bins[(t0 + r) * num_feature + f]);
+      sbin[r] = static_cast<int>(bins[(t0 + r) * ld_bins + f_offset + f]);
     for (int k = threadIdx.x; k < m_count * kTile; k += blockDim.x) {
       const int m = k / kTile;
       const int r = k - m * kTile;
@@ -119,6 +135,7 @@ __global__ void grad_hist_fused_kernel(const BinT* __restrict__ bins,
                                        const float* __restrict__ grad,
                                        const float* __restrict__ hess,
                                        long long num_rows, int num_feature,
+                                       int ld_bins, int f_offset,
                                        int num_nodes, int num_bins,
                                        int node_block,
                                        long long rows_per_chunk,
@@ -149,7 +166,8 @@ __global__ void grad_hist_fused_kernel(const BinT* __restrict__ bins,
       const long long i = t0 + r;
       const int local = node[i] - n0;  // rows of other blocks, -1: dropped
       const bool live = local >= 0 && local < n_count;
-      sbin[r] = live ? static_cast<int>(bins[i * num_feature + f]) : -1;
+      sbin[r] = live ? static_cast<int>(bins[i * ld_bins + f_offset + f])
+                     : -1;
       snode[r] = local;
       sg[r] = __bfloat162float(__float2bfloat16_rn(grad[i]));
       sh[r] = __bfloat162float(__float2bfloat16_rn(hess[i]));
@@ -209,7 +227,8 @@ cudaError_t sum_chunks(const float* partial, long long n, int n_chunks,
 template <typename BinT>
 cudaError_t launch_hist_matmul(const void* w, const void* bins,
                                long long num_rows, int num_feature,
-                               int m_total, int num_bins, int m_block,
+                               int ld_bins, int f_offset, int m_total,
+                               int num_bins, int m_block,
                                long long rows_per_chunk, int n_chunks,
                                float* partial, float* out,
                                cudaStream_t stream) {
@@ -223,8 +242,8 @@ cudaError_t launch_hist_matmul(const void* w, const void* bins,
   const dim3 grid(n_chunks, num_feature, (m_total + m_block - 1) / m_block);
   hist_matmul_kernel<BinT><<<grid, threads_for(num_bins), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(w), static_cast<const BinT*>(bins),
-      num_rows, num_feature, m_total, num_bins, m_block, rows_per_chunk,
-      partial);
+      num_rows, num_feature, ld_bins, f_offset, m_total, num_bins, m_block,
+      rows_per_chunk, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_chunks(partial,
@@ -236,6 +255,7 @@ template <typename BinT>
 cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                                    const void* grad, const void* hess,
                                    long long num_rows, int num_feature,
+                                   int ld_bins, int f_offset,
                                    int num_nodes, int num_bins,
                                    int node_block, long long rows_per_chunk,
                                    int n_chunks, float* partial, float* out,
@@ -252,8 +272,8 @@ cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                                  stream>>>(
       static_cast<const BinT*>(bins), static_cast<const int*>(node),
       static_cast<const float*>(grad), static_cast<const float*>(hess),
-      num_rows, num_feature, num_nodes, num_bins, node_block, rows_per_chunk,
-      partial);
+      num_rows, num_feature, ld_bins, f_offset, num_nodes, num_bins,
+      node_block, rows_per_chunk, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_chunks(partial,
@@ -261,10 +281,11 @@ cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                     stream);
 }
 
-bool bad_shape(long long num_rows, int num_feature, int rows_out,
-               int num_bins, int block, long long rows_per_chunk,
-               int n_chunks) {
+bool bad_shape(long long num_rows, int num_feature, int ld_bins,
+               int f_offset, int rows_out, int num_bins, int block,
+               long long rows_per_chunk, int n_chunks) {
   return num_rows <= 0 || num_feature <= 0 || num_feature > 65535
+         || f_offset < 0 || ld_bins < f_offset + num_feature
          || rows_out <= 0 || num_bins <= 0 || num_bins > 1024 || block <= 0
          || (rows_out + block - 1) / block > 65535 || rows_per_chunk <= 0
          || rows_per_chunk % kTile != 0 || n_chunks <= 0
@@ -282,51 +303,58 @@ const char* dmlc_hist_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1.  w [m_total, num_rows] bf16, bins [num_rows, num_feature] (uint8 when
-// bins_u8, else int32), partial [n_chunks, m_total, F*nbins] f32 (may alias
-// out when n_chunks == 1), out [m_total, F*nbins] f32.  Returns the CUDA
-// error of the launches (0 on success).
+// K1.  w [m_total, num_rows] bf16, bins [num_rows, ld_bins] (uint8 when
+// bins_u8, else int32) of which columns [f_offset, f_offset + num_feature)
+// are read, partial [n_chunks, m_total, F*nbins] f32 (may alias out when
+// n_chunks == 1), out [m_total, F*nbins] f32 with F = num_feature.  Returns
+// the CUDA error of the launches (0 on success).
 int dmlc_hist_matmul(const void* w, const void* bins, int bins_u8,
-                     long long num_rows, int num_feature, int m_total,
-                     int num_bins, int m_block, long long rows_per_chunk,
-                     int n_chunks, void* partial, void* out, void* stream) {
-  if (bad_shape(num_rows, num_feature, m_total, num_bins, m_block,
-                rows_per_chunk, n_chunks))
+                     long long num_rows, int num_feature, int ld_bins,
+                     int f_offset, int m_total, int num_bins, int m_block,
+                     long long rows_per_chunk, int n_chunks, void* partial,
+                     void* out, void* stream) {
+  if (bad_shape(num_rows, num_feature, ld_bins, f_offset, m_total, num_bins,
+                m_block, rows_per_chunk, n_chunks))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   return bins_u8
              ? launch_hist_matmul<uint8_t>(w, bins, num_rows, num_feature,
-                                           m_total, num_bins, m_block,
-                                           rows_per_chunk, n_chunks, p, o, s)
+                                           ld_bins, f_offset, m_total,
+                                           num_bins, m_block, rows_per_chunk,
+                                           n_chunks, p, o, s)
              : launch_hist_matmul<int32_t>(w, bins, num_rows, num_feature,
-                                           m_total, num_bins, m_block,
-                                           rows_per_chunk, n_chunks, p, o, s);
+                                           ld_bins, f_offset, m_total,
+                                           num_bins, m_block, rows_per_chunk,
+                                           n_chunks, p, o, s);
 }
 
-// K3.  node [num_rows] int32, grad/hess [num_rows] f32, partial
-// [n_chunks, 2, num_nodes, F*nbins] f32 (may alias out when n_chunks == 1),
-// out [2, num_nodes, F*nbins] f32.
+// K3.  bins as for K1, node [num_rows] int32, grad/hess [num_rows] f32,
+// partial [n_chunks, 2, num_nodes, F*nbins] f32 (may alias out when
+// n_chunks == 1), out [2, num_nodes, F*nbins] f32 with F = num_feature.
 int dmlc_grad_hist_fused(const void* bins, int bins_u8, const void* node,
                          const void* grad, const void* hess,
-                         long long num_rows, int num_feature, int num_nodes,
-                         int num_bins, int node_block,
-                         long long rows_per_chunk, int n_chunks,
-                         void* partial, void* out, void* stream) {
-  if (bad_shape(num_rows, num_feature, num_nodes, num_bins, node_block,
-                rows_per_chunk, n_chunks))
+                         long long num_rows, int num_feature, int ld_bins,
+                         int f_offset, int num_nodes, int num_bins,
+                         int node_block, long long rows_per_chunk,
+                         int n_chunks, void* partial, void* out,
+                         void* stream) {
+  if (bad_shape(num_rows, num_feature, ld_bins, f_offset, num_nodes,
+                num_bins, node_block, rows_per_chunk, n_chunks))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   return bins_u8
              ? launch_grad_hist_fused<uint8_t>(
-                   bins, node, grad, hess, num_rows, num_feature, num_nodes,
-                   num_bins, node_block, rows_per_chunk, n_chunks, p, o, s)
+                   bins, node, grad, hess, num_rows, num_feature, ld_bins,
+                   f_offset, num_nodes, num_bins, node_block, rows_per_chunk,
+                   n_chunks, p, o, s)
              : launch_grad_hist_fused<int32_t>(
-                   bins, node, grad, hess, num_rows, num_feature, num_nodes,
-                   num_bins, node_block, rows_per_chunk, n_chunks, p, o, s);
+                   bins, node, grad, hess, num_rows, num_feature, ld_bins,
+                   f_offset, num_nodes, num_bins, node_block, rows_per_chunk,
+                   n_chunks, p, o, s);
 }
 
 }  // extern "C"

@@ -8,6 +8,15 @@ reference compiles a round into one XLA program and scans over rounds, the
 port runs eagerly: a Python loop over rounds and levels, each level one
 histogram (the CUDA kernel on the card) plus a few tensor ops.
 
+Distributed training follows the reference's mesh semantics with one
+process per rank (:mod:`..parallel.mesh`): under ``with mesh:`` each rank
+fits on its own rows, every level's histogram is summed over the mesh's
+``data`` group (and, with ``model_axis``, computed by K4 on the rank's
+feature window and gathered over the ``model`` group), the split scan
+runs on every rank on identical sums, and leaf sums are summed over the
+``data`` group.  Every rank ends with the same ensemble; margins stay
+local.
+
 Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``
 [2**d].  Row/column sampling draws from ``jax.random`` in the reference
@@ -21,10 +30,10 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from dmlc_core_tpu_torch.ops.histogram import (apply_bins, as_tensor,
-                                               bin_onehot, grad_histogram,
-                                               quantile_boundaries,
-                                               resolve_hist_method)
+from dmlc_core_tpu_torch.ops import hist_cuda
+from dmlc_core_tpu_torch.ops.histogram import (
+    apply_bins, as_tensor, bin_onehot, data_allreduce,
+    distributed_quantile_boundaries, grad_histogram, resolve_hist_method)
 from dmlc_core_tpu_torch.param import Parameter, field
 from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
@@ -177,7 +186,8 @@ def _clip(x, lo, hi):
 
 def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                 min_child_weight: float, learning_rate: float,
-                method: str = "scatter", onehot=None,
+                model_axis: Optional[str] = None, method: str = "scatter",
+                onehot=None,
                 min_split_loss: float = 0.0, missing: bool = False,
                 reg_alpha: float = 0.0, monotone=None,
                 max_delta_step: float = 0.0):
@@ -189,6 +199,11 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     better direction in ``default_left``.  ``monotone`` ([F] in {-1, 0, 1})
     masks violating splits, carries a [lower, upper] weight interval per
     node split at the clamped midpoint, and clamps leaves into it.
+
+    Under an ambient mesh the histograms and leaf sums cover every rank's
+    rows (``model_axis`` shards the histogram's features), so the split
+    scan sees the same sums, and picks the same splits, on every rank;
+    rows are routed locally.
     """
     dev = bins.device
     B, F = bins.shape
@@ -225,8 +240,8 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
         n_nodes = 2 ** depth
         level_off = n_nodes - 1
         G, H = grad_histogram(bins, node, g, h, n_nodes, num_bins,
-                              method=method, onehot=onehot,
-                              device=dev)                # [n, F, nbins]
+                              model_axis=model_axis, method=method,
+                              onehot=onehot, device=dev)  # [n, F, nbins]
         GL = torch.cumsum(G, dim=-1)
         HL = torch.cumsum(H, dim=-1)
         GT = GL[..., -1:]
@@ -325,6 +340,7 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     else:
         Gl = torch.zeros(n_leaf, device=dev).index_add_(0, node, g)
         Hl = torch.zeros(n_leaf, device=dev).index_add_(0, node, h)
+    Gl, Hl = data_allreduce(Gl, Hl)          # every data shard's rows
     leaf_w = -_l1_threshold(Gl, reg_alpha) / (Hl + reg_lambda)
     if max_delta_step > 0.0:
         leaf_w = torch.clamp(leaf_w, -max_delta_step, max_delta_step)
@@ -387,14 +403,12 @@ class GBDT:
     """Histogram gradient-boosted trees over binned dense features.
 
     ``device`` is where training and scoring run: ``cuda`` unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``.  ``model_axis`` names the mesh axis
+    that shards the histogram's features when training runs under
+    ``with mesh:`` (each rank passing its own rows)."""
 
     def __init__(self, param: GBDTParam, num_feature: int,
                  model_axis: Optional[str] = None, device=None):
-        if model_axis is not None:
-            raise NotImplementedError(
-                "GBDT(model_axis=...): the model-sharded histogram is not "
-                "ported yet")
         CHECK(param.objective != "softmax" or param.num_class >= 2,
               "objective=softmax needs num_class >= 2")
         CHECK(param.scale_pos_weight == 1.0 or param.objective == "logistic",
@@ -405,6 +419,7 @@ class GBDT:
                                          num_feature)
         self.param = param
         self.num_feature = num_feature
+        self.model_axis = model_axis
         self.boundaries: Optional[np.ndarray] = None  # [F, eff_bins-1]
 
     # -- binning -------------------------------------------------------------
@@ -412,11 +427,19 @@ class GBDT:
         return (self.param.num_bins - 1 if self.param.handle_missing
                 else self.param.num_bins)
 
-    def make_bins(self, sample: np.ndarray) -> np.ndarray:
-        """Fit quantile boundaries from a host sample; returns them."""
+    def make_bins(self, sample: np.ndarray, comm=None,
+                  count: Optional[int] = None) -> np.ndarray:
+        """Fit quantile boundaries from a host sample; returns them.
+
+        With ``comm`` (rabit-shaped, e.g. :mod:`dmlc_core_tpu_torch.
+        collective`) every rank passes its own shard's sample and all
+        ranks get the same boundaries from the merged quantile summary;
+        ``count`` is the shard's true row count when ``sample`` is a
+        subsample of it."""
         CHECK(sample.shape[1] == self.num_feature,
               "sample feature dim mismatch")
-        self.boundaries = quantile_boundaries(sample, self._eff_bins())
+        self.boundaries = distributed_quantile_boundaries(
+            sample, self._eff_bins(), comm=comm, count=count)
         return self.boundaries
 
     def set_boundaries(self, boundaries: np.ndarray) -> None:
@@ -440,7 +463,27 @@ class GBDT:
 
     # -- internals -----------------------------------------------------------
     def _method(self, bins) -> str:
-        return resolve_hist_method(self.param.hist_method, bins)
+        """The histogram method of a fit, decided from the shapes and the
+        ambient mesh only, so every rank takes the same one.  With
+        ``model_axis`` the kernel methods keep the kernel (K4) where the
+        reference's sharded plan holds at the deepest level, and fall back
+        to ``"onehot"`` where it does not."""
+        method = resolve_hist_method(self.param.hist_method, bins)
+        if method in ("pallas", "pallas_fused") \
+                and self.model_axis is not None:
+            deepest = 2 ** (self.param.max_depth - 1)
+            mesh = hist_cuda.sharded_hist_plan(
+                self.model_axis, self.num_feature, deepest,
+                self.param.num_bins)
+            if mesh is None:
+                method = "onehot"
+            elif method == "pallas_fused":
+                mp = mesh.shape[self.model_axis]
+                if hist_cuda.hist_node_block(
+                        deepest, self.num_feature // mp,
+                        self.param.num_bins) < deepest:
+                    method = "pallas"   # blocked sweeps have no fused form
+        return method
 
     def _check_sampling(self) -> None:
         for name in _SAMPLING:
@@ -464,8 +507,8 @@ class GBDT:
         def grow(bins_, g, h):
             return _build_tree(
                 bins_, g, h, p.max_depth, p.num_bins, p.reg_lambda,
-                p.min_child_weight, p.learning_rate, method=method,
-                onehot=onehot, min_split_loss=p.min_split_loss,
+                p.min_child_weight, p.learning_rate, self.model_axis,
+                method=method, onehot=onehot, min_split_loss=p.min_split_loss,
                 missing=p.handle_missing, reg_alpha=p.reg_alpha,
                 monotone=self._monotone, max_delta_step=p.max_delta_step)
 

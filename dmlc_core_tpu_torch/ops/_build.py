@@ -71,10 +71,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dmlc_hist_tile.restype = i
     lib.dmlc_hist_error_string.argtypes = [i]
     lib.dmlc_hist_error_string.restype = ctypes.c_char_p
-    lib.dmlc_hist_matmul.argtypes = [p, p, i, ll, i, i, i, i, ll, i, p, p, p]
+    # dmlc_hist_matmul(w, bins, bins_u8, num_rows, num_feature, ld_bins,
+    #   f_offset, m_total, num_bins, m_block, rows_per_chunk, n_chunks,
+    #   partial, out, stream)
+    lib.dmlc_hist_matmul.argtypes = [p, p, i, ll, i, i, i, i, i, i, ll, i,
+                                     p, p, p]
     lib.dmlc_hist_matmul.restype = i
-    lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, ll, i, i, i, i, ll,
-                                         i, p, p, p]
+    # dmlc_grad_hist_fused(bins, bins_u8, node, grad, hess, num_rows,
+    #   num_feature, ld_bins, f_offset, num_nodes, num_bins, node_block,
+    #   rows_per_chunk, n_chunks, partial, out, stream)
+    lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, ll, i, i, i, i, i,
+                                         i, ll, i, p, p, p]
     lib.dmlc_grad_hist_fused.restype = i
     return lib
 

@@ -10,7 +10,23 @@ Counterpart of ``dmlc_core_tpu/ops/hist_pallas.py``.  The kernels live in
   bf16 weight matrix ``W = [nodehot*g ; nodehot*h]`` with PyTorch, launches
   K1's kernel and splits (G, H), sweeping node blocks for deep levels;
 - :func:`grad_hist_fused_cuda` replaces ``grad_hist_pallas_fused`` (K3):
-  the same (G, H) with the node one-hot built inside the kernel.
+  the same (G, H) with the node one-hot built inside the kernel;
+- :func:`grad_hist_sharded_cuda` replaces ``grad_hist_pallas_sharded``
+  (K4): on a rank at mesh coordinate ``(d, m)``, K2 or K3 over the rank's
+  window of ``F/mp`` feature columns (read in place: the kernels take a
+  row stride and a column offset), then the sum over the rank's ``data``
+  group and the concatenation over its ``model`` group.
+
+All three CUDA paths can read a column window ``[f_offset, f_offset +
+f_count)`` of a wider ``[B, F]`` bins array; outputs cover the window.
+
+K4's bound at ``chip_smoke.py``'s shape (2,000,000 rows over a 2 x 2
+data x model mesh, 28 features, 256 bins, 32 nodes): each rank's kernel
+must read its 1,000,000 x 14 uint8 window (14 MB; the 32-byte sectors it
+touches hold the whole 28-byte rows, 28 MB) and 12 B of node/g/h per row
+(12 MB), and write 2 x 32 x 14 x 256 f32 (0.92 MB): about 8 us at
+3.35 TB/s.  The data all-reduce then moves 0.92 MB per rank and the model
+all-gather hands each rank 1.84 MB.
 
 Numerics are the TPU kernels': g and h rounded to bf16 (nearest even),
 sums in f32, rows whose node id lies outside ``[0, num_nodes)`` dropped.
@@ -26,21 +42,35 @@ the kernel or raises.  ``LAUNCHES[name]`` counts kernel launches.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Tuple
+import time
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
+from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
 __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
-           "hist_matmul_ref", "grad_hist_ref", "grad_hist_fused_ref",
-           "scatter_sums", "node_weights", "hist_node_block",
-           "kernels_available",
-           "reset_launches", "LAUNCHES", "TILE"]
+           "grad_hist_sharded_cuda", "hist_matmul_ref", "grad_hist_ref",
+           "grad_hist_fused_ref", "grad_hist_sharded_ref", "scatter_sums",
+           "node_weights", "hist_node_block", "sharded_hist_plan",
+           "kernels_available", "reset_launches", "LAUNCHES",
+           "STAGE_SECONDS", "DATA_AXIS", "TILE"]
 
 # kernel launches per wrapper since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"hist_matmul_cuda": 0, "grad_hist_fused_cuda": 0}
+LAUNCHES: Dict[str, int] = {"hist_matmul_cuda": 0, "grad_hist_fused_cuda": 0,
+                            "grad_hist_sharded_cuda": 0}
+
+# seconds grad_hist_sharded_cuda spends in each stage ("kernel",
+# "all_reduce", "all_gather"), summed while this is a dict; None, the
+# default, times nothing.  Timing synchronises the card around each stage.
+STAGE_SECONDS: Optional[Dict[str, float]] = None
+
+# the mesh axis rows are sharded over; K4 sums its histograms over it
+DATA_AXIS = "data"
 
 TILE = 256               # rows a CTA stages per step (kTile in hist.cu)
 _SMEM_BYTES = 232448     # dynamic shared memory one block may use on sm_90
@@ -63,12 +93,17 @@ def _pad_nodes(num_nodes: int) -> int:
     return -(-max(8, num_nodes) // 8) * 8
 
 
+def _acc_fits(num_nodes: int, num_feature: int, num_bins: int) -> bool:
+    """Whether K2's ``[2*n_pad, F*nbins]`` f32 output fits the budget."""
+    return 2 * _pad_nodes(num_nodes) * num_feature * num_bins * 4 \
+        <= _ACC_BYTES_LIMIT
+
+
 def hist_node_block(num_nodes: int, num_feature: int, num_bins: int) -> int:
     """Nodes per :func:`grad_hist_cuda` sweep: all of them when the
     ``[2*n_pad, F*nbins]`` f32 output fits ``_ACC_BYTES_LIMIT``, else the
     largest power of two (at least 8) that does."""
-    if 2 * _pad_nodes(num_nodes) * num_feature * num_bins * 4 \
-            <= _ACC_BYTES_LIMIT:
+    if _acc_fits(num_nodes, num_feature, num_bins):
         return num_nodes
     block = 1 << (num_nodes - 1).bit_length()
     while block > 8 and 2 * block * num_feature * num_bins * 4 \
@@ -138,6 +173,13 @@ def grad_hist_ref(bins, node_ids, grad, hess, num_nodes: int,
                         num_bins)
 
 
+def _columns(bins, f_offset: int, f_count: int):
+    """The plain versions' column window: a copy of the columns."""
+    if f_offset == 0 and f_count == bins.shape[1]:
+        return bins
+    return bins[:, f_offset:f_offset + f_count].contiguous()
+
+
 # K2 and K3 compute the same function; the fused kernel's plain version is
 # the same code
 grad_hist_fused_ref = grad_hist_ref
@@ -159,6 +201,18 @@ def _check_rows(name: str, t, dtype, B: int, device) -> None:
     CHECK(t.shape == (B,), f"{name} must be [{B}], got {tuple(t.shape)}")
     CHECK(t.is_contiguous(), f"{name} must be contiguous")
     CHECK(t.device == device, f"{name} is on {t.device}, bins on {device}")
+
+
+def _window(bins, f_offset: int, f_count: Optional[int]) -> int:
+    """Width of the column window ``[f_offset, f_offset + f_count)`` of
+    ``bins`` (every column from ``f_offset`` on when ``f_count`` is None)."""
+    F = bins.shape[1]
+    if f_count is None:
+        f_count = F - f_offset
+    CHECK(f_offset >= 0 and f_count >= 1 and f_offset + f_count <= F,
+          f"column window [{f_offset}, {f_offset + f_count}) lies outside "
+          f"{F} features")
+    return f_count
 
 
 def _check_cuda(t) -> None:
@@ -201,19 +255,22 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 
 # -- wrappers ---------------------------------------------------------------
-def hist_matmul_cuda(w, bins, num_bins: int):
+def hist_matmul_cuda(w, bins, num_bins: int, f_offset: int = 0,
+                     f_count: Optional[int] = None):
     """K1 on the card: ``[M, F*num_bins]`` f32 from ``w`` [M, B] bf16 and
-    ``bins`` [B, F] uint8/int32.  CPU tensors take :func:`hist_matmul_ref`."""
+    the ``F = f_count`` columns from ``f_offset`` of ``bins`` [B, F_all]
+    uint8/int32 (all of them by default).  CPU tensors take
+    :func:`hist_matmul_ref` on a copy of the window."""
     _check_bins(bins, num_bins)
     CHECK(w.dim() == 2 and w.dtype == torch.bfloat16 and w.is_contiguous(),
           f"w must be a contiguous [M, B] bf16 matrix, got "
           f"{tuple(w.shape)} {w.dtype}")
     M, B = w.shape
-    F = bins.shape[1]
+    F = _window(bins, f_offset, f_count)
     CHECK(bins.shape[0] == B, f"w has {B} rows, bins {bins.shape[0]}")
     CHECK(w.device == bins.device, f"w on {w.device}, bins on {bins.device}")
     if w.device.type == "cpu":
-        return hist_matmul_ref(w, bins, num_bins)
+        return hist_matmul_ref(w, _columns(bins, f_offset, F), num_bins)
     _check_cuda(w)
     out = torch.empty(M, F * num_bins, dtype=torch.float32, device=w.device)
     if B == 0 or M == 0:
@@ -228,7 +285,8 @@ def hist_matmul_cuda(w, bins, num_bins: int):
     with torch.cuda.device(w.device):
         rc = lib.dmlc_hist_matmul(
             w.data_ptr(), bins.data_ptr(), int(bins.dtype == torch.uint8),
-            B, F, M, num_bins, m_block, rows_per_chunk, n_chunks,
+            B, F, bins.shape[1], f_offset, M, num_bins, m_block,
+            rows_per_chunk, n_chunks,
             partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "hist_matmul_cuda")
@@ -248,54 +306,63 @@ def node_weights(node_ids, grad, hess, num_nodes: int):
 
 
 def _grad_hist_block(bins, node_ids, grad, hess, num_nodes: int,
-                     num_bins: int):
+                     num_bins: int, f_offset: int, f_count: int):
     if bins.device.type == "cpu":
-        return grad_hist_ref(bins, node_ids, grad, hess, num_nodes, num_bins)
+        return grad_hist_ref(_columns(bins, f_offset, f_count), node_ids,
+                             grad, hess, num_nodes, num_bins)
     n_pad = _pad_nodes(num_nodes)
     w = node_weights(node_ids, grad, hess, num_nodes)
-    out = hist_matmul_cuda(w, bins, num_bins)
-    return _split_gh(out, n_pad, num_nodes, bins.shape[1], num_bins)
+    out = hist_matmul_cuda(w, bins, num_bins, f_offset, f_count)
+    return _split_gh(out, n_pad, num_nodes, f_count, num_bins)
+
+
+def _check_grad_args(bins, node_ids, grad, hess, num_nodes: int,
+                     num_bins: int) -> None:
+    _check_bins(bins, num_bins)
+    CHECK(num_nodes >= 1, f"num_nodes must be >= 1, got {num_nodes}")
+    for name, t, dt in (("node_ids", node_ids, torch.int32),
+                        ("grad", grad, torch.float32),
+                        ("hess", hess, torch.float32)):
+        _check_rows(name, t, dt, bins.shape[0], bins.device)
 
 
 def grad_hist_cuda(bins, node_ids, grad, hess, num_nodes: int,
-                   num_bins: int):
-    """K2: (G, H), each [num_nodes, F, num_bins] f32, through K1's kernel.
+                   num_bins: int, f_offset: int = 0,
+                   f_count: Optional[int] = None):
+    """K2: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
+    f_count`` columns from ``f_offset`` (all by default), through K1's
+    kernel.
 
     Levels whose output exceeds ``_ACC_BYTES_LIMIT`` run in node blocks:
     shifting node ids by the block base makes the kernel's own
     out-of-range drop do the partitioning."""
-    _check_bins(bins, num_bins)
-    CHECK(num_nodes >= 1, f"num_nodes must be >= 1, got {num_nodes}")
-    B, F = bins.shape
-    for name, t, dt in (("node_ids", node_ids, torch.int32),
-                        ("grad", grad, torch.float32),
-                        ("hess", hess, torch.float32)):
-        _check_rows(name, t, dt, B, bins.device)
+    _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
+    F = _window(bins, f_offset, f_count)
     block = hist_node_block(num_nodes, F, num_bins)
     if block < num_nodes:
         parts = [_grad_hist_block(bins, node_ids - b0, grad, hess,
-                                  min(block, num_nodes - b0), num_bins)
+                                  min(block, num_nodes - b0), num_bins,
+                                  f_offset, F)
                  for b0 in range(0, num_nodes, block)]
         return (torch.cat([p[0] for p in parts]),
                 torch.cat([p[1] for p in parts]))
-    return _grad_hist_block(bins, node_ids, grad, hess, num_nodes, num_bins)
+    return _grad_hist_block(bins, node_ids, grad, hess, num_nodes, num_bins,
+                            f_offset, F)
 
 
 def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
-                         num_bins: int):
-    """K3: (G, H), each [num_nodes, F, num_bins] f32, with the node
+                         num_bins: int, f_offset: int = 0,
+                         f_count: Optional[int] = None):
+    """K3: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
+    f_count`` columns from ``f_offset`` (all by default), with the node
     one-hot built in the kernel.  CPU tensors take
-    :func:`grad_hist_fused_ref`."""
-    _check_bins(bins, num_bins)
-    CHECK(num_nodes >= 1, f"num_nodes must be >= 1, got {num_nodes}")
-    B, F = bins.shape
-    for name, t, dt in (("node_ids", node_ids, torch.int32),
-                        ("grad", grad, torch.float32),
-                        ("hess", hess, torch.float32)):
-        _check_rows(name, t, dt, B, bins.device)
+    :func:`grad_hist_fused_ref` on a copy of the window."""
+    _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
+    B = bins.shape[0]
+    F = _window(bins, f_offset, f_count)
     if bins.device.type == "cpu":
-        return grad_hist_fused_ref(bins, node_ids, grad, hess, num_nodes,
-                                   num_bins)
+        return grad_hist_fused_ref(_columns(bins, f_offset, F), node_ids,
+                                   grad, hess, num_nodes, num_bins)
     _check_cuda(bins)
     out = torch.empty(2, num_nodes, F, num_bins, dtype=torch.float32,
                       device=bins.device)
@@ -313,12 +380,116 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
         rc = lib.dmlc_grad_hist_fused(
             bins.data_ptr(), int(bins.dtype == torch.uint8),
             node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-            B, F, num_nodes, num_bins, node_block, rows_per_chunk, n_chunks,
-            partial.data_ptr(), out.data_ptr(),
+            B, F, bins.shape[1], f_offset, num_nodes, num_bins, node_block,
+            rows_per_chunk, n_chunks, partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "grad_hist_fused_cuda")
     LAUNCHES["grad_hist_fused_cuda"] += 1
     return out[0], out[1]
+
+
+# -- K4: the model-sharded histogram ------------------------------------------
+def sharded_hist_plan(model_axis: Optional[str], num_feature: int,
+                      num_nodes: int, num_bins: int, mesh=None):
+    """The mesh to run :func:`grad_hist_sharded_cuda` over, or None, where
+    callers take ``"onehot"`` on all features instead.
+
+    The reference's gate (``hist_pallas.sharded_hist_plan``): an ambient
+    (or given) mesh carrying ``model_axis``, features dividing evenly
+    across it, and a per-shard ``F/mp`` slice that holds at least an
+    8-node accumulator block (deep levels sweep node blocks inside each
+    shard).  The reference also checks that the global batch divides
+    across the data axis; here rows arrive already sharded, one part per
+    rank, so there is nothing to divide.  ``num_nodes`` does not change
+    the answer (node blocks cover any count); it is kept for the
+    reference's signature."""
+    if model_axis is None:
+        return None
+    if mesh is None:
+        mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    mp = mesh.shape.get(model_axis)
+    if (mp is None or num_feature % mp != 0
+            or not _acc_fits(8, num_feature // mp, num_bins)):
+        return None
+    return mesh
+
+
+@contextlib.contextmanager
+def _stage(name: str):
+    if STAGE_SECONDS is None:
+        yield
+        return
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    start = time.perf_counter()
+    yield
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    STAGE_SECONDS[name] = (STAGE_SECONDS.get(name, 0.0)
+                           + time.perf_counter() - start)
+
+
+def _shard_window(bins, mesh, model_axis: str) -> Tuple[int, int]:
+    f_count = bins.shape[1] // mesh.shape[model_axis]
+    return mesh.coord(model_axis) * f_count, f_count
+
+
+def _shard_collectives(G, H, mesh, model_axis: str, data_axis: str):
+    """Steps 2 and 3 of K4: the sum over the data group (the reference's
+    ``psum``), then the model group's windows concatenated on the feature
+    axis in model-coordinate order (what GSPMD does before the split
+    scan)."""
+    gh = torch.stack([G, H])                         # [2, n, F/mp, nbins]
+    if data_axis in mesh.shape:
+        with _stage("all_reduce"):
+            gh = MeshCollective(mesh, data_axis).psum(gh)
+    with _stage("all_gather"):
+        gh = MeshCollective(mesh, model_axis).allgather(gh, dim=2)
+    return gh[0], gh[1]
+
+
+def grad_hist_sharded_ref(bins, node_ids, grad, hess, num_nodes: int,
+                          num_bins: int, mesh, model_axis: str,
+                          data_axis: str = DATA_AXIS):
+    """Plain version of K4: the rank's window as a copy,
+    :func:`grad_hist_ref`, then the same collectives."""
+    f_offset, f_count = _shard_window(bins, mesh, model_axis)
+    G, H = grad_hist_ref(_columns(bins, f_offset, f_count), node_ids, grad,
+                         hess, num_nodes, num_bins)
+    return _shard_collectives(G, H, mesh, model_axis, data_axis)
+
+
+def grad_hist_sharded_cuda(bins, node_ids, grad, hess, num_nodes: int,
+                           num_bins: int, mesh, model_axis: str,
+                           data_axis: str = DATA_AXIS, fused: bool = False):
+    """K4: (G, H), each [num_nodes, F, num_bins] f32, identical on every
+    rank of ``mesh``.
+
+    ``bins`` [B_local, F] are this rank's rows, all F columns; ranks that
+    share a data coordinate hold the same rows.  The rank runs K2 (or K3
+    with ``fused``) on its window of ``F/mp`` columns in place, sums the
+    result over its ``data_axis`` group and gathers the windows of its
+    ``model_axis`` group.  CPU tensors take :func:`grad_hist_sharded_ref`.
+    Every rank of the mesh must make the call (a rank with no rows joins
+    with zeros)."""
+    _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
+    CHECK(sharded_hist_plan(model_axis, bins.shape[1], num_nodes, num_bins,
+                            mesh) is not None,
+          f"no sharded plan for {bins.shape[1]} features over "
+          f"{model_axis!r} of mesh {mesh.shape} at {num_bins} bins")
+    if bins.device.type == "cpu":
+        return grad_hist_sharded_ref(bins, node_ids, grad, hess, num_nodes,
+                                     num_bins, mesh, model_axis, data_axis)
+    _check_cuda(bins)
+    f_offset, f_count = _shard_window(bins, mesh, model_axis)
+    inner = grad_hist_fused_cuda if fused else grad_hist_cuda
+    with _stage("kernel"):
+        G, H = inner(bins, node_ids, grad, hess, num_nodes, num_bins,
+                     f_offset, f_count)
+    LAUNCHES["grad_hist_sharded_cuda"] += 1
+    return _shard_collectives(G, H, mesh, model_axis, data_axis)
 
 
 @functools.lru_cache(maxsize=None)
@@ -335,15 +506,17 @@ def kernels_available() -> bool:
     node = torch.randint(-1, n, (B,), generator=gen).to(torch.int32)
     g = torch.randn(B, generator=gen)
     h = torch.rand(B, generator=gen)
-    want = grad_hist_ref(bins, node, g, h, n, nbins)
     dev = torch.device("cuda")
     args = [t.to(dev) for t in (bins, node, g, h)]
-    for fn in (grad_hist_cuda, grad_hist_fused_cuda):
-        got = fn(*args, n, nbins)
-        for a, b in zip(got, want):
-            if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5):
-                raise RuntimeError(
-                    f"{fn.__name__} disagrees with its plain version on the "
-                    f"probe case (max abs err "
-                    f"{(a.cpu() - b).abs().max().item():.3g})")
+    # the whole array, and the window of column 1 alone
+    for window in ((0, F), (1, 1)):
+        want = grad_hist_ref(_columns(bins, *window), node, g, h, n, nbins)
+        for fn in (grad_hist_cuda, grad_hist_fused_cuda):
+            got = fn(*args, n, nbins, *window)
+            for a, b in zip(got, want):
+                if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5):
+                    raise RuntimeError(
+                        f"{fn.__name__} disagrees with its plain version on "
+                        f"the probe case, columns {window} (max abs err "
+                        f"{(a.cpu() - b).abs().max().item():.3g})")
     return True

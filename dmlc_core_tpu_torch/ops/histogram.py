@@ -11,6 +11,12 @@ are a numpy copy of the reference's; the device half runs on tensors:
   ``torch.matmul``), and ``"pallas"`` / ``"pallas_fused"``, which keep the
   reference's names so its parameters load unchanged and here mean the
   hand-written CUDA kernels of :mod:`.hist_cuda` (K2 and K3).
+
+Under an ambient mesh (``with mesh:``) each rank holds its own rows.
+``grad_histogram(model_axis=...)`` then takes K4 where the reference's
+``sharded_hist_plan`` gives a plan, and every other method sums its
+histogram over the mesh's ``data`` group; :func:`distributed_quantile_
+boundaries` gives every rank the same bin edges.
 """
 
 from __future__ import annotations
@@ -21,13 +27,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
 from dmlc_core_tpu_torch.ops import hist_cuda
+from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
 __all__ = ["quantile_boundaries", "apply_bins", "grad_histogram",
            "bin_onehot", "resolve_hist_method", "local_quantile_summary",
-           "merged_quantile_boundaries", "as_tensor"]
+           "merged_quantile_boundaries", "distributed_quantile_boundaries",
+           "data_allreduce", "as_tensor"]
 
 METHODS = ("pallas", "pallas_fused", "onehot", "scatter")
 
@@ -137,6 +146,43 @@ def merged_quantile_boundaries(points: np.ndarray, counts,
     return _strictly_increasing(out)
 
 
+def distributed_quantile_boundaries(sample: np.ndarray, num_bins: int,
+                                    comm=None,
+                                    num_points: Optional[int] = None,
+                                    count: Optional[int] = None
+                                    ) -> np.ndarray:
+    """Quantile bin boundaries consistent across data-parallel workers.
+
+    Each worker summarises its local ``sample``
+    (:func:`local_quantile_summary`), allgathers the fixed-size summaries
+    through ``comm`` (any object with a rabit-shaped ``allgather``, e.g.
+    :mod:`dmlc_core_tpu_torch.collective`) and merges them
+    deterministically, so all ranks return identical boundaries.  With
+    ``comm=None`` this is :func:`quantile_boundaries`.
+
+    ``num_points`` is the summary resolution (default ``8 * num_bins``, at
+    least 64).  ``count`` is the shard's true row count when ``sample`` is
+    a subsample of it, so imbalanced shards merge with their real mass.
+    """
+    if comm is None:
+        return quantile_boundaries(sample, num_bins)
+    K = num_points or max(64, 8 * num_bins)
+    points, fc = local_quantile_summary(sample, K)       # fc: [F] finite
+    n = np.asarray(sample).shape[0]
+    if count is not None:
+        CHECK(count >= 0, f"count must be non-negative, got {count}")
+        CHECK(n > 0 or count == 0,
+              f"count={count} with an empty sample contributes unsampled "
+              f"mass; pass the shard's rows (or a subsample) too")
+        if n > 0:
+            # scale the finite mass from the subsample up to the shard's
+            # true size (missingness rates are assumed to survive sampling)
+            fc = fc * (count / n)
+    all_points = comm.allgather(points.astype(np.float32))   # [W, F, K]
+    all_counts = comm.allgather(fc.astype(np.float32))       # [W, F]
+    return merged_quantile_boundaries(all_points, all_counts, num_bins)
+
+
 def apply_bins(x, boundaries, missing_bin: Optional[int] = None,
                device=None):
     """Bin dense features: x [B, F] float -> bins [B, F] int32.
@@ -167,6 +213,17 @@ def _kernel_bins(bins):
     return bins.to(torch.int32).contiguous()
 
 
+def data_allreduce(*tensors):
+    """The tensors (of one shape) summed over the ambient mesh's ``data``
+    group when that axis spans more than one rank, as one collective (the
+    reference gets these sums from GSPMD); else the tensors unchanged."""
+    mesh = ambient_mesh()
+    if mesh is None or mesh.shape.get(hist_cuda.DATA_AXIS, 1) == 1:
+        return tensors
+    return tuple(MeshCollective(mesh, hist_cuda.DATA_AXIS).psum(
+        torch.stack(tensors)))
+
+
 def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
                    model_axis: Optional[str] = None, method: str = "scatter",
                    onehot=None, device=None):
@@ -177,17 +234,21 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
       node_ids: [B] tree node of each row; ids outside ``[0, num_nodes)``
         contribute nothing.
       grad/hess: [B] float32 (padding rows carry 0 weight).
+      model_axis: optional mesh axis to shard the feature axis over.  Under
+        an ambient mesh with that axis, ``"pallas"``/``"pallas_fused"`` run
+        K4 (each rank on its ``F/mp`` columns) where
+        :func:`.hist_cuda.sharded_hist_plan` gives a plan, else
+        ``"onehot"`` on all features, as the reference does.
       method: ``"scatter"`` (exact f32), ``"onehot"``, ``"pallas"`` (K2),
         ``"pallas_fused"`` (K3) or ``"auto"``.
       onehot: optional precomputed :func:`bin_onehot` for ``"onehot"``.
       device: where to run; ``cuda`` unless ``device="cpu"``.
 
+    Under an ambient mesh ``bins`` are this rank's rows and the result is
+    the histogram of every rank's rows, identical on every rank.
+
     Returns (G, H): each [num_nodes, F, num_bins] float32.
     """
-    if model_axis is not None:
-        raise NotImplementedError(
-            "grad_histogram(model_axis=...): the model-sharded histogram "
-            "is not ported yet")
     dev = resolve_device(device)
     bins = _kernel_bins(as_tensor(bins, dev))
     node_ids = as_tensor(node_ids, dev, torch.int32).contiguous()
@@ -195,6 +256,28 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
     hess = as_tensor(hess, dev, torch.float32).contiguous()
     B, F = bins.shape
     method = resolve_hist_method(method, bins)
+    if method in ("pallas", "pallas_fused") and model_axis is not None:
+        mesh = hist_cuda.sharded_hist_plan(model_axis, F, num_nodes,
+                                           num_bins)
+        if mesh is None:
+            method = "onehot"
+        else:
+            mp = mesh.shape[model_axis]
+            # blocked sweeps have no fused variant in the reference
+            fused = (method == "pallas_fused" and hist_cuda.hist_node_block(
+                num_nodes, F // mp, num_bins) >= num_nodes)
+            return hist_cuda.grad_hist_sharded_cuda(
+                bins, node_ids, grad, hess, num_nodes, num_bins, mesh,
+                model_axis, fused=fused)
+    return data_allreduce(*_local_histogram(
+        bins, node_ids, grad, hess, num_nodes, num_bins, method, onehot))
+
+
+def _local_histogram(bins, node_ids, grad, hess, num_nodes: int,
+                     num_bins: int, method: str, onehot):
+    """(G, H) of this rank's rows by ``method``, over all F features."""
+    B, F = bins.shape
+    dev = bins.device
     if method == "pallas":
         return hist_cuda.grad_hist_cuda(bins, node_ids, grad, hess,
                                         num_nodes, num_bins)

@@ -3,14 +3,16 @@
 Counterpart of ``dmlc_core_tpu/param.py``: typed fields with defaults,
 range checks and enum values, strict keyword init, and the str->str dict
 form, so a parameter dict written by the JAX package
-(``param.to_dict()``) initialises the port's struct unchanged.
+(``param.to_dict()``) initialises the port's struct unchanged; and
+:func:`get_env`, the typed environment read the collective API uses.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+import os
+from typing import Any, Dict, Optional, Sequence, Type
 
-__all__ = ["Parameter", "ParamError", "field"]
+__all__ = ["Parameter", "ParamError", "field", "get_env"]
 
 
 class ParamError(ValueError):
@@ -135,3 +137,14 @@ class Parameter:
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={v!r}" for k, v in self.to_dict().items())
         return f"{type(self).__name__}({body})"
+
+
+def get_env(key: str, dtype: Type, default: Any) -> Any:
+    """Typed environment variable read: ``default`` when unset, booleans
+    parsed as the parameter fields parse them."""
+    raw = os.environ.get(key)
+    if raw is None:
+        return default
+    if dtype is bool:
+        return _parse_bool(raw)
+    return dtype(raw)

@@ -179,11 +179,34 @@ def test_auto_resolves_to_scatter_on_cpu():
         port_hist.resolve_hist_method("bogus", bins)
 
 
-def test_model_axis_not_ported():
-    bins, node, g, h = _case(16, 2, 4, 1)
-    with pytest.raises(NotImplementedError):
-        port_hist.grad_histogram(bins, node, g, h, 1, 4, model_axis="model",
-                                 device="cpu")
+def test_model_axis_takes_k4_plain_version(monkeypatch):
+    """``grad_histogram(model_axis=...)`` under a 1 x 1 mesh dispatches to
+    K4, whose wrapper takes its plain version for CPU tensors and counts
+    no launch; the result is the plain histogram, bitwise."""
+    from dmlc_core_tpu_torch.parallel.mesh import make_mesh
+
+    bins, node, g, h = _case(64, 4, 8, 3, seed=7)
+    calls = []
+    plain = hist_cuda.grad_hist_sharded_ref
+
+    def spy(*args, **kwargs):
+        calls.append(args[7])                            # the mesh
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(hist_cuda, "grad_hist_sharded_ref", spy)
+    monkeypatch.setattr(hist_cuda, "STAGE_SECONDS", {})
+    hist_cuda.reset_launches()
+    with make_mesh({"data": 1, "model": 1}):
+        got = port_hist.grad_histogram(*_t(bins, node, g, h), 3, 8,
+                                       model_axis="model", method="pallas",
+                                       device="cpu")
+    assert len(calls) == 1
+    assert set(hist_cuda.LAUNCHES.values()) == {0}
+    # the collectives are timed when asked; the plain version has no kernel
+    assert set(hist_cuda.STAGE_SECONDS) == {"all_reduce", "all_gather"}
+    want = hist_cuda.grad_hist_ref(*_t(bins, node, g, h), 3, 8)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # -- the kernels' plain versions vs the Pallas kernels (interpret mode) ------

@@ -91,7 +91,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     assert torch.equal(hist_cuda.hist_matmul_cuda(w, bins, 8),
                        hist_cuda.hist_matmul_ref(w, bins, 8))
     assert hist_cuda.LAUNCHES == {"hist_matmul_cuda": 0,
-                                  "grad_hist_fused_cuda": 0}
+                                  "grad_hist_fused_cuda": 0,
+                                  "grad_hist_sharded_cuda": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -163,3 +164,27 @@ def test_kernels_match_plain_versions_on_card():
         for a, b, c in zip(first, again, want):
             assert torch.equal(a, b)
             torch.testing.assert_close(a.cpu(), c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", [None, "nccl"])
+def test_nccl_refuses_more_local_ranks_than_cards(monkeypatch, backend):
+    """NCCL (the default on the card) with two local ranks on one card
+    raises before any process group exists; it never switches to gloo."""
+    from dmlc_core_tpu_torch.collective import api
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    chosen = []
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    for key in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    args = {"DMLC_NUM_WORKER": 2, "DMLC_TASK_ID": 1,
+            "DMLC_COORDINATOR_URI": "127.0.0.1",
+            "DMLC_COORDINATOR_PORT": 9}
+    if backend is not None:
+        args["backend"] = backend
+    with pytest.raises(RuntimeError, match="Duplicate GPU detected"):
+        api.init(args)
+    assert not api.is_initialized()
+    assert chosen == []
+    assert not torch.distributed.is_initialized()
