@@ -18,7 +18,12 @@ Phases (any failure exits non-zero and prints no result line):
    repeatability of two launches, and CUDA-event times beside the bound and
    one ``index_add_`` over precomputed flat ids (the scatter formulation);
    at 32 nodes also both kernels on the column window 14..27 read in place
-   (row stride 28, offset 14) against the plain version on a copy;
+   (row stride 28, offset 14) against the plain version on a copy; K1
+   (``hist_matmul_cuda``) alone on ragged shapes (1,000,003 rows, 48 weight
+   rows, 255 bins with bins out of range, uint8 on all columns and int32
+   on the window 14..27), each against its plain version and bitwise over
+   two launches; the K1 lines also give the dense tensor-core time
+   2*M*B*F*nbins at 989 TFLOP/s beside the bound;
 4. GBDT: ``fit_binned`` (10 rounds, depth 6, 256 bins, learning rate 0.3)
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, through the
    K1 path (``hist_method="auto"``) and the K3 path (``"pallas_fused"``),
@@ -69,6 +74,8 @@ WORKER_TIMEOUT_S = 420       # wall clock of each phase-5 launch
 COLLECTIVE_TIMEOUT_S = 300   # a dead peer fails the run after this
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
+RAGGED_ROWS = 1_000_003       # K1's ragged-shape checks
 
 
 def fail(msg):
@@ -242,7 +249,9 @@ def phase_kernels():
             bound, by = _bound_ms(nbytes, M * B * F)
             print(f"{'hist_matmul_cuda':22s} n={n:3d} M={M} max_abs_err="
                   f"{err:.3g} bitwise=True ms={ms:.3f} plain_ms="
-                  f"{plain_ms:.3f} bound_ms={bound:.4f} ({by})", flush=True)
+                  f"{plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
+                  f"dense_tc_ms={_dense_tc_ms(M, B, F, nb):.4f} "
+                  f"library_ms={library_ms:.3f}", flush=True)
             entries[("K1", n)] = dict(
                 name="hist_matmul_cuda", route="cuda",
                 source="dmlc_core_tpu_torch/csrc/hist.cu",
@@ -252,8 +261,47 @@ def phase_kernels():
             del w, got, ref_out
         del node, want
         torch.cuda.empty_cache()
+    _k1_ragged(bins.shape[1], gen)
     # the line reports the depth-6 main path's deepest level (32 nodes)
     return [entries[("K1", 32)], entries[("K3", 32)]]
+
+
+def _dense_tc_ms(m, rows, features, num_bins):
+    """K1's product W[M, B] @ onehot[B, F*nbins] done densely on the tensor
+    cores at their peak: the time the tensor-core formulation needs."""
+    return 1e3 * 2 * m * rows * features * num_bins / BF16_TC_OPS_PER_S
+
+
+def _k1_ragged(F, gen):
+    """K1 on shapes no tile divides: rows, weight rows and bins ragged,
+    bins out of range, uint8 on all columns and int32 on a window."""
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    dev = torch.device("cuda")
+    B, M, nb, f0 = RAGGED_ROWS, 48, 255, F // 2
+    w = torch.randn(M, B, device=dev, generator=gen).to(torch.bfloat16)
+    for dtype, lo, hi, off in ((torch.uint8, 0, 256, 0),
+                               (torch.int32, -3, 260, f0)):
+        rb = torch.randint(lo, hi, (B, F), device=dev, generator=gen,
+                           dtype=torch.int32).to(dtype)
+        count = F - off
+
+        def k1():
+            return hist_cuda.hist_matmul_cuda(w, rb, nb, off, count)
+        got = k1()
+        want = hist_cuda.hist_matmul_ref(w, rb[:, off:].contiguous(), nb)
+        _check_close(f"hist_matmul_cuda on {B} x {F} {dtype}", (got,),
+                     (want,))
+        if not _bitwise(k1):
+            fail(f"hist_matmul_cuda is not bitwise repeatable on {B} rows, "
+                 f"{dtype}, columns {off}..{F - 1}")
+        print(f"{'hist_matmul_cuda':22s} ragged B={B} M={M} nbins={nb} "
+              f"{str(dtype).split('.')[-1]} columns {off}..{F - 1} (bins in "
+              f"[{lo}, {hi})): max_abs_err={_max_err((got,), (want,)):.3g} "
+              f"bitwise=True", flush=True)
+        del rb, got, want
+    del w
+    torch.cuda.empty_cache()
 
 
 def _split_agreement(a, b):

@@ -8,7 +8,8 @@
 //
 //  * hist_matmul_kernel  <- hist_matmul_pallas / _kernel (K1):
 //      out[m, f*nbins + b] = sum_i w[m, i] * [bins[i, f] == b]
-//    for w [M, B] bf16 and bins [B, F] uint8 or int32, f32 sums.
+//    for w [M, B] bf16 and bins [B, F] uint8 or int32, f32 sums; bins
+//    outside [0, nbins) add nothing.
 //  * grad_hist_fused_kernel <- grad_hist_pallas_fused / _fused_kernel (K3):
 //      G[n, f, b] = sum_i bf16(g_i) * [node_i == n] * [bins[i, f] == b]
 //    (and H from h), with the node one-hot built in the kernel from 12 B of
@@ -29,25 +30,70 @@
 // per rank, 32 nodes, 256 bins): 14 MB of bins (28 MB of sectors), 12 MB of
 // node/g/h and 0.92 MB of output, about 8 us at 3.35 TB/s.
 //
-// Design.  The Pallas kernels keep one [M, F*nbins] f32 accumulator resident
-// in VMEM across a sequential grid of row tiles.  A CTA has at most 227 KB of
-// shared memory and CTAs run in parallel with nothing carried between them,
-// so here each CTA owns one (row chunk, feature, node/weight-row block): it
-// stages TILE rows at a time through shared memory and accumulates a
-// [rows-of-block, nbins] f32 histogram in shared memory.  Every accumulator
-// cell has exactly one writer thread, which adds the rows in order, so no
-// atomics are used; per-chunk partial histograms go to a scratch buffer and
-// sum_chunks_kernel adds them in chunk order.  The result is therefore bitwise
-// identical from launch to launch (the JAX package's fits are bitwise
-// reproducible, and the port keeps that).  The chunking is a function of the
-// shapes only, never of the card.
+// Determinism, both kernels.  The Pallas kernels keep one [M, F*nbins] f32
+// accumulator resident in VMEM across a sequential grid of row tiles.  CTAs
+// run in parallel with nothing carried between them, so here each CTA owns a
+// chunk of rows and writes a partial histogram for it; sum_chunks_kernel adds
+// the partials in chunk order.  Every accumulator cell has exactly one owner
+// (a thread for K3, a lane's register for K1) that adds its rows in order, so
+// no atomics are used and the result is bitwise identical from launch to
+// launch (the JAX package's fits are bitwise reproducible, and the port keeps
+// that).  The chunking is a function of the shapes only, never of the card.
 //
-// Bound.  Both kernels are bound by bytes on this card: K3 reads
-// B*F bins + 12 B per row once (about 80 MB per tree level at 2M x 28), K1
-// also reads W (2*M*B bytes).  This simple design instead spends most of its
-// time issuing one shared-memory compare per (row, feature, bin-warp); making
-// it reach the byte bound (tensor cores for W x one-hot, TMA, a persistent
-// grid) is later work.
+// K1 on Hopper's tensor cores.  K1 replaces hist_matmul_pallas (_kernel and
+// _accumulate_tile, hist_pallas.py:110-187), which computes per row tile and
+// feature the MXU product W[M, TB] @ onehot[TB, nbins].  Its two bounds on an
+// H100 at chip_smoke.py's shape (M = 64, B = 2,000,000, F = 28, 256 bins):
+//   * bytes: W (2*M*B = 256 MB), the bins (56 MB) and the output (1.8 MB)
+//     once each, 0.094 ms at 3.35 TB/s;
+//   * the dense product 2*M*B*F*nbins = 1.84 TFLOP, 1.86 ms at the 989
+//     TFLOP/s dense bf16 peak (0.46 ms at M = 16).
+// The one-hot is mostly zeros, so the dense product is the price of using
+// the tensor cores; it is still far below the scalar work of the first
+// design (one shared-memory compare per row, feature and bin-warp).
+//
+// What the design does about the causes of the first design's 38.5 ms:
+//   * W was read once per feature (each CTA did one feature): here a CTA of
+//     up to 8 warps covers 8 (feature, 64-bin slice) units of one 64-row
+//     block of W, and stages each W tile and bins slab once for all of them.
+//     The grid is (unit group, row chunk, m-block) with the unit group
+//     fastest, so the CTAs that share a row chunk run side by side and W
+//     comes from DRAM about once per launch and from L2 for the rest.
+//   * W was staged by latency-bound 2-byte loads: here every W tile
+//     [64 x 256 rows] and the bins of the tile's rows go through a two-stage
+//     cp.async ring in 16-byte copies, so the next tile loads while the
+//     tensor cores work on this one.
+//   * The tensor cores sat idle: here each warp issues
+//     mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32.  A (16 weight rows x 16
+//     data rows) comes from the staged W tile by ldmatrix (row pitch 528 B,
+//     an odd number of 16-byte units, so ldmatrix is free of bank
+//     conflicts).  B (16 data rows x 8 bins) is built in registers: lane l
+//     holds data rows 2(l%4) + {0, 1, 8, 9} of bin n0 + l/4, bf16 1.0
+//     (0x3F80) where the row's bin equals it.  A lane turns its 4 bins into
+//     one bit per n-tile once per k-step, and each n-tile's B register is
+//     then an AND and a multiply.  No one-hot reaches shared memory.
+//   * Accumulators live in registers, MT m-tiles x 8 n-tiles x 4 f32 (128 a
+//     lane at MT = 4): a warp owns one (feature, 64-bin slice, 64-row
+//     m-block) for its whole row chunk.  MT = ceil(M / 16), at most 4, is a
+//     template parameter: runtime m-tile guards made the first version
+//     issue-bound.  What still bounds it is issue too: building a B register
+//     costs about as much as the mma that reads it (numbers in PERF.md).
+// Ragged shapes: n-tiles past nbins are skipped and their columns never
+// written; a ragged last m-block computes rows on stale shared memory that
+// it does not write (an mma row depends on its own A row only); data rows
+// past the end of the chunk get W = 0 (cp.async's source size zero-fills the
+// copy), so whatever one-hot bit their stale bins give adds exactly 0.
+// W rows must start 16-byte aligned: the kernel takes W's row stride ld_w (a
+// multiple of 8), and the wrapper passes a row-padded copy when B % 8 != 0.
+// Bins rows of any stride and offset are copied as the 16-byte-aligned
+// granules that hold the CTA's columns; an aligned granule that holds one
+// byte of the array lies in the array's allocation, so the copy may read a
+// few bytes beside the window but never outside mapped memory.
+//
+// K3 is bound by bytes too: B*F bins + 12 B per row once (about 80 MB per
+// tree level at 2M x 28).  Its simple design spends most of its time issuing
+// one shared-memory compare per (row, feature, bin-warp); its redesign is
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,71 +104,268 @@ namespace {
 constexpr int kTile = 256;  // rows staged per step; TILE in ops/hist_cuda.py
 constexpr int kMaxSmem = 232448;  // dynamic shared memory one block may use
 
-// K1.  Block = 32 * ceil(nbins / 32) threads; warp v owns bins
-// [32v, 32v + 32), lane l owns weight rows m = l, l + 32, ...  The branch on
-// the staged bin is warp-uniform, so a row costs the other warps one
-// broadcast load and a compare.
-template <typename BinT>
-__global__ void hist_matmul_kernel(const __nv_bfloat16* __restrict__ w,
-                                   const BinT* __restrict__ bins,
-                                   long long num_rows, int num_feature,
-                                   int ld_bins, int f_offset,
-                                   int m_total, int num_bins, int m_block,
-                                   long long rows_per_chunk,
-                                   float* __restrict__ partial) {
+// K1's launch plan; hist_matmul_plan in ops/hist_cuda.py computes the same.
+constexpr int kMBlock = 64;            // weight rows per CTA: 4 m-tiles of 16
+constexpr int kMTiles = kMBlock / 16;
+constexpr int kSlice = 64;             // bins per warp: 8 n-tiles of 8
+constexpr int kNTiles = kSlice / 8;
+constexpr int kWarps = 8;              // (feature, slice) units per CTA
+constexpr int kWPitch = kTile + 8;     // bf16 per staged W row (528 B)
+constexpr int kWStageBytes = kMBlock * kWPitch * 2;
+
+struct MatmulPlan {
+  int slices;      // 64-bin slices per feature
+  long long units; // (feature, slice) pairs, one per warp
+  int warps;       // warps per CTA
+  long long groups;  // CTAs per (row chunk, m-block)
+  int span;        // most feature columns one CTA stages
+  int bins_pitch;  // bytes per staged bins row
+  int smem;        // dynamic shared memory: two stages of W and bins
+};
+
+MatmulPlan matmul_plan(int num_feature, int num_bins, int bin_bytes) {
+  MatmulPlan p;
+  p.slices = (num_bins + kSlice - 1) / kSlice;
+  p.units = static_cast<long long>(num_feature) * p.slices;
+  p.warps = static_cast<int>(p.units < kWarps ? p.units : kWarps);
+  p.groups = (p.units + kWarps - 1) / kWarps;
+  // `warps` consecutive units starting anywhere in a feature touch at most
+  // this many features
+  p.span = (p.warps + p.slices - 2) / p.slices + 1;
+  if (p.span > num_feature) p.span = num_feature;
+  // a row's columns start anywhere in a 16-byte granule: up to 15 B ahead
+  p.bins_pitch = 16 * ((15 + p.span * bin_bytes + 15) / 16);
+  p.smem = 2 * (kWStageBytes + kTile * p.bins_pitch);
+  return p;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; bytes past src_bytes are zero-filled
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// volatile keeps it after the barrier that publishes the tile
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The k-steps of one staged tile for one warp: MT m-tiles of W against the
+// first n_live n-tiles of the warp's bin slice (all of them when kFull).
+// bg = first bin of the slice + this lane's column in an n-tile.  Rows past
+// the end of the chunk need no test: their W columns are zero-filled, and
+// whatever one-hot bit their stale bins give adds exactly 0.
+template <typename BinT, int MT, bool kFull>
+__device__ __forceinline__ void k1_tile(float (&acc)[MT][kNTiles][4],
+                                        unsigned a_lane,
+                                        const unsigned char* sb,
+                                        const int (&row_off)[4],
+                                        int bins_pitch, int k_steps,
+                                        unsigned bg, int n_live) {
+#pragma unroll 2
+  for (int ks = 0; ks < k_steps; ++ks) {
+    // bit j (of the low half for rows 2 tig and 2 tig + 8, of the high
+    // half for the rows after them) is set when the row's bin is bg + 8 j
+    unsigned m01 = 0, m89 = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned t = static_cast<unsigned>(static_cast<int>(
+          *reinterpret_cast<const BinT*>(sb + ks * 16 * bins_pitch
+                                         + row_off[i]))) - bg;
+      const unsigned bit =
+          (t & ~0x38u) == 0 ? (1u << (16 * (i & 1))) << (t >> 3) : 0u;
+      if (i < 2) m01 |= bit;
+      else m89 |= bit;
+    }
+    unsigned a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldmatrix_x4(a[mt], a_lane + (mt * 16 * kWPitch + ks * 16) * 2);
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+      if (!kFull && j >= n_live) break;
+      // bit j of each half times 0x3F80 >> j: bf16 1.0 or 0 in each half
+      const unsigned b0 = (m01 & (0x10001u << j)) * (0x3F80u >> j);
+      const unsigned b1 = (m89 & (0x10001u << j)) * (0x3F80u >> j);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b0, b1);
+    }
+  }
+}
+
+// K1.  Grid (unit group, row chunk, m-block); block = 32 * warps threads.
+// Warp v of group g owns unit u = 8g + v: feature u / slices, bins
+// [64 (u % slices), +64), for weight rows [64 m-block, +64) and the rows of
+// the chunk, as MT m-tiles of 16 (MT = ceil(M / 16), at most 4: the guards
+// that a runtime count needs cost as many instructions as the mma).  Shared memory: two stages, each a W tile [64][kWPitch] bf16
+// and a bins slab [kTile][bins_pitch] bytes holding, for each row, the
+// 16-byte granules over columns [feat_lo, feat_lo + nf) of the window.
+template <typename BinT, int MT>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+hist_matmul_kernel(const __nv_bfloat16* __restrict__ w, long long ld_w,
+                   const BinT* __restrict__ bins, long long num_rows,
+                   int num_feature, int ld_bins, int f_offset, int m_total,
+                   int num_bins, long long rows_per_chunk, int slices,
+                   int bins_pitch, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int acc_stride = num_bins + 1;  // odd stride: lanes hit distinct banks
-  const int w_stride = m_block + 2;
-  float* acc = reinterpret_cast<float*>(smem_raw);        // [m_block][stride]
-  int* sbin = reinterpret_cast<int*>(acc + m_block * acc_stride);  // [kTile]
-  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(sbin + kTile);
-                                                           // [kTile][w_stride]
-  const int chunk = blockIdx.x;
-  const int f = blockIdx.y;
-  const int m0 = blockIdx.z * m_block;
-  const int m_count = min(m_block, m_total - m0);
+  constexpr int kBinBytes = sizeof(BinT);
+  const int stage_bytes = kWStageBytes + kTile * bins_pitch;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int grp = lane >> 2;   // mma fragment row / column group
+  const int tig = lane & 3;    // thread in group
 
-  for (int k = threadIdx.x; k < m_block * acc_stride; k += blockDim.x)
-    acc[k] = 0.f;
+  const long long units = static_cast<long long>(num_feature) * slices;
+  const long long u0 = static_cast<long long>(blockIdx.x) * kWarps;
+  const long long u_last = min(units, u0 + (blockDim.x >> 5)) - 1;
+  const int feat_lo = static_cast<int>(u0 / slices);
+  const int nf = static_cast<int>(u_last / slices) - feat_lo + 1;
+  const long long unit = u0 + warp;
+  const bool active = unit < units;
+  const int f = active ? static_cast<int>(unit / slices) : feat_lo;
+  const int base = active ? static_cast<int>(unit % slices) * kSlice : 0;
+
+  const long long chunk = blockIdx.y;
+  const int m0 = blockIdx.z * kMBlock;
+  const int m_count = min(kMBlock, m_total - m0);
+  const unsigned bg = static_cast<unsigned>(base + grp);
+  const int n_live = min(kNTiles, (num_bins - base + 7) >> 3);
+
+  // bins: the staged columns of row r of a tile start (lead + r * ld_s) mod
+  // 16 bytes into a granule (a tile starts a multiple of kTile rows, so of
+  // 16 bytes, after the first row of the array)
+  const char* bins_b = reinterpret_cast<const char*>(bins);
+  const long long ld_s = static_cast<long long>(ld_bins) * kBinBytes;
+  const int col_bytes = (f_offset + feat_lo) * kBinBytes;
+  const int seg_bytes = nf * kBinBytes;
+  const int lead = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(bins) + col_bytes) & 15);
+  const int ld_mod = static_cast<int>(ld_s & 15);
+  const int granules = bins_pitch >> 4;
+
+  // this lane's 4 rows of each k-step: 2*tig + {0, 1, 8, 9}; a row's shift
+  // in its granule is the same in every k-step (16 rows = 0 mod 16 bytes)
+  int row_off[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = 2 * tig + (i & 1) + 8 * (i >> 1);
+    row_off[i] = q * bins_pitch + ((lead + q * ld_mod) & 15)
+                 + (f - feat_lo) * kBinBytes;
+  }
 
   const long long r_begin = chunk * rows_per_chunk;
   const long long r_end = min(num_rows, r_begin + rows_per_chunk);
-  for (long long t0 = r_begin; t0 < r_end; t0 += kTile) {
+  const int n_tiles =
+      r_end > r_begin ? static_cast<int>((r_end - r_begin + kTile - 1) / kTile)
+                      : 0;
+
+  // issue the copies of tile k into its stage
+  auto stage_tile = [&](int k) {
+    const long long t0 = r_begin + static_cast<long long>(k) * kTile;
     const int tn = static_cast<int>(min(static_cast<long long>(kTile),
                                         r_end - t0));
-    __syncthreads();  // the previous tile is consumed
-    for (int r = threadIdx.x; r < tn; r += blockDim.x)
-      sbin[r] = static_cast<int>(bins[(t0 + r) * ld_bins + f_offset + f]);
-    for (int k = threadIdx.x; k < m_count * kTile; k += blockDim.x) {
-      const int m = k / kTile;
-      const int r = k - m * kTile;
-      if (r < tn)
-        sw[r * w_stride + m] = w[static_cast<long long>(m0 + m) * num_rows
-                                 + t0 + r];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < tn; ++r) {
-      const int b = sbin[r];
-      if (static_cast<unsigned>(b) < static_cast<unsigned>(num_bins)
-          && (b >> 5) == warp) {
-        for (int m = lane; m < m_count; m += 32)
-          acc[m * acc_stride + b] += __bfloat162float(sw[r * w_stride + m]);
+    const int k_cols = (tn + 15) & ~15;     // W columns the k-steps read
+    unsigned char* st = smem_raw + (k & 1) * stage_bytes;
+    const unsigned sw = smem_u32(st);
+    const unsigned sb = smem_u32(st + kWStageBytes);
+    for (int idx = threadIdx.x; idx < m_count * (kTile / 8);
+         idx += blockDim.x) {
+      const int m = idx >> 5;               // kTile / 8 = 32 granules a row
+      const int c = (idx & 31) * 8;
+      if (c < k_cols) {
+        const int n = min(8, max(0, tn - c));
+        const __nv_bfloat16* src =
+            n > 0 ? w + (m0 + m) * ld_w + t0 + c : w;
+        cp_async16(sw + (m * kWPitch + c) * 2, src, 2 * n);
       }
     }
+    for (int idx = threadIdx.x; idx < tn * granules; idx += blockDim.x) {
+      const int r = idx / granules;
+      const int g = idx - r * granules;
+      const int shift = (lead + r * ld_mod) & 15;
+      if (g < (shift + seg_bytes + 15) >> 4) {
+        const char* src = bins_b + (t0 + r) * ld_s + col_bytes - shift + 16 * g;
+        cp_async16(sb + r * bins_pitch + 16 * g, src, 16);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][kNTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  if (n_tiles > 0) stage_tile(0);
+  for (int k = 0; k < n_tiles; ++k) {
+    if (k + 1 < n_tiles) {
+      stage_tile(k + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile k has landed for every thread
+    if (active) {
+      const long long t0 = r_begin + static_cast<long long>(k) * kTile;
+      const int tn = static_cast<int>(min(static_cast<long long>(kTile),
+                                          r_end - t0));
+      const unsigned char* st = smem_raw + (k & 1) * stage_bytes;
+      const unsigned a_lane = smem_u32(st)
+          + ((lane & 15) * kWPitch + (lane >> 4) * 8) * 2;
+      const unsigned char* sb = st + kWStageBytes;
+      if (n_live == kNTiles)
+        k1_tile<BinT, MT, true>(acc, a_lane, sb, row_off, bins_pitch,
+                                (tn + 15) >> 4, bg, n_live);
+      else
+        k1_tile<BinT, MT, false>(acc, a_lane, sb, row_off, bins_pitch,
+                                 (tn + 15) >> 4, bg, n_live);
+    }
+    __syncthreads();   // tile k is consumed before its stage is refilled
   }
-  __syncthreads();
+
+  if (!active) return;
   const long long row_len = static_cast<long long>(num_feature) * num_bins;
-  float* out = partial + (static_cast<long long>(chunk) * m_total + m0)
-                             * row_len
-                       + static_cast<long long>(f) * num_bins;
-  for (int k = threadIdx.x; k < m_count * num_bins; k += blockDim.x) {
-    const int m = k / num_bins;
-    const int j = k - m * num_bins;
-    out[m * row_len + j] = acc[m * acc_stride + j];
-  }
+  float* out = partial + (chunk * m_total + m0) * row_len
+               + static_cast<long long>(f) * num_bins;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = mt * 16 + grp + 8 * (e >> 1);
+        const int col = base + 8 * j + 2 * tig + (e & 1);
+        if (m < m_count && col < num_bins)
+          out[m * row_len + col] = acc[mt][j][e];
+      }
 }
 
 // K3.  Block = 32 * ceil(nbins / 32) threads; thread j owns bin column j of
@@ -225,25 +468,34 @@ cudaError_t sum_chunks(const float* partial, long long n, int n_chunks,
 }
 
 template <typename BinT>
-cudaError_t launch_hist_matmul(const void* w, const void* bins,
-                               long long num_rows, int num_feature,
-                               int ld_bins, int f_offset, int m_total,
-                               int num_bins, int m_block,
+cudaError_t launch_hist_matmul(const void* w, long long ld_w,
+                               const void* bins, long long num_rows,
+                               int num_feature, int ld_bins, int f_offset,
+                               int m_total, int num_bins,
                                long long rows_per_chunk, int n_chunks,
                                float* partial, float* out,
                                cudaStream_t stream) {
-  const int smem = m_block * (num_bins + 1) * 4 + kTile * 4
-                   + kTile * (m_block + 2) * 2;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const MatmulPlan p = matmul_plan(num_feature, num_bins, sizeof(BinT));
+  if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
+  // m-tiles per block from M: a ragged last block computes rows it does not
+  // write, on stale shared memory (an mma row depends on its own A row only)
+  auto kernel = hist_matmul_kernel<BinT, kMTiles>;
+  switch ((m_total + 15) / 16) {
+    case 1: kernel = hist_matmul_kernel<BinT, 1>; break;
+    case 2: kernel = hist_matmul_kernel<BinT, 2>; break;
+    case 3: kernel = hist_matmul_kernel<BinT, 3>; break;
+    default: break;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      hist_matmul_kernel<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_chunks, num_feature, (m_total + m_block - 1) / m_block);
-  hist_matmul_kernel<BinT><<<grid, threads_for(num_bins), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(w), static_cast<const BinT*>(bins),
-      num_rows, num_feature, ld_bins, f_offset, m_total, num_bins, m_block,
-      rows_per_chunk, partial);
+  const dim3 grid(static_cast<unsigned>(p.groups), n_chunks,
+                  (m_total + kMBlock - 1) / kMBlock);
+  kernel<<<grid, 32 * p.warps, p.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(w), ld_w,
+      static_cast<const BinT*>(bins), num_rows, num_feature, ld_bins,
+      f_offset, m_total, num_bins, rows_per_chunk, p.slices, p.bins_pitch,
+      partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_chunks(partial,
@@ -303,30 +555,34 @@ const char* dmlc_hist_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1.  w [m_total, num_rows] bf16, bins [num_rows, ld_bins] (uint8 when
-// bins_u8, else int32) of which columns [f_offset, f_offset + num_feature)
-// are read, partial [n_chunks, m_total, F*nbins] f32 (may alias out when
-// n_chunks == 1), out [m_total, F*nbins] f32 with F = num_feature.  Returns
-// the CUDA error of the launches (0 on success).
+// K1.  w [m_total, ld_w] bf16 of which columns [0, num_rows) are read (ld_w
+// a multiple of 8 and w 16-byte aligned, so W rows copy in 16-byte pieces),
+// bins [num_rows, ld_bins] (uint8 when bins_u8, else int32) of which
+// columns [f_offset, f_offset + num_feature) are read, partial [n_chunks,
+// m_total, F*nbins] f32 (may alias out when n_chunks == 1), out [m_total,
+// F*nbins] f32 with F = num_feature.  Returns the CUDA error of the launches
+// (0 on success).
 int dmlc_hist_matmul(const void* w, const void* bins, int bins_u8,
                      long long num_rows, int num_feature, int ld_bins,
-                     int f_offset, int m_total, int num_bins, int m_block,
+                     int f_offset, int m_total, int num_bins, int ld_w,
                      long long rows_per_chunk, int n_chunks, void* partial,
                      void* out, void* stream) {
   if (bad_shape(num_rows, num_feature, ld_bins, f_offset, m_total, num_bins,
-                m_block, rows_per_chunk, n_chunks))
+                kMBlock, rows_per_chunk, n_chunks)
+      || n_chunks > 65535 || ld_w < num_rows || ld_w % 8 != 0
+      || reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   return bins_u8
-             ? launch_hist_matmul<uint8_t>(w, bins, num_rows, num_feature,
-                                           ld_bins, f_offset, m_total,
-                                           num_bins, m_block, rows_per_chunk,
+             ? launch_hist_matmul<uint8_t>(w, ld_w, bins, num_rows,
+                                           num_feature, ld_bins, f_offset,
+                                           m_total, num_bins, rows_per_chunk,
                                            n_chunks, p, o, s)
-             : launch_hist_matmul<int32_t>(w, bins, num_rows, num_feature,
-                                           ld_bins, f_offset, m_total,
-                                           num_bins, m_block, rows_per_chunk,
+             : launch_hist_matmul<int32_t>(w, ld_w, bins, num_rows,
+                                           num_feature, ld_bins, f_offset,
+                                           m_total, num_bins, rows_per_chunk,
                                            n_chunks, p, o, s);
 }
 

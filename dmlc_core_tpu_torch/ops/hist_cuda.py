@@ -30,9 +30,10 @@ all-gather hands each rank 1.84 MB.
 
 Numerics are the TPU kernels': g and h rounded to bf16 (nearest even),
 sums in f32, rows whose node id lies outside ``[0, num_nodes)`` dropped.
-Each kernel is bound by bytes on the H100 (see the note in ``hist.cu``);
-its design keeps every sum free of atomics, so outputs are bitwise
-identical from launch to launch.
+K1 runs the TPU's formulation, W times a one-hot built in registers, on
+the tensor cores (``mma.sync``); K3 does scalar sums.  The note in
+``hist.cu`` gives each kernel's bounds.  Every sum is free of atomics, so
+outputs are bitwise identical from launch to launch.
 
 Beside each kernel sits its plain PyTorch version (``*_ref``): bf16
 rounding, then f32 ``index_add_`` over flat ids.  A wrapper takes the plain
@@ -45,7 +46,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,7 +57,8 @@ from dmlc_core_tpu_torch.utils.logging import CHECK
 __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
            "grad_hist_sharded_cuda", "hist_matmul_ref", "grad_hist_ref",
            "grad_hist_fused_ref", "grad_hist_sharded_ref", "scatter_sums",
-           "node_weights", "hist_node_block", "sharded_hist_plan",
+           "node_weights", "hist_node_block", "hist_matmul_plan",
+           "sharded_hist_plan",
            "kernels_available", "reset_launches", "LAUNCHES",
            "STAGE_SECONDS", "DATA_AXIS", "TILE"]
 
@@ -75,8 +77,13 @@ DATA_AXIS = "data"
 TILE = 256               # rows a CTA stages per step (kTile in hist.cu)
 _SMEM_BYTES = 232448     # dynamic shared memory one block may use on sm_90
 _TARGET_CTAS = 1056      # CTAs per launch the row chunking aims at
-_M_BLOCK = 64            # K1: weight rows per CTA
 _NODE_BLOCK = 32         # K3: nodes per CTA (G and H rows: 2x)
+# K1 (the constants of hist.cu's matmul_plan)
+_M_BLOCK = 64            # weight rows per CTA: 4 mma m-tiles of 16
+_SLICE = 64              # bins per warp: 8 mma n-tiles of 8
+_WARPS = 8               # (feature, bin slice) units per CTA
+_K_STEP = 16             # data rows per mma (m16n8k16)
+_W_PITCH = TILE + 8      # bf16 per staged W row
 
 # per-sweep budget of grad_hist_cuda's [2*n_pad, F*nbins] f32 output; deeper
 # levels sweep node blocks, which also bounds the bf16 W it materialises
@@ -221,17 +228,56 @@ def _check_cuda(t) -> None:
           f"{t.device}")
 
 
-def _chunks(num_rows: int, ctas_per_chunk: int) -> Tuple[int, int]:
+def _chunks(num_rows: int, ctas_per_chunk: int,
+            round_down: bool = False) -> Tuple[int, int]:
     """(n_chunks, rows_per_chunk): row chunks of whole tiles, sized from
-    the shapes alone so the summation order never depends on the card."""
+    the shapes alone so the summation order never depends on the card.
+    ``round_down`` keeps a launch within ``_TARGET_CTAS`` (8 waves of one
+    CTA on each of the H100's 132 SMs, or 4 of two), where rounding up
+    would start a ninth wave for a few CTAs."""
     tiles = -(-num_rows // TILE)
-    n_chunks = max(1, min(tiles, -(-_TARGET_CTAS // ctas_per_chunk)))
+    want = (_TARGET_CTAS // ctas_per_chunk if round_down
+            else -(-_TARGET_CTAS // ctas_per_chunk))
+    n_chunks = max(1, min(tiles, want))
     rows_per_chunk = -(-tiles // n_chunks) * TILE
     return -(-num_rows // rows_per_chunk), rows_per_chunk
 
 
-def _matmul_smem(m_block: int, num_bins: int) -> int:
-    return m_block * (num_bins + 1) * 4 + TILE * 4 + TILE * (m_block + 2) * 2
+class MatmulPlan(NamedTuple):
+    """K1's launch: row chunks, warps, CTAs and shared memory."""
+    n_chunks: int
+    rows_per_chunk: int
+    slices: int          # 64-bin slices per feature
+    units: int           # (feature, slice) pairs, one warp each
+    warps: int           # warps per CTA
+    groups: int          # CTAs per (row chunk, m-block)
+    m_blocks: int        # 64-row blocks of W
+    span: int            # most feature columns one CTA stages
+    bins_pitch: int      # bytes per staged bins row
+    smem: int            # dynamic shared memory per CTA
+    grid: Tuple[int, int, int]   # (groups, n_chunks, m_blocks)
+
+
+def hist_matmul_plan(m: int, num_rows: int, num_feature: int,
+                     num_bins: int, bin_bytes: int) -> MatmulPlan:
+    """K1's launch plan, from the shapes alone; ``hist.cu``'s
+    ``matmul_plan`` computes the same.  A warp owns one (feature, 64-bin
+    slice) unit of one 64-row block of W; a CTA of up to 8 warps stages a
+    two-stage ring of W tiles ``[64][TILE + 8]`` bf16 and of bins rows
+    holding the 16-byte granules over its features' columns."""
+    slices = -(-num_bins // _SLICE)
+    units = num_feature * slices
+    warps = min(units, _WARPS)
+    groups = -(-units // _WARPS)
+    span = min(num_feature, (warps + slices - 2) // slices + 1)
+    bins_pitch = 16 * ((15 + span * bin_bytes + 15) // 16)
+    smem = 2 * (_M_BLOCK * _W_PITCH * 2 + TILE * bins_pitch)
+    m_blocks = -(-m // _M_BLOCK)
+    n_chunks, rows_per_chunk = _chunks(num_rows, groups * m_blocks,
+                                       round_down=True)
+    return MatmulPlan(n_chunks, rows_per_chunk, slices, units, warps, groups,
+                      m_blocks, span, bins_pitch, smem,
+                      (groups, n_chunks, m_blocks))
 
 
 def _fused_smem(node_block: int, num_bins: int) -> int:
@@ -275,18 +321,23 @@ def hist_matmul_cuda(w, bins, num_bins: int, f_offset: int = 0,
     out = torch.empty(M, F * num_bins, dtype=torch.float32, device=w.device)
     if B == 0 or M == 0:
         return out.zero_()
-    m_block = min(M, _M_BLOCK)
-    while _matmul_smem(m_block, num_bins) > _SMEM_BYTES:
-        m_block -= 1
-    n_chunks, rows_per_chunk = _chunks(B, F * -(-M // m_block))
-    partial = out if n_chunks == 1 else torch.empty(
-        n_chunks * M * F * num_bins, dtype=torch.float32, device=w.device)
+    CHECK(B < 2**31 - 8, f"at most 2**31 - 8 rows per launch, got {B}")
+    plan = hist_matmul_plan(M, B, F, num_bins, bins.element_size())
+    # the kernel copies W rows in 16-byte pieces: rows of a multiple of 8
+    # bf16 from a 16-byte-aligned start, else a row-padded copy
+    if B % 8:
+        w = torch.nn.functional.pad(w, (0, -B % 8))
+    elif w.data_ptr() % 16:
+        w = w.clone()
+    partial = out if plan.n_chunks == 1 else torch.empty(
+        plan.n_chunks * M * F * num_bins, dtype=torch.float32,
+        device=w.device)
     lib = _library()
     with torch.cuda.device(w.device):
         rc = lib.dmlc_hist_matmul(
             w.data_ptr(), bins.data_ptr(), int(bins.dtype == torch.uint8),
-            B, F, bins.shape[1], f_offset, M, num_bins, m_block,
-            rows_per_chunk, n_chunks,
+            B, F, bins.shape[1], f_offset, M, num_bins, w.shape[1],
+            plan.rows_per_chunk, plan.n_chunks,
             partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "hist_matmul_cuda")

@@ -119,7 +119,8 @@ def test_row_chunking_depends_on_shapes_only():
     assert n_chunks * rows >= 2_000_000 > (n_chunks - 1) * rows
     assert hist_cuda._chunks(100, 28) == (1, hist_cuda.TILE)
     # the shared-memory plans stay inside one block's limit
-    assert hist_cuda._matmul_smem(64, 256) <= hist_cuda._SMEM_BYTES
+    assert hist_cuda.hist_matmul_plan(64, 2_000_000, 28, 256, 1).smem \
+        <= hist_cuda._SMEM_BYTES
     assert hist_cuda._fused_smem(32, 256) <= hist_cuda._SMEM_BYTES
 
 
