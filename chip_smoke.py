@@ -18,12 +18,17 @@ Phases (any failure exits non-zero and prints no result line):
    repeatability of two launches, and CUDA-event times beside the bound and
    one ``index_add_`` over precomputed flat ids (the scatter formulation);
    at 32 nodes also both kernels on the column window 14..27 read in place
-   (row stride 28, offset 14) against the plain version on a copy; K1
-   (``hist_matmul_cuda``) alone on ragged shapes (1,000,003 rows, 48 weight
-   rows, 255 bins with bins out of range, uint8 on all columns and int32
-   on the window 14..27), each against its plain version and bitwise over
-   two launches; the K1 lines also give the dense tensor-core time
-   2*M*B*F*nbins at 989 TFLOP/s beside the bound;
+   (row stride 28, offset 14) against the plain version on a copy, bitwise
+   over two launches; K1 (``hist_matmul_cuda``) alone on ragged shapes
+   (1,000,003 rows, 48 weight rows, 255 bins with bins out of range, uint8
+   on all columns and int32 on the window 14..27), and K3
+   (``grad_hist_fused_cuda``) alone on ragged shapes (1,000,003 rows; 1, 5,
+   13, 37 and 256 nodes with node ids in [-2, n + 3); 255 bins with bins
+   out of range in int32; windows 14..27 and 2..4; tensors at an offset in
+   their allocations), each against its plain version, bitwise over two
+   launches and with its launches counted; the K1 and K3 lines also give
+   the dense tensor-core time 2*M*B*F*nbins at 989 TFLOP/s beside the
+   bound (for K3, M = 16 A rows per 8-node m-tile it computes);
 4. GBDT: ``fit_binned`` (10 rounds, depth 6, 256 bins, learning rate 0.3)
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, through the
    K1 path (``hist_method="auto"``) and the K3 path (``"pallas_fused"``),
@@ -75,7 +80,17 @@ COLLECTIVE_TIMEOUT_S = 300   # a dead peer fails the run after this
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
-RAGGED_ROWS = 1_000_003       # K1's ragged-shape checks
+RAGGED_ROWS = 1_000_003       # K1's and K3's ragged-shape checks
+K3_RAGGED = [
+    # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
+    # f_count, offset of the tensors in their allocations (elements); node
+    # ids are drawn from [-2, num_nodes + 3)
+    (1, 256, torch.uint8, (0, 256), 0, None, 0),
+    (5, 255, torch.int32, (-3, 260), 14, 14, 3),
+    (13, 255, torch.uint8, (0, 256), 2, 3, 1),
+    (37, 255, torch.int32, (-3, 260), 14, 14, 0),
+    (256, 255, torch.uint8, (0, 256), 0, None, 5),
+]
 
 
 def fail(msg):
@@ -204,10 +219,16 @@ def phase_kernels():
                 fail(f"{name} is not bitwise repeatable at n={n}")
             ms = cuda_event_ms(fn, iters=5, warmup=1)
             plain_ms = cuda_event_ms(ref, iters=3, warmup=1)
+            dense = ""
+            if name == "grad_hist_fused_cuda":
+                plan = hist_cuda.grad_hist_fused_plan(n, B, F, nb, 1)
+                m_rows = 16 * plan.m_tiles * plan.m_blocks
+                dense = (f" dense_tc_ms={_dense_tc_ms(m_rows, B, F, nb):.4f}"
+                         f" (M={m_rows})")
             print(f"{name:22s} n={n:3d} max_abs_err={err:.3g} (rtol {RTOL}, "
                   f"atol {ATOL}) bitwise={same} ms={ms:.3f} "
-                  f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
-                  f"library_ms={library_ms:.3f}", flush=True)
+                  f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by})"
+                  f"{dense} library_ms={library_ms:.3f}", flush=True)
             if name == "grad_hist_fused_cuda":
                 entries[("K3", n)] = dict(
                     name="grad_hist_fused_cuda", route="cuda",
@@ -224,10 +245,16 @@ def phase_kernels():
             for name, fn in (("grad_hist_cuda", hist_cuda.grad_hist_cuda),
                              ("grad_hist_fused_cuda",
                               hist_cuda.grad_hist_fused_cuda)):
-                got = fn(bins, node, grad, hess, n, nb, f0, F - f0)
+                def window(fn=fn):
+                    return fn(bins, node, grad, hess, n, nb, f0, F - f0)
+                got = window()
                 _check_close(f"{name} at f_offset={f0}", got, want_w)
+                if not _bitwise(window):
+                    fail(f"{name} is not bitwise repeatable on columns "
+                         f"{f0}..{F - 1}")
                 print(f"{name:22s} n={n:3d} columns {f0}..{F - 1} in place: "
-                      f"max_abs_err={_max_err(got, want_w):.3g}", flush=True)
+                      f"max_abs_err={_max_err(got, want_w):.3g} bitwise=True",
+                      flush=True)
             del want_w, got
         # K1 alone on the weight matrix grad_hist_cuda builds (one sweep)
         if hist_cuda.hist_node_block(n, F, nb) == n:
@@ -262,6 +289,7 @@ def phase_kernels():
         del node, want
         torch.cuda.empty_cache()
     _k1_ragged(bins.shape[1], gen)
+    _k3_ragged(bins.shape[1], gen)
     # the line reports the depth-6 main path's deepest level (32 nodes)
     return [entries[("K1", 32)], entries[("K3", 32)]]
 
@@ -301,6 +329,50 @@ def _k1_ragged(F, gen):
               f"bitwise=True", flush=True)
         del rb, got, want
     del w
+    torch.cuda.empty_cache()
+
+
+def _k3_ragged(F, gen):
+    """K3 on shapes no tile divides (``K3_RAGGED``: node counts that fill
+    no m-tile or m-block, node ids and bins out of range, column windows,
+    tensors at an offset in their allocations), each against its plain
+    version on a copy of the window, bitwise over two launches, and every
+    launch counted."""
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    dev = torch.device("cuda")
+    B = RAGGED_ROWS
+    for n, nb, dtype, (lo, hi), off, count, shift in K3_RAGGED:
+        count = F - off if count is None else count
+        rb = torch.randint(lo, hi, (B * F + shift,), device=dev,
+                           generator=gen, dtype=torch.int32).to(dtype)
+        rb = rb[shift:].view(B, F)
+        node = torch.randint(-2, n + 3, (B + shift,), device=dev,
+                             generator=gen, dtype=torch.int32)[shift:]
+        g = torch.randn(B + shift, device=dev, generator=gen)[shift:]
+        h = torch.rand(B + shift, device=dev, generator=gen)[shift:]
+
+        def k3():
+            return hist_cuda.grad_hist_fused_cuda(rb, node, g, h, n, nb, off,
+                                                  count)
+        before = hist_cuda.LAUNCHES["grad_hist_fused_cuda"]
+        got = k3()
+        want = hist_cuda.grad_hist_fused_ref(
+            rb[:, off:off + count].contiguous(), node, g, h, n, nb)
+        what = (f"grad_hist_fused_cuda on {B} x {F} {dtype}, n={n}, "
+                f"columns {off}..{off + count - 1}, offset {shift}")
+        _check_close(what, got, want)
+        if not _bitwise(k3):
+            fail(f"{what} is not bitwise repeatable")
+        launched = hist_cuda.LAUNCHES["grad_hist_fused_cuda"] - before
+        if launched != 3:
+            fail(f"{what}: {launched} launches counted for 3 calls")
+        print(f"{'grad_hist_fused_cuda':22s} ragged B={B} n={n} nbins={nb} "
+              f"{str(dtype).split('.')[-1]} columns {off}..{off + count - 1} "
+              f"offset {shift} (bins in [{lo}, {hi}), nodes in [-2, {n + 3})"
+              f"): max_abs_err={_max_err(got, want):.3g} bitwise=True",
+              flush=True)
+        del rb, node, g, h, got, want
     torch.cuda.empty_cache()
 
 

@@ -12,8 +12,8 @@
 //    outside [0, nbins) add nothing.
 //  * grad_hist_fused_kernel <- grad_hist_pallas_fused / _fused_kernel (K3):
 //      G[n, f, b] = sum_i bf16(g_i) * [node_i == n] * [bins[i, f] == b]
-//    (and H from h), with the node one-hot built in the kernel from 12 B of
-//    node/g/h per row.
+//    (and H from h), with the weight rows [nodehot*g ; nodehot*h] built in
+//    registers from 12 B of node/g/h per row: no W matrix exists.
 //
 // Both read a window of feature columns, bins[i * ld_bins + f_offset + f]
 // for f < num_feature, straight from a row-major [B, ld_bins] array
@@ -35,10 +35,10 @@
 // run in parallel with nothing carried between them, so here each CTA owns a
 // chunk of rows and writes a partial histogram for it; sum_chunks_kernel adds
 // the partials in chunk order.  Every accumulator cell has exactly one owner
-// (a thread for K3, a lane's register for K1) that adds its rows in order, so
-// no atomics are used and the result is bitwise identical from launch to
-// launch (the JAX package's fits are bitwise reproducible, and the port keeps
-// that).  The chunking is a function of the shapes only, never of the card.
+// (a lane's register) that adds its rows in order, so no atomics are used
+// and the result is bitwise identical from launch to launch (the JAX
+// package's fits are bitwise reproducible, and the port keeps that).  The
+// chunking is a function of the shapes only, never of the card.
 //
 // K1 on Hopper's tensor cores.  K1 replaces hist_matmul_pallas (_kernel and
 // _accumulate_tile, hist_pallas.py:110-187), which computes per row tile and
@@ -90,12 +90,70 @@
 // byte of the array lies in the array's allocation, so the copy may read a
 // few bytes beside the window but never outside mapped memory.
 //
-// K3 is bound by bytes too: B*F bins + 12 B per row once (about 80 MB per
-// tree level at 2M x 28).  Its simple design spends most of its time issuing
-// one shared-memory compare per (row, feature, bin-warp); its redesign is
-// later work.
+// K3 on Hopper's tensor cores.  K3 replaces grad_hist_pallas_fused
+// (_fused_kernel, hist_pallas.py:236-291), which builds the weight tile
+// [nodehot*g ; nodehot*h] in VMEM from node/g/h and runs K1's MXU product.
+// Here the same product runs on mma.sync with both operands built in
+// registers.  Bounds on an H100 at chip_smoke.py's shape (B = 2,000,000,
+// F = 28, 256 bins):
+//   * bytes: the bins (56 MB), 12 B of node/g/h a row (24 MB) and the output
+//     (2 * n * F * nbins f32) once each: 0.024 ms at n = 32, 3.35 TB/s;
+//   * the dense product over M = 16 * m-tiles * m-blocks A rows (G and H of
+//     8 nodes per m-tile): 1.86 ms at n = 32 (M = 64), 0.46 ms at n = 1
+//     (M = 16) and 14.8 ms at n = 256 (8 m-blocks of M = 64), 989 TFLOP/s.
+// The one-hots are mostly zeros, so the dense product is the price of the
+// tensor cores, as for K1; deep levels pay it once per m-block.
+//
+// The design.  K1's units, warps and CTA groups; what changes is where the
+// operands come from:
+//   * Each tile of 256 rows is packed once for the whole CTA: thread x
+//     loads row x of the next tile (node, g, h and the bins of the CTA's
+//     columns) into registers before the warps start on this tile, so the
+//     loads' latency hides behind the products, and then packs it into
+//     the tile's stage: per row pair one 16-byte word {node pair as f16
+//     (local to the m-block), g pair and h pair rounded to bf16 by
+//     __float2bfloat16_rn}, and per column a bf16 pattern 0x3F80 + bin per
+//     row (normal numbers, distinct for bins < 1024).  So the conversions
+//     and the one-hot's per-row work are done once a tile, not once per
+//     feature or per warp.
+//   * A, no W anywhere: m-tile t of an m-block of 32 nodes (grid z) holds
+//     nodes n0 + 8t .. n0 + 8t + 7, A rows 0-7 their G rows and rows 8-15
+//     their H rows.  So lane (grp, tig) serves one node, 8t + grp, in all
+//     four A registers: a0 = G and a1 = H of data rows 2 tig, 2 tig + 1; a2
+//     = G and a3 = H of rows 2 tig + 8, 2 tig + 9.  One set.eq.u32.f16x2 of
+//     a row pair's nodes against the lane's gives a 0xFFFF mask per
+//     matching row, which ANDs both the g and the h pair: 2 compares and 4
+//     ANDs per m-tile per k-step.  MT = ceil(min(n, 32) / 8) m-tiles (a
+//     template parameter, as K1's) make n <= 8 one m-tile.
+//   * B, the bin one-hot: one set.eq.bf16x2 of a row pair's patterns
+//     against the pattern of the lane's bin in n-tile j gives bf16 1.0 or 0
+//     per row, the B register itself: one instruction (K1 spends an AND and
+//     a multiply, after building one bit per row and n-tile in each lane).
+//   * One barrier a tile: stages alternate, and the stage a thread packs
+//     after its warp's products of tile k was last read for tile k - 1.
+//   * The epilogue un-interleaves: accumulator (t, row) of a lane goes to
+//     (s = row >= 8, node = n0 + 8t + row % 8), written for nodes below
+//     num_nodes only.
+// Hazards:
+//   * Node ids are int32 and may be -1 or >= num_nodes.  A row's id is
+//     made local to the m-block with unsigned arithmetic and packed only
+//     when it lies in [0, nodes of this block); every other id becomes
+//     kNoNode, an f16 NaN, which equals no node.  So no id aliases a live
+//     node in 16 bits (the wrapper also keeps num_nodes below 65,535).
+//   * Rows past the chunk's end are not read: their node is kNoNode, g = h
+//     = 0 and their bins kNoBin, so they add exactly 0.  (A zero-filled
+//     copy would give node 0, a live node.)
+//   * Bins outside [0, nbins) (int32 bins may be negative) pack as kNoBin,
+//     a bf16 NaN, which equals no pattern; n-tiles past nbins are skipped
+//     (n_live, kFull) and their columns never written.  Windows and row
+//     strides need nothing more: each thread reads its row's columns.
+// What bounds it now is instruction issue and latency: the mma, the A and B
+// builds and the k-step's loads come to more than the tensor cores' time,
+// with one CTA of 8 warps per SM at 4 m-tiles (the accumulators take 128
+// registers a thread).  Numbers in PERF.md, from tools/k3_variants.py.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,6 +170,18 @@ constexpr int kNTiles = kSlice / 8;
 constexpr int kWarps = 8;              // (feature, slice) units per CTA
 constexpr int kWPitch = kTile + 8;     // bf16 per staged W row (528 B)
 constexpr int kWStageBytes = kMBlock * kWPitch * 2;
+
+// K3's launch plan: K1's units, warps and groups (grad_hist_fused_plan in
+// ops/hist_cuda.py computes the same), 32-node m-blocks on grid z
+constexpr int kNodeTile = 8;                     // nodes per m-tile
+constexpr int kNodeBlock = 4 * kNodeTile;        // nodes per CTA
+constexpr int kPairBytes = 16;   // packed node, g and h of a row pair
+// one stage: the packed row pairs, then the one-hot patterns of each of the
+// CTA's (at most kWarps) feature columns, a u16 per row
+constexpr int kK3StageBytes = kTile / 2 * kPairBytes + kWarps * kTile * 2;
+constexpr int kK3Smem = 2 * kK3StageBytes;
+constexpr unsigned short kNoNode = 0x7FFF;       // f16 NaN: equals no node
+constexpr unsigned short kNoBin = 0x7FFF;        // bf16 NaN: equals no bin
 
 struct MatmulPlan {
   int slices;      // 64-bin slices per feature
@@ -175,6 +245,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 0xFFFF in each half where the f16 halves of a and b are equal, else 0
+__device__ __forceinline__ unsigned f16x2_eq_mask(unsigned a, unsigned b) {
+  unsigned d;
+  asm("set.eq.u32.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// bf16 1.0 in each half where the bf16 halves of a and b are equal, else 0
+__device__ __forceinline__ unsigned bf16x2_eq_one(unsigned a, unsigned b) {
+  unsigned d;
+  asm("set.eq.bf16x2.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // The k-steps of one staged tile for one warp: MT m-tiles of W against the
 // first n_live n-tiles of the warp's bin slice (all of them when kFull).
 // bg = first bin of the slice + this lane's column in an n-tile.  Rows past
@@ -212,6 +296,48 @@ __device__ __forceinline__ void k1_tile(float (&acc)[MT][kNTiles][4],
       // bit j of each half times 0x3F80 >> j: bf16 1.0 or 0 in each half
       const unsigned b0 = (m01 & (0x10001u << j)) * (0x3F80u >> j);
       const unsigned b1 = (m89 & (0x10001u << j)) * (0x3F80u >> j);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b0, b1);
+    }
+  }
+}
+
+// K3's k-steps of one packed tile for one warp: MT m-tiles of A built from
+// the row pairs' node/g/h against the first n_live n-tiles of the warp's
+// bin slice (all of them when kFull), B built from the rows' one-hot
+// patterns.  node2[mt] is this lane's node in m-tile mt (8 mt + grp of the
+// m-block) and bin2[j] its bin in n-tile j (base + 8 j + grp) as
+// patterns, each in both halves.  The k-step loop is unrolled 4 times at
+// 1-2 m-tiles and not at 3-4, the fastest of 1, 2 and 4 for each
+// (tools/k3_variants.py).
+template <int MT, bool kFull>
+__device__ __forceinline__ void k3_tile(float (&acc)[MT][kNTiles][4],
+                                        const uint4* pairs,
+                                        const uint2* patterns,
+                                        const unsigned (&node2)[MT],
+                                        const unsigned (&bin2)[kNTiles],
+                                        int k_steps, int n_live, int tig) {
+#pragma unroll (MT >= 3 ? 1 : 4)
+  for (int ks = 0; ks < k_steps; ++ks) {
+    // data rows 2 tig, 2 tig + 1 (lo) and 2 tig + 8, 2 tig + 9 (hi)
+    const uint2 pat = patterns[4 * ks + tig];
+    const uint4 lo = pairs[8 * ks + tig];
+    const uint4 hi = pairs[8 * ks + 4 + tig];
+    unsigned a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const unsigned in_lo = f16x2_eq_mask(lo.x, node2[mt]);
+      const unsigned in_hi = f16x2_eq_mask(hi.x, node2[mt]);
+      a[mt][0] = in_lo & lo.y;   // G row of the lane's node
+      a[mt][1] = in_lo & lo.z;   // its H row
+      a[mt][2] = in_hi & hi.y;
+      a[mt][3] = in_hi & hi.z;
+    }
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+      if (!kFull && j >= n_live) break;
+      const unsigned b0 = bf16x2_eq_one(pat.x, bin2[j]);
+      const unsigned b1 = bf16x2_eq_one(pat.y, bin2[j]);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b0, b1);
     }
@@ -368,76 +494,165 @@ hist_matmul_kernel(const __nv_bfloat16* __restrict__ w, long long ld_w,
       }
 }
 
-// K3.  Block = 32 * ceil(nbins / 32) threads; thread j owns bin column j of
-// every node row of the block, so each accumulator cell has one writer.
-// g and h are rounded to bf16 (round to nearest even) as the TPU kernel does
-// before its MXU dot; the sums stay f32.
-template <typename BinT>
-__global__ void grad_hist_fused_kernel(const BinT* __restrict__ bins,
-                                       const int* __restrict__ node,
-                                       const float* __restrict__ grad,
-                                       const float* __restrict__ hess,
-                                       long long num_rows, int num_feature,
-                                       int ld_bins, int f_offset,
-                                       int num_nodes, int num_bins,
-                                       int node_block,
-                                       long long rows_per_chunk,
-                                       float* __restrict__ partial) {
+// K3.  Grid (unit group, row chunk, m-block); block = 256 threads.  Warp v
+// of group g owns unit u = 8g + v as in K1 (warps past the last unit only
+// pack), for the 32 nodes [32 m-block, +32) as MT m-tiles of 8 (MT =
+// ceil(min(num_nodes, 32) / 8); a ragged last m-block computes nodes it
+// does not write, whose rows all carry kNoNode).  Shared memory: two
+// stages (kK3StageBytes each) of packed rows.  The launch bounds ask for
+// 3 CTAs an SM at 1 m-tile and 2 at 2 (so at most 85 and 128 registers a
+// thread), for more warps to hide latency; 4 m-tiles take one.
+template <typename BinT, int MT>
+__global__ void __launch_bounds__(kWarps * 32,
+                                  MT == 1 ? 3 : MT == 2 ? 2 : 1)
+grad_hist_fused_kernel(const BinT* __restrict__ bins,
+                       const int* __restrict__ node,
+                       const float* __restrict__ grad,
+                       const float* __restrict__ hess, long long num_rows,
+                       int num_feature, int ld_bins, int f_offset,
+                       int num_nodes, int num_bins, long long rows_per_chunk,
+                       int slices, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);   // [2*node_block][nbins]
-  int* sbin = reinterpret_cast<int*>(acc + 2 * node_block * num_bins);
-  int* snode = sbin + kTile;
-  float* sg = reinterpret_cast<float*>(snode + kTile);
-  float* sh = sg + kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane >> 2;   // mma fragment row / column group
+  const int tig = lane & 3;    // thread in group
 
-  const int chunk = blockIdx.x;
-  const int f = blockIdx.y;
-  const int n0 = blockIdx.z * node_block;
-  const int n_count = min(node_block, num_nodes - n0);
-  const int j = threadIdx.x;
+  const long long units = static_cast<long long>(num_feature) * slices;
+  const long long u0 = static_cast<long long>(blockIdx.x) * kWarps;
+  const long long u_last = min(units, u0 + kWarps) - 1;
+  const int feat_lo = static_cast<int>(u0 / slices);
+  const int nf = static_cast<int>(u_last / slices) - feat_lo + 1;
+  const long long unit = u0 + warp;
+  const bool active = unit < units;
+  const int f = active ? static_cast<int>(unit / slices) : feat_lo;
+  const int base = active ? static_cast<int>(unit % slices) * kSlice : 0;
 
-  for (int k = threadIdx.x; k < 2 * node_block * num_bins; k += blockDim.x)
-    acc[k] = 0.f;
+  const long long chunk = blockIdx.y;
+  const int n0 = blockIdx.z * kNodeBlock;
+  const unsigned n_count =
+      static_cast<unsigned>(min(kNodeBlock, num_nodes - n0));
+  const int n_live = min(kNTiles, (num_bins - base + 7) >> 3);
+
+  // this lane's node in each m-tile and bin in each n-tile, as the
+  // patterns the packed rows carry, in both halves
+  unsigned node2[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    node2[mt] = 0x10001u * __half_as_ushort(__uint2half_rn(
+                               static_cast<unsigned>(kNodeTile * mt + grp)));
+  unsigned bin2[kNTiles];
+#pragma unroll
+  for (int j = 0; j < kNTiles; ++j)
+    bin2[j] = 0x10001u * (0x3F80u + base + 8 * j + grp);
 
   const long long r_begin = chunk * rows_per_chunk;
   const long long r_end = min(num_rows, r_begin + rows_per_chunk);
-  for (long long t0 = r_begin; t0 < r_end; t0 += kTile) {
-    const int tn = static_cast<int>(min(static_cast<long long>(kTile),
-                                        r_end - t0));
-    __syncthreads();
-    for (int r = threadIdx.x; r < tn; r += blockDim.x) {
-      const long long i = t0 + r;
-      const int local = node[i] - n0;  // rows of other blocks, -1: dropped
-      const bool live = local >= 0 && local < n_count;
-      sbin[r] = live ? static_cast<int>(bins[i * ld_bins + f_offset + f])
-                     : -1;
-      snode[r] = local;
-      sg[r] = __bfloat162float(__float2bfloat16_rn(grad[i]));
-      sh[r] = __bfloat162float(__float2bfloat16_rn(hess[i]));
-    }
-    __syncthreads();
-    if (j < num_bins) {
-#pragma unroll 4
-      for (int r = 0; r < tn; ++r) {
-        if (sbin[r] == j) {
-          const int k = snode[r];
-          acc[k * num_bins + j] += sg[r];
-          acc[(node_block + k) * num_bins + j] += sh[r];
-        }
-      }
-    }
+  const int n_tiles =
+      r_end > r_begin ? static_cast<int>((r_end - r_begin + kTile - 1) / kTile)
+                      : 0;
+
+  // thread x owns row x of every tile: its node, g, h and bins of the CTA's
+  // nf columns, loaded into registers one tile ahead (rows past the
+  // chunk's end: no node, g = h = 0, no bin) ...
+  const BinT* cols = bins + f_offset + feat_lo;
+  int row_node = -1;
+  float row_g = 0.f, row_h = 0.f;
+  int row_bin[kWarps];
+  auto load_row = [&](int k) {
+    const long long i =
+        r_begin + static_cast<long long>(k) * kTile + threadIdx.x;
+    const bool in = i < r_end;
+    row_node = in ? node[i] : -1;
+    row_g = in ? grad[i] : 0.f;
+    row_h = in ? hess[i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kWarps; ++c)
+      if (c < nf) row_bin[c] = in ? static_cast<int>(cols[i * ld_bins + c])
+                                  : -1;
+  };
+  // ... and packed into tile k's stage, in the order the lanes read it:
+  // the row pair {node, g, h} (node local to the m-block as an f16, kNoNode
+  // outside it; g and h rounded to bf16 as the TPU kernel does before its
+  // MXU dot), and per column the bf16 pattern 0x3F80 + bin (kNoBin for a
+  // bin outside [0, num_bins)) at the slot of k-step x / 16, tig, lo/hi and
+  // half of the row
+  auto pack_row = [&](int k) {
+    unsigned char* st = smem_raw + (k & 1) * kK3StageBytes;
+    unsigned short* pk = reinterpret_cast<unsigned short*>(st)
+        + (threadIdx.x >> 1) * (kPairBytes / 2) + (threadIdx.x & 1);
+    const unsigned loc =
+        static_cast<unsigned>(row_node) - static_cast<unsigned>(n0);
+    pk[0] = loc < n_count ? __half_as_ushort(__uint2half_rn(loc)) : kNoNode;
+    pk[2] = __bfloat16_as_ushort(__float2bfloat16_rn(row_g));
+    pk[4] = __bfloat16_as_ushort(__float2bfloat16_rn(row_h));
+    const int r = threadIdx.x & 15;
+    unsigned short* pt = reinterpret_cast<unsigned short*>(
+        st + kTile / 2 * kPairBytes)
+        + (threadIdx.x & ~15) + ((r & 7) >> 1) * 4 + (r >> 3) * 2 + (r & 1);
+#pragma unroll
+    for (int c = 0; c < kWarps; ++c)
+      if (c < nf)
+        pt[c * kTile] = static_cast<unsigned>(row_bin[c])
+                                < static_cast<unsigned>(num_bins)
+                            ? static_cast<unsigned short>(0x3F80 + row_bin[c])
+                            : kNoBin;
+  };
+
+  float acc[MT][kNTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  if (n_tiles > 0) {
+    load_row(0);
+    pack_row(0);
   }
-  __syncthreads();
+  // one barrier a tile: the stage a thread packs after computing tile k was
+  // last read for tile k - 1, which every warp finished before this barrier
+  for (int k = 0; k < n_tiles; ++k) {
+    if (k + 1 < n_tiles) load_row(k + 1);
+    __syncthreads();   // tile k is packed
+    if (active) {
+      const long long t0 = r_begin + static_cast<long long>(k) * kTile;
+      const int k_steps = static_cast<int>(
+          (min(static_cast<long long>(kTile), r_end - t0) + 15) >> 4);
+      const unsigned char* st = smem_raw + (k & 1) * kK3StageBytes;
+      const uint4* pairs = reinterpret_cast<const uint4*>(st);
+      const uint2* patterns = reinterpret_cast<const uint2*>(
+          st + kTile / 2 * kPairBytes + (f - feat_lo) * kTile * 2);
+      if (n_live == kNTiles)
+        k3_tile<MT, true>(acc, pairs, patterns, node2, bin2, k_steps, n_live,
+                          tig);
+      else
+        k3_tile<MT, false>(acc, pairs, patterns, node2, bin2, k_steps,
+                           n_live, tig);
+    }
+    if (k + 1 < n_tiles) pack_row(k + 1);
+  }
+
+  if (!active) return;
+  // accumulator e of m-tile mt holds row grp + 8 (e >> 1) of the m-tile:
+  // G (e < 2) or H of node n0 + 8 mt + grp, bin column 2 tig + (e & 1)
   const long long row_len = static_cast<long long>(num_feature) * num_bins;
-  for (int k = threadIdx.x; k < 2 * n_count * num_bins; k += blockDim.x) {
-    const int s = k / (n_count * num_bins);  // 0: G, 1: H
-    const int rem = k - s * n_count * num_bins;
-    const int kk = rem / num_bins;
-    const int jj = rem - kk * num_bins;
-    const long long row = (static_cast<long long>(chunk) * 2 + s) * num_nodes
-                          + n0 + kk;
-    partial[row * row_len + static_cast<long long>(f) * num_bins + jj] =
-        acc[(s * node_block + kk) * num_bins + jj];
+  float* out = partial + chunk * 2 * num_nodes * row_len
+               + static_cast<long long>(f) * num_bins;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int nd = n0 + kNodeTile * mt + grp;
+    if (nd >= num_nodes) continue;
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = base + 8 * j + 2 * tig + (e & 1);
+        if (col < num_bins)
+          out[(static_cast<long long>(e >> 1) * num_nodes + nd) * row_len
+              + col] = acc[mt][j][e];
+      }
   }
 }
 
@@ -454,8 +669,6 @@ __global__ void sum_chunks_kernel(const float* __restrict__ partial,
     out[i] = s;
   }
 }
-
-int threads_for(int num_bins) { return 32 * ((num_bins + 31) / 32); }
 
 cudaError_t sum_chunks(const float* partial, long long n, int n_chunks,
                        float* out, cudaStream_t stream) {
@@ -509,24 +722,26 @@ cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                                    long long num_rows, int num_feature,
                                    int ld_bins, int f_offset,
                                    int num_nodes, int num_bins,
-                                   int node_block, long long rows_per_chunk,
-                                   int n_chunks, float* partial, float* out,
+                                   long long rows_per_chunk, int n_chunks,
+                                   float* partial, float* out,
                                    cudaStream_t stream) {
-  const int smem = 2 * node_block * num_bins * 4 + kTile * 16;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      grad_hist_fused_kernel<BinT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_chunks, num_feature,
-                  (num_nodes + node_block - 1) / node_block);
-  grad_hist_fused_kernel<BinT><<<grid, threads_for(num_bins), smem,
-                                 stream>>>(
+  const MatmulPlan p = matmul_plan(num_feature, num_bins, sizeof(BinT));
+  // m-tiles per warp from the nodes of one m-block
+  auto kernel = grad_hist_fused_kernel<BinT, 4>;
+  switch ((min(num_nodes, kNodeBlock) + kNodeTile - 1) / kNodeTile) {
+    case 1: kernel = grad_hist_fused_kernel<BinT, 1>; break;
+    case 2: kernel = grad_hist_fused_kernel<BinT, 2>; break;
+    case 3: kernel = grad_hist_fused_kernel<BinT, 3>; break;
+    default: break;
+  }
+  const dim3 grid(static_cast<unsigned>(p.groups), n_chunks,
+                  (num_nodes + kNodeBlock - 1) / kNodeBlock);
+  kernel<<<grid, kWarps * 32, kK3Smem, stream>>>(
       static_cast<const BinT*>(bins), static_cast<const int*>(node),
       static_cast<const float*>(grad), static_cast<const float*>(hess),
       num_rows, num_feature, ld_bins, f_offset, num_nodes, num_bins,
-      node_block, rows_per_chunk, partial);
-  err = cudaGetLastError();
+      rows_per_chunk, p.slices, partial);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_chunks(partial,
                     2LL * num_nodes * num_feature * num_bins, n_chunks, out,
@@ -586,18 +801,19 @@ int dmlc_hist_matmul(const void* w, const void* bins, int bins_u8,
                                            n_chunks, p, o, s);
 }
 
-// K3.  bins as for K1, node [num_rows] int32, grad/hess [num_rows] f32,
-// partial [n_chunks, 2, num_nodes, F*nbins] f32 (may alias out when
-// n_chunks == 1), out [2, num_nodes, F*nbins] f32 with F = num_feature.
+// K3.  bins as for K1, node [num_rows] int32 (num_nodes < 65535),
+// grad/hess [num_rows] f32, partial [n_chunks, 2, num_nodes, F*nbins] f32
+// (may alias out when n_chunks == 1), out [2, num_nodes, F*nbins] f32 with
+// F = num_feature.  Returns the CUDA error of the launches (0 on success).
 int dmlc_grad_hist_fused(const void* bins, int bins_u8, const void* node,
                          const void* grad, const void* hess,
                          long long num_rows, int num_feature, int ld_bins,
                          int f_offset, int num_nodes, int num_bins,
-                         int node_block, long long rows_per_chunk,
-                         int n_chunks, void* partial, void* out,
-                         void* stream) {
+                         long long rows_per_chunk, int n_chunks,
+                         void* partial, void* out, void* stream) {
   if (bad_shape(num_rows, num_feature, ld_bins, f_offset, num_nodes,
-                num_bins, node_block, rows_per_chunk, n_chunks))
+                num_bins, kNodeBlock, rows_per_chunk, n_chunks)
+      || n_chunks > 65535 || num_nodes >= 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
@@ -605,12 +821,12 @@ int dmlc_grad_hist_fused(const void* bins, int bins_u8, const void* node,
   return bins_u8
              ? launch_grad_hist_fused<uint8_t>(
                    bins, node, grad, hess, num_rows, num_feature, ld_bins,
-                   f_offset, num_nodes, num_bins, node_block, rows_per_chunk,
-                   n_chunks, p, o, s)
+                   f_offset, num_nodes, num_bins, rows_per_chunk, n_chunks,
+                   p, o, s)
              : launch_grad_hist_fused<int32_t>(
                    bins, node, grad, hess, num_rows, num_feature, ld_bins,
-                   f_offset, num_nodes, num_bins, node_block, rows_per_chunk,
-                   n_chunks, p, o, s);
+                   f_offset, num_nodes, num_bins, rows_per_chunk, n_chunks,
+                   p, o, s);
 }
 
 }  // extern "C"

@@ -98,10 +98,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      p, p, p]
     lib.dmlc_hist_matmul.restype = i
     # dmlc_grad_hist_fused(bins, bins_u8, node, grad, hess, num_rows,
-    #   num_feature, ld_bins, f_offset, num_nodes, num_bins, node_block,
-    #   rows_per_chunk, n_chunks, partial, out, stream)
+    #   num_feature, ld_bins, f_offset, num_nodes, num_bins, rows_per_chunk,
+    #   n_chunks, partial, out, stream)
     lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, ll, i, i, i, i, i,
-                                         i, ll, i, p, p, p]
+                                         ll, i, p, p, p]
     lib.dmlc_grad_hist_fused.restype = i
     return lib
 

@@ -10,7 +10,8 @@ Counterpart of ``dmlc_core_tpu/ops/hist_pallas.py``.  The kernels live in
   bf16 weight matrix ``W = [nodehot*g ; nodehot*h]`` with PyTorch, launches
   K1's kernel and splits (G, H), sweeping node blocks for deep levels;
 - :func:`grad_hist_fused_cuda` replaces ``grad_hist_pallas_fused`` (K3):
-  the same (G, H) with the node one-hot built inside the kernel;
+  the same (G, H) with the weight rows ``[nodehot*g ; nodehot*h]`` built
+  in registers inside the kernel, so no W matrix is materialised;
 - :func:`grad_hist_sharded_cuda` replaces ``grad_hist_pallas_sharded``
   (K4): on a rank at mesh coordinate ``(d, m)``, K2 or K3 over the rank's
   window of ``F/mp`` feature columns (read in place: the kernels take a
@@ -30,8 +31,9 @@ all-gather hands each rank 1.84 MB.
 
 Numerics are the TPU kernels': g and h rounded to bf16 (nearest even),
 sums in f32, rows whose node id lies outside ``[0, num_nodes)`` dropped.
-K1 runs the TPU's formulation, W times a one-hot built in registers, on
-the tensor cores (``mma.sync``); K3 does scalar sums.  The note in
+K1 and K3 run the TPU's formulation, W times a one-hot built in
+registers, on the tensor cores (``mma.sync``); K3 builds W's fragments
+from node/g/h in registers too, so no W exists.  The note in
 ``hist.cu`` gives each kernel's bounds.  Every sum is free of atomics, so
 outputs are bitwise identical from launch to launch.
 
@@ -58,7 +60,7 @@ __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
            "grad_hist_sharded_cuda", "hist_matmul_ref", "grad_hist_ref",
            "grad_hist_fused_ref", "grad_hist_sharded_ref", "scatter_sums",
            "node_weights", "hist_node_block", "hist_matmul_plan",
-           "sharded_hist_plan",
+           "grad_hist_fused_plan", "sharded_hist_plan",
            "kernels_available", "reset_launches", "LAUNCHES",
            "STAGE_SECONDS", "DATA_AXIS", "TILE"]
 
@@ -77,13 +79,18 @@ DATA_AXIS = "data"
 TILE = 256               # rows a CTA stages per step (kTile in hist.cu)
 _SMEM_BYTES = 232448     # dynamic shared memory one block may use on sm_90
 _TARGET_CTAS = 1056      # CTAs per launch the row chunking aims at
-_NODE_BLOCK = 32         # K3: nodes per CTA (G and H rows: 2x)
 # K1 (the constants of hist.cu's matmul_plan)
 _M_BLOCK = 64            # weight rows per CTA: 4 mma m-tiles of 16
 _SLICE = 64              # bins per warp: 8 mma n-tiles of 8
 _WARPS = 8               # (feature, bin slice) units per CTA
 _K_STEP = 16             # data rows per mma (m16n8k16)
 _W_PITCH = TILE + 8      # bf16 per staged W row
+# K3 (K1's units and warps, and these)
+_NODE_TILE = 8           # nodes per mma m-tile: their G rows, then H rows
+_NODE_M_BLOCK = 32       # nodes per CTA (grid z): 4 m-tiles
+# two stages of packed rows: per row pair {node, g, h} in 16 bytes, per row
+# and column of the CTA (at most _WARPS) a 2-byte one-hot pattern
+_FUSED_SMEM = 2 * (TILE // 2 * 16 + _WARPS * TILE * 2)
 
 # per-sweep budget of grad_hist_cuda's [2*n_pad, F*nbins] f32 output; deeper
 # levels sweep node blocks, which also bounds the bf16 W it materialises
@@ -258,6 +265,20 @@ class MatmulPlan(NamedTuple):
     grid: Tuple[int, int, int]   # (groups, n_chunks, m_blocks)
 
 
+def _unit_plan(num_feature: int, num_bins: int):
+    """(slices, units, warps, groups, span): the (feature, 64-bin slice)
+    units K1 and K3 give their warps, 8 to a CTA, and the most feature
+    columns one CTA's units touch."""
+    slices = -(-num_bins // _SLICE)
+    units = num_feature * slices
+    warps = min(units, _WARPS)
+    groups = -(-units // _WARPS)
+    # `warps` consecutive units starting anywhere in a feature touch at
+    # most this many features
+    span = min(num_feature, (warps + slices - 2) // slices + 1)
+    return slices, units, warps, groups, span
+
+
 def hist_matmul_plan(m: int, num_rows: int, num_feature: int,
                      num_bins: int, bin_bytes: int) -> MatmulPlan:
     """K1's launch plan, from the shapes alone; ``hist.cu``'s
@@ -265,11 +286,8 @@ def hist_matmul_plan(m: int, num_rows: int, num_feature: int,
     slice) unit of one 64-row block of W; a CTA of up to 8 warps stages a
     two-stage ring of W tiles ``[64][TILE + 8]`` bf16 and of bins rows
     holding the 16-byte granules over its features' columns."""
-    slices = -(-num_bins // _SLICE)
-    units = num_feature * slices
-    warps = min(units, _WARPS)
-    groups = -(-units // _WARPS)
-    span = min(num_feature, (warps + slices - 2) // slices + 1)
+    slices, units, warps, groups, span = _unit_plan(num_feature, num_bins)
+    # a row's columns start anywhere in a 16-byte granule: up to 15 B ahead
     bins_pitch = 16 * ((15 + span * bin_bytes + 15) // 16)
     smem = 2 * (_M_BLOCK * _W_PITCH * 2 + TILE * bins_pitch)
     m_blocks = -(-m // _M_BLOCK)
@@ -280,8 +298,38 @@ def hist_matmul_plan(m: int, num_rows: int, num_feature: int,
                       (groups, n_chunks, m_blocks))
 
 
-def _fused_smem(node_block: int, num_bins: int) -> int:
-    return 2 * node_block * num_bins * 4 + TILE * 16
+class FusedPlan(NamedTuple):
+    """K3's launch: row chunks, warps, CTAs, node blocks, shared memory."""
+    n_chunks: int
+    rows_per_chunk: int
+    slices: int          # 64-bin slices per feature
+    units: int           # (feature, slice) pairs, one warp each
+    warps: int           # warps that compute per CTA (all 8 pack rows)
+    groups: int          # CTAs per (row chunk, m-block)
+    m_blocks: int        # 32-node blocks (grid z)
+    m_tiles: int         # 8-node m-tiles a warp computes (kernel template)
+    span: int            # most feature columns one CTA packs
+    smem: int            # dynamic shared memory per CTA
+    threads: int         # per CTA: one per row of a packed tile
+    grid: Tuple[int, int, int]   # (groups, n_chunks, m_blocks)
+
+
+def grad_hist_fused_plan(num_nodes: int, num_rows: int, num_feature: int,
+                         num_bins: int, bin_bytes: int) -> FusedPlan:
+    """K3's launch plan, from the shapes alone; ``hist.cu``'s
+    ``launch_grad_hist_fused`` computes the same.  K1's units, warps and
+    CTA groups; each CTA covers one m-block of 32 nodes as ``m_tiles``
+    m-tiles of 8 (A rows 0-7 the nodes' G rows, 8-15 their H rows).  Its
+    256 threads pack each tile once, a row each, into one of two stages
+    (``bin_bytes`` does not change the plan)."""
+    slices, units, warps, groups, span = _unit_plan(num_feature, num_bins)
+    m_blocks = -(-num_nodes // _NODE_M_BLOCK)
+    m_tiles = -(-min(num_nodes, _NODE_M_BLOCK) // _NODE_TILE)
+    n_chunks, rows_per_chunk = _chunks(num_rows, groups * m_blocks,
+                                       round_down=True)
+    return FusedPlan(n_chunks, rows_per_chunk, slices, units, warps, groups,
+                     m_blocks, m_tiles, span, _FUSED_SMEM, _WARPS * 32,
+                     (groups, n_chunks, m_blocks))
 
 
 def _library():
@@ -405,9 +453,15 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
                          num_bins: int, f_offset: int = 0,
                          f_count: Optional[int] = None):
     """K3: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
-    f_count`` columns from ``f_offset`` (all by default), with the node
-    one-hot built in the kernel.  CPU tensors take
-    :func:`grad_hist_fused_ref` on a copy of the window."""
+    f_count`` columns from ``f_offset`` (all by default), on the tensor
+    cores: the kernel builds the weight fragments ``[nodehot*g ;
+    nodehot*h]`` (g and h rounded to bf16) in registers from node/g/h, 8
+    nodes per m-tile and 32 per CTA (:func:`grad_hist_fused_plan`), and
+    multiplies them with the bin one-hot, also built in registers.  It
+    allocates only ``out`` and the row chunks' partials; no W exists.  Rows
+    whose node lies outside ``[0, num_nodes)`` add nothing, nor do bins
+    outside ``[0, num_bins)``.  CPU tensors take :func:`grad_hist_fused_ref`
+    on a copy of the window."""
     _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
     B = bins.shape[0]
     F = _window(bins, f_offset, f_count)
@@ -415,25 +469,26 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
         return grad_hist_fused_ref(_columns(bins, f_offset, F), node_ids,
                                    grad, hess, num_nodes, num_bins)
     _check_cuda(bins)
+    # the kernel packs node ids local to a 32-node block in 16 bits
+    CHECK(num_nodes < 65535, f"at most 65534 nodes per launch, got "
+                             f"{num_nodes}")
     out = torch.empty(2, num_nodes, F, num_bins, dtype=torch.float32,
                       device=bins.device)
     if B == 0:
         out.zero_()
         return out[0], out[1]
-    node_block = min(num_nodes, _NODE_BLOCK)
-    while _fused_smem(node_block, num_bins) > _SMEM_BYTES:
-        node_block -= 1
-    n_chunks, rows_per_chunk = _chunks(B, F * -(-num_nodes // node_block))
-    partial = out if n_chunks == 1 else torch.empty(
-        n_chunks * out.numel(), dtype=torch.float32, device=bins.device)
+    plan = grad_hist_fused_plan(num_nodes, B, F, num_bins,
+                                bins.element_size())
+    partial = out if plan.n_chunks == 1 else torch.empty(
+        plan.n_chunks * out.numel(), dtype=torch.float32, device=bins.device)
     lib = _library()
     with torch.cuda.device(bins.device):
         rc = lib.dmlc_grad_hist_fused(
             bins.data_ptr(), int(bins.dtype == torch.uint8),
             node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-            B, F, bins.shape[1], f_offset, num_nodes, num_bins, node_block,
-            rows_per_chunk, n_chunks, partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            B, F, bins.shape[1], f_offset, num_nodes, num_bins,
+            plan.rows_per_chunk, plan.n_chunks, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "grad_hist_fused_cuda")
     LAUNCHES["grad_hist_fused_cuda"] += 1
     return out[0], out[1]

@@ -9,8 +9,9 @@ ROOT (the checkout this file lies in by default) must hold
 2,000,000 rows x 28 uint8 features x 256 bins it prints one line per
 measurement: K1 (``hist_matmul_cuda``) at n = 1 and 32 nodes (M = 16 and
 64 weight rows), K2 (``grad_hist_cuda``) at n = 1, 32 and 256, and K3
-(``grad_hist_fused_cuda``) at n = 32, in CUDA-event milliseconds per call
-(10 calls after 2 warm-up calls), then the card's name and power limit.
+(``grad_hist_fused_cuda``) at n = 1, 8, 16, 32 and 256, in CUDA-event
+milliseconds per call (10 calls after 2 warm-up calls), then the card's
+name and power limit.
 Compare two checkouts in turns (A, B, B, A) on one card, in one run.
 """
 
@@ -50,18 +51,18 @@ def main():
         ms = cuda_event_ms(fn, iters=10, warmup=2)
         print(f"[{tag}] {name} ms={ms:.3f}", flush=True)
 
-    for n in (1, 32, 256):
+    for n in (1, 8, 16, 32, 256):
         node = torch.randint(-1, n, (B,), device=dev, generator=gen,
                              dtype=torch.int32)
         args_ = (bins, node, grad, hess, n, nb)
-        if hist_cuda.hist_node_block(n, F, nb) == n:
-            w = hist_cuda.node_weights(node, grad, hess, n)
-            report(f"K1 n={n} M={w.shape[0]}",
-                   lambda: hist_cuda.hist_matmul_cuda(w, bins, nb))
-            del w
-        report(f"K2 n={n}", lambda: hist_cuda.grad_hist_cuda(*args_))
-        if n == 32:
-            report(f"K3 n={n}", lambda: hist_cuda.grad_hist_fused_cuda(*args_))
+        if n in (1, 32, 256):
+            if hist_cuda.hist_node_block(n, F, nb) == n:
+                w = hist_cuda.node_weights(node, grad, hess, n)
+                report(f"K1 n={n} M={w.shape[0]}",
+                       lambda: hist_cuda.hist_matmul_cuda(w, bins, nb))
+                del w
+            report(f"K2 n={n}", lambda: hist_cuda.grad_hist_cuda(*args_))
+        report(f"K3 n={n}", lambda: hist_cuda.grad_hist_fused_cuda(*args_))
         del node
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -121,7 +121,8 @@ def test_row_chunking_depends_on_shapes_only():
     # the shared-memory plans stay inside one block's limit
     assert hist_cuda.hist_matmul_plan(64, 2_000_000, 28, 256, 1).smem \
         <= hist_cuda._SMEM_BYTES
-    assert hist_cuda._fused_smem(32, 256) <= hist_cuda._SMEM_BYTES
+    assert hist_cuda.grad_hist_fused_plan(32, 2_000_000, 28, 256, 1).smem \
+        <= hist_cuda._SMEM_BYTES
 
 
 @pytest.mark.parametrize("alone", [False, True])
