@@ -15,13 +15,20 @@
 //    (and H from h), with the weight rows [nodehot*g ; nodehot*h] built in
 //    registers from 12 B of node/g/h per row: no W matrix exists.
 //
+// grad_hist_pallas (K2) computes K3's function from a W built in XLA and
+// runs K1 over it, sweeping node blocks at deep levels.  It has no kernel of
+// its own here: grad_hist_cuda launches grad_hist_fused_kernel over every
+// node in one launch, so K2 and K3 give the same bits, and K1 serves
+// callers that hold a W of their own.
+//
 // Both read a window of feature columns, bins[i * ld_bins + f_offset + f]
 // for f < num_feature, straight from a row-major [B, ld_bins] array
 // (ld_bins = num_feature, f_offset = 0 for the whole array).  That is the
 // counterpart of grad_hist_pallas_sharded (K4, hist_pallas.py:350): each
 // model shard of the TPU program slices its F/mp columns with a
 // dynamic_slice and runs K2/K3 on the copy; a rank here hands its window to
-// the same kernels instead, so no B x F/mp copy is made per tree level.
+// K3's kernel (K2's route on the card) instead, so no B x F/mp copy is made
+// per tree level.
 // Outputs stay [..., num_feature * nbins] for the window.  A window of 14
 // uint8 columns of a 28-byte row still touches every 32-byte sector of the
 // row, so the window costs as many DRAM sectors as the whole row; a layout

@@ -86,11 +86,12 @@ class GBDTParam(Parameter):
     hist_method = field(str, default="auto",
                         enum=["auto", "pallas", "pallas_fused", "onehot",
                               "scatter"],
-                        help="histogram algorithm: 'pallas' is the CUDA "
-                             "kernel through a bf16 weight matrix, "
-                             "'pallas_fused' the kernel that builds it "
-                             "in-kernel; 'onehot' a matmul, 'scatter' exact "
-                             "f32 index_add_ (the CPU default)")
+                        help="histogram algorithm: 'pallas' and "
+                             "'pallas_fused' (the reference's K2 and K3) "
+                             "both run the CUDA kernel that builds the node "
+                             "weights in registers; 'onehot' a matmul, "
+                             "'scatter' exact f32 segment sums (the CPU "
+                             "default)")
 
 
 _SAMPLING = ("subsample", "colsample_bytree", "colsample_bylevel",
@@ -336,11 +337,11 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
         leafhot = (node[:, None] == torch.arange(n_leaf, device=dev)
                    ).to(torch.float32)                   # [B, n_leaf]
         sums = torch.matmul(leafhot.t(), torch.stack([g, h], dim=1))
-        Gl, Hl = sums[:, 0], sums[:, 1]
     else:
-        Gl = torch.zeros(n_leaf, device=dev).index_add_(0, node, g)
-        Hl = torch.zeros(n_leaf, device=dev).index_add_(0, node, h)
-    Gl, Hl = data_allreduce(Gl, Hl)          # every data shard's rows
+        # the reference's segment_sum, atomics-free on the card too
+        sums = hist_cuda.segment_sum(torch.stack([g, h], dim=1), node,
+                                     n_leaf)
+    Gl, Hl = data_allreduce(sums[:, 0], sums[:, 1])  # every data shard's rows
     leaf_w = -_l1_threshold(Gl, reg_alpha) / (Hl + reg_lambda)
     if max_delta_step > 0.0:
         leaf_w = torch.clamp(leaf_w, -max_delta_step, max_delta_step)
@@ -477,12 +478,6 @@ class GBDT:
                 self.param.num_bins)
             if mesh is None:
                 method = "onehot"
-            elif method == "pallas_fused":
-                mp = mesh.shape[self.model_axis]
-                if hist_cuda.hist_node_block(
-                        deepest, self.num_feature // mp,
-                        self.param.num_bins) < deepest:
-                    method = "pallas"   # blocked sweeps have no fused form
         return method
 
     def _check_sampling(self) -> None:

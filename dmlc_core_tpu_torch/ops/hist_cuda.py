@@ -6,14 +6,16 @@ Counterpart of ``dmlc_core_tpu/ops/hist_pallas.py``.  The kernels live in
 
 - :func:`hist_matmul_cuda` replaces ``hist_matmul_pallas`` (K1):
   ``out[m, f*nbins + b] = sum_i w[m, i] * [bins[i, f] == b]``;
-- :func:`grad_hist_cuda` replaces ``grad_hist_pallas`` (K2): builds the
-  bf16 weight matrix ``W = [nodehot*g ; nodehot*h]`` with PyTorch, launches
-  K1's kernel and splits (G, H), sweeping node blocks for deep levels;
+- :func:`grad_hist_cuda` replaces ``grad_hist_pallas`` (K2), which builds
+  the bf16 weight matrix ``W = [nodehot*g ; nodehot*h]`` in XLA and runs
+  K1 over it: on the card it launches K3's kernel over every node in one
+  launch, so no W is built (the TPU built W outside the kernel only where
+  Mosaic could not lower the fused build; the card has no such limit);
 - :func:`grad_hist_fused_cuda` replaces ``grad_hist_pallas_fused`` (K3):
   the same (G, H) with the weight rows ``[nodehot*g ; nodehot*h]`` built
   in registers inside the kernel, so no W matrix is materialised;
 - :func:`grad_hist_sharded_cuda` replaces ``grad_hist_pallas_sharded``
-  (K4): on a rank at mesh coordinate ``(d, m)``, K2 or K3 over the rank's
+  (K4): on a rank at mesh coordinate ``(d, m)``, K3's kernel over the rank's
   window of ``F/mp`` feature columns (read in place: the kernels take a
   row stride and a column offset), then the sum over the rank's ``data``
   group and the concatenation over its ``model`` group.
@@ -38,9 +40,10 @@ from node/g/h in registers too, so no W exists.  The note in
 outputs are bitwise identical from launch to launch.
 
 Beside each kernel sits its plain PyTorch version (``*_ref``): bf16
-rounding, then f32 ``index_add_`` over flat ids.  A wrapper takes the plain
-version only for tensors that lie on the CPU; for a CUDA tensor it launches
-the kernel or raises.  ``LAUNCHES[name]`` counts kernel launches.
+rounding, then f32 sums over flat ids (:func:`segment_sum`, which is
+atomics-free on the card too).  A wrapper takes the plain version only for
+tensors that lie on the CPU; for a CUDA tensor it launches the kernel or
+raises.  ``LAUNCHES[name]`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -59,8 +62,8 @@ from dmlc_core_tpu_torch.utils.logging import CHECK
 __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
            "grad_hist_sharded_cuda", "hist_matmul_ref", "grad_hist_ref",
            "grad_hist_fused_ref", "grad_hist_sharded_ref", "scatter_sums",
-           "node_weights", "hist_node_block", "hist_matmul_plan",
-           "grad_hist_fused_plan", "sharded_hist_plan",
+           "segment_sum", "node_weights", "hist_node_block",
+           "hist_matmul_plan", "grad_hist_fused_plan", "sharded_hist_plan",
            "kernels_available", "reset_launches", "LAUNCHES",
            "STAGE_SECONDS", "DATA_AXIS", "TILE"]
 
@@ -92,8 +95,9 @@ _NODE_M_BLOCK = 32       # nodes per CTA (grid z): 4 m-tiles
 # and column of the CTA (at most _WARPS) a 2-byte one-hot pattern
 _FUSED_SMEM = 2 * (TILE // 2 * 16 + _WARPS * TILE * 2)
 
-# per-sweep budget of grad_hist_cuda's [2*n_pad, F*nbins] f32 output; deeper
-# levels sweep node blocks, which also bounds the bf16 W it materialises
+# the reference's per-sweep budget of its K2's [2*n_pad, F*nbins] f32
+# accumulator (hist_pallas._ACC_BYTES_LIMIT); the port's kernels need none,
+# but its dispatch gates take the reference's decisions with it
 _ACC_BYTES_LIMIT = 8 * 1024 * 1024
 
 
@@ -108,15 +112,19 @@ def _pad_nodes(num_nodes: int) -> int:
 
 
 def _acc_fits(num_nodes: int, num_feature: int, num_bins: int) -> bool:
-    """Whether K2's ``[2*n_pad, F*nbins]`` f32 output fits the budget."""
+    """Whether the reference K2's ``[2*n_pad, F*nbins]`` f32 accumulator
+    fits its budget."""
     return 2 * _pad_nodes(num_nodes) * num_feature * num_bins * 4 \
         <= _ACC_BYTES_LIMIT
 
 
 def hist_node_block(num_nodes: int, num_feature: int, num_bins: int) -> int:
-    """Nodes per :func:`grad_hist_cuda` sweep: all of them when the
-    ``[2*n_pad, F*nbins]`` f32 output fits ``_ACC_BYTES_LIMIT``, else the
-    largest power of two (at least 8) that does."""
+    """Nodes per sweep of the reference's K2 (``hist_pallas.
+    hist_node_block``): all of them when the ``[2*n_pad, F*nbins]`` f32
+    accumulator fits ``_ACC_BYTES_LIMIT``, else the largest power of two
+    (at least 8) that does.  The port sweeps no node blocks (K3's kernel
+    covers any node count in one launch); the dispatch gates use this to
+    choose as the reference does."""
     if _acc_fits(num_nodes, num_feature, num_bins):
         return num_nodes
     block = 1 << (num_nodes - 1).bit_length()
@@ -126,40 +134,69 @@ def hist_node_block(num_nodes: int, num_feature: int, num_bins: int) -> int:
     return block
 
 
-def _split_gh(out, n_pad: int, num_nodes: int, num_feature: int,
-              num_bins: int):
-    """[2*n_pad, F*nbins] -> (G, H) trimmed to num_nodes."""
-    out = out.reshape(2, n_pad, num_feature, num_bins)
-    return out[0, :num_nodes], out[1, :num_nodes]
-
-
 # -- plain PyTorch versions -------------------------------------------------
 def _bf16(x):
     return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
 
 
+def segment_sum(values, ids, num_segments: int):
+    """``jax.ops.segment_sum``: ``out[s]`` is the f32 sum of the rows
+    ``values[i]`` ([N] or [N, K]) with ``ids[i] == s``; ids outside
+    ``[0, num_segments)`` add nothing.
+
+    On the CPU each column is an ``index_add_``, which adds the rows
+    serially in row order.  On the card ``index_add_`` adds with float
+    atomics, in an order that changes from run to run, so there a stable
+    sort of the ids puts each segment's rows together in row order and
+    ``torch.segment_reduce`` sums each segment alone, in a fixed order: the
+    same bits every call, without a process-wide switch."""
+    values = values.to(torch.float32)
+    ids = ids.to(torch.int64)
+    # out-of-range ids go to a spill segment past the end
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    cols = values.t() if values.dim() == 2 else values[None]   # [K, N]
+    if values.device.type == "cpu":
+        sums = [torch.zeros(num_segments + 1).index_add_(0, ids, v)
+                for v in cols]
+    else:
+        _check_cuda(values)
+        sums = _sorted_sums(cols, ids, num_segments + 1)
+    out = torch.stack(sums, dim=1)[:num_segments]
+    return out.reshape((num_segments,) + tuple(values.shape[1:]))
+
+
+def _sorted_sums(cols, ids, num_segments: int):
+    """:func:`segment_sum`'s form for the card, on ids all in
+    ``[0, num_segments)``: per row of ``cols`` [K, N], the f32 sum of each
+    segment, each segment's values added alone in a fixed order."""
+    ids, order = torch.sort(ids, stable=True)
+    starts = torch.searchsorted(ids, torch.arange(
+        num_segments + 1, dtype=torch.int64, device=ids.device))
+    # unsafe: the lengths sum to N by construction; checking them would
+    # wait for the card
+    return [torch.segment_reduce(v[order], "sum", lengths=starts.diff(),
+                                 unsafe=True, initial=0.0)
+            for v in cols]
+
+
 def scatter_sums(bins, node_ids, grad, hess, num_nodes: int, num_bins: int):
-    """Exact f32 (G, H) by ``index_add_`` over the flat ids
-    ``node*F*nbins + f*nbins + bin``; out-of-range nodes and bins drop into
-    a spill slot.  The ``"scatter"`` method and the kernels' plain versions
-    share it."""
+    """Exact f32 (G, H) by :func:`segment_sum` over the flat ids
+    ``node*F*nbins + f*nbins + bin``; out-of-range nodes and bins drop.  The
+    ``"scatter"`` method and the kernels' plain versions share it."""
     B, F = bins.shape
-    dev = bins.device
     nseg = num_nodes * F * num_bins
     node = node_ids.to(torch.int64)
     b = bins.to(torch.int64)
     ids = (node[:, None] * (F * num_bins)
-           + torch.arange(F, device=dev)[None, :] * num_bins + b)
+           + torch.arange(F, device=bins.device)[None, :] * num_bins + b)
     keep = (((node >= 0) & (node < num_nodes))[:, None]
             & (b >= 0) & (b < num_bins))
-    flat = torch.where(keep, ids, nseg).reshape(-1)
-    out = []
-    for v in (grad, hess):
-        src = v.to(torch.float32)[:, None].expand(B, F).reshape(-1)
-        acc = torch.zeros(nseg + 1, dtype=torch.float32, device=dev)
-        acc.index_add_(0, flat, src)
-        out.append(acc[:nseg].reshape(num_nodes, F, num_bins))
-    return out[0], out[1]
+    flat = torch.where(keep, ids, -1).reshape(-1)
+    gh = torch.stack([grad, hess], dim=1).to(torch.float32)    # [B, 2]
+    sums = segment_sum(gh[:, None, :].expand(B, F, 2).reshape(B * F, 2),
+                       flat, nseg)
+    return (sums[:, 0].reshape(num_nodes, F, num_bins),
+            sums[:, 1].reshape(num_nodes, F, num_bins))
 
 
 def hist_matmul_ref(w, bins, num_bins: int):
@@ -394,25 +431,16 @@ def hist_matmul_cuda(w, bins, num_bins: int, f_offset: int = 0,
 
 
 def node_weights(node_ids, grad, hess, num_nodes: int):
-    """K2's weight matrix ``[nodehot*g ; nodehot*h]`` in bf16,
-    [2*n_pad, B]; rows of nodes outside ``[0, num_nodes)`` stay zero."""
+    """The reference K2's weight matrix ``[nodehot*g ; nodehot*h]`` in
+    bf16, [2*n_pad, B]; rows of nodes outside ``[0, num_nodes)`` stay zero.
+    No histogram path of the port builds it: it is the W that K1's checks
+    and tools hand :func:`hist_matmul_cuda`."""
     n_pad = _pad_nodes(num_nodes)
     iota = torch.arange(n_pad, dtype=torch.int32, device=node_ids.device)
     nodehot = node_ids[None, :] == iota[:, None]           # [n_pad, B]
     return torch.cat([torch.where(nodehot, grad[None, :], 0.0),
                       torch.where(nodehot, hess[None, :], 0.0)]
                      ).to(torch.bfloat16)
-
-
-def _grad_hist_block(bins, node_ids, grad, hess, num_nodes: int,
-                     num_bins: int, f_offset: int, f_count: int):
-    if bins.device.type == "cpu":
-        return grad_hist_ref(_columns(bins, f_offset, f_count), node_ids,
-                             grad, hess, num_nodes, num_bins)
-    n_pad = _pad_nodes(num_nodes)
-    w = node_weights(node_ids, grad, hess, num_nodes)
-    out = hist_matmul_cuda(w, bins, num_bins, f_offset, f_count)
-    return _split_gh(out, n_pad, num_nodes, f_count, num_bins)
 
 
 def _check_grad_args(bins, node_ids, grad, hess, num_nodes: int,
@@ -429,24 +457,17 @@ def grad_hist_cuda(bins, node_ids, grad, hess, num_nodes: int,
                    num_bins: int, f_offset: int = 0,
                    f_count: Optional[int] = None):
     """K2: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
-    f_count`` columns from ``f_offset`` (all by default), through K1's
-    kernel.
+    f_count`` columns from ``f_offset`` (all by default).
 
-    Levels whose output exceeds ``_ACC_BYTES_LIMIT`` run in node blocks:
-    shifting node ids by the block base makes the kernel's own
-    out-of-range drop do the partitioning."""
-    _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
-    F = _window(bins, f_offset, f_count)
-    block = hist_node_block(num_nodes, F, num_bins)
-    if block < num_nodes:
-        parts = [_grad_hist_block(bins, node_ids - b0, grad, hess,
-                                  min(block, num_nodes - b0), num_bins,
-                                  f_offset, F)
-                 for b0 in range(0, num_nodes, block)]
-        return (torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]))
-    return _grad_hist_block(bins, node_ids, grad, hess, num_nodes, num_bins,
-                            f_offset, F)
+    K2 and K3 compute one function.  The reference's K2 builds W in XLA
+    and sweeps node blocks for deep levels; on the card the fastest kernel
+    for the function is K3's, which builds W's fragments in registers, so
+    a CUDA tensor takes :func:`grad_hist_fused_cuda`'s kernel over every
+    node in one launch (counted under ``LAUNCHES["grad_hist_fused_cuda"]``)
+    and K2 and K3 give the same bits.  CPU tensors take
+    :func:`grad_hist_ref` on a copy of the window."""
+    return grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
+                                num_bins, f_offset, f_count)
 
 
 def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
@@ -503,12 +524,12 @@ def sharded_hist_plan(model_axis: Optional[str], num_feature: int,
     The reference's gate (``hist_pallas.sharded_hist_plan``): an ambient
     (or given) mesh carrying ``model_axis``, features dividing evenly
     across it, and a per-shard ``F/mp`` slice that holds at least an
-    8-node accumulator block (deep levels sweep node blocks inside each
-    shard).  The reference also checks that the global batch divides
-    across the data axis; here rows arrive already sharded, one part per
-    rank, so there is nothing to divide.  ``num_nodes`` does not change
-    the answer (node blocks cover any count); it is kept for the
-    reference's signature."""
+    8-node accumulator block (the reference sweeps node blocks inside each
+    shard; the port's kernel needs no blocks).  The reference also checks
+    that the global batch divides across the data axis; here rows arrive
+    already sharded, one part per rank, so there is nothing to divide.
+    ``num_nodes`` does not change the answer (node blocks cover any
+    count); it is kept for the reference's signature."""
     if model_axis is None:
         return None
     if mesh is None:
@@ -569,15 +590,16 @@ def grad_hist_sharded_ref(bins, node_ids, grad, hess, num_nodes: int,
 
 def grad_hist_sharded_cuda(bins, node_ids, grad, hess, num_nodes: int,
                            num_bins: int, mesh, model_axis: str,
-                           data_axis: str = DATA_AXIS, fused: bool = False):
+                           data_axis: str = DATA_AXIS):
     """K4: (G, H), each [num_nodes, F, num_bins] f32, identical on every
     rank of ``mesh``.
 
     ``bins`` [B_local, F] are this rank's rows, all F columns; ranks that
-    share a data coordinate hold the same rows.  The rank runs K2 (or K3
-    with ``fused``) on its window of ``F/mp`` columns in place, sums the
-    result over its ``data_axis`` group and gathers the windows of its
-    ``model_axis`` group.  CPU tensors take :func:`grad_hist_sharded_ref`.
+    share a data coordinate hold the same rows.  The rank runs K3's kernel
+    (the reference's K2 or K3: one function, one kernel on the card) on its
+    window of ``F/mp`` columns in place, sums the result over its
+    ``data_axis`` group and gathers the windows of its ``model_axis``
+    group.  CPU tensors take :func:`grad_hist_sharded_ref`.
     Every rank of the mesh must make the call (a rank with no rows joins
     with zeros)."""
     _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
@@ -590,39 +612,62 @@ def grad_hist_sharded_cuda(bins, node_ids, grad, hess, num_nodes: int,
                                      num_bins, mesh, model_axis, data_axis)
     _check_cuda(bins)
     f_offset, f_count = _shard_window(bins, mesh, model_axis)
-    inner = grad_hist_fused_cuda if fused else grad_hist_cuda
     with _stage("kernel"):
-        G, H = inner(bins, node_ids, grad, hess, num_nodes, num_bins,
-                     f_offset, f_count)
+        G, H = grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
+                                    num_bins, f_offset, f_count)
     LAUNCHES["grad_hist_sharded_cuda"] += 1
     return _shard_collectives(G, H, mesh, model_axis, data_axis)
 
 
-@functools.lru_cache(maxsize=None)
-def kernels_available() -> bool:
-    """Build the kernel library and hold one small case of each kernel
-    against its plain version.  False without a card; raises when the
-    build or the check fails on one (there is no downgrade to another
-    formulation)."""
-    if not torch.cuda.is_available():
-        return False
+def _probe_cases(device):
+    """The probe's small cases, one per wrapper (K1, K2, K3) on the whole
+    array and on the window of column 1 alone: ``(label, wrapper call on
+    tensors on device, plain call on CPU tensors)``; K1's calls return a
+    tensor, K2's and K3's (G, H).  K1 takes the W the reference's K2 would
+    build."""
     gen = torch.Generator().manual_seed(0)
     B, F, nbins, n = 1000, 3, 256, 5
     bins = torch.randint(0, nbins, (B, F), generator=gen).to(torch.uint8)
     node = torch.randint(-1, n, (B,), generator=gen).to(torch.int32)
     g = torch.randn(B, generator=gen)
     h = torch.rand(B, generator=gen)
-    dev = torch.device("cuda")
-    args = [t.to(dev) for t in (bins, node, g, h)]
-    # the whole array, and the window of column 1 alone
+    w = node_weights(node, g, h, n)
+    d_bins, d_node, d_g, d_h, d_w = (t.to(device)
+                                     for t in (bins, node, g, h, w))
+    cases = []
     for window in ((0, F), (1, 1)):
-        want = grad_hist_ref(_columns(bins, *window), node, g, h, n, nbins)
+        cols = _columns(bins, *window)
+        cases.append((
+            f"hist_matmul_cuda columns {window}",
+            functools.partial(hist_matmul_cuda, d_w, d_bins, nbins, *window),
+            functools.partial(hist_matmul_ref, w, cols, nbins)))
         for fn in (grad_hist_cuda, grad_hist_fused_cuda):
-            got = fn(*args, n, nbins, *window)
-            for a, b in zip(got, want):
-                if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5):
-                    raise RuntimeError(
-                        f"{fn.__name__} disagrees with its plain version on "
-                        f"the probe case, columns {window} (max abs err "
-                        f"{(a.cpu() - b).abs().max().item():.3g})")
+            cases.append((
+                f"{fn.__name__} columns {window}",
+                functools.partial(fn, d_bins, d_node, d_g, d_h, n, nbins,
+                                  *window),
+                functools.partial(grad_hist_ref, cols, node, g, h, n,
+                                  nbins)))
+    return cases
+
+
+@functools.lru_cache(maxsize=None)
+def kernels_available() -> bool:
+    """Build the kernel library and hold one small case of each wrapper
+    (:func:`_probe_cases`: K1, K2, K3, each also on a column window)
+    against its plain version, as the reference's probes check its
+    kernels.  False without a card; raises when the build or the check
+    fails on one (there is no downgrade to another formulation)."""
+    if not torch.cuda.is_available():
+        return False
+    for label, kernel, plain in _probe_cases(torch.device("cuda")):
+        got, want = kernel(), plain()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        for a, b in zip(got, want):
+            if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5):
+                raise RuntimeError(
+                    f"{label} disagrees with its plain version on the probe "
+                    f"case (max abs err "
+                    f"{(a.cpu() - b).abs().max().item():.3g})")
     return True

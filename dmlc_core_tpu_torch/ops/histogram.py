@@ -6,11 +6,13 @@ are a numpy copy of the reference's; the device half runs on tensors:
 - :func:`apply_bins` is ``torch.searchsorted(right=True)`` per feature plus
   the NaN -> ``missing_bin`` override, bitwise equal to the reference;
 - :func:`grad_histogram` offers the reference's methods:
-  ``"scatter"`` (exact f32 ``index_add_`` over flat ids), ``"onehot"`` (a
-  bf16 one-hot times the bf16 node-weight matrix, summed in f32 by
+  ``"scatter"`` (exact f32 segment sums over flat ids,
+  :func:`.hist_cuda.segment_sum`, atomics-free on the card), ``"onehot"``
+  (a bf16 one-hot times the bf16 node-weight matrix, summed in f32 by
   ``torch.matmul``), and ``"pallas"`` / ``"pallas_fused"``, which keep the
   reference's names so its parameters load unchanged and here mean the
-  hand-written CUDA kernels of :mod:`.hist_cuda` (K2 and K3).
+  wrappers of :mod:`.hist_cuda` (K2 and K3; on the card both launch the
+  hand-written kernel that builds the node weights in registers).
 
 Under an ambient mesh (``with mesh:``) each rank holds its own rows.
 ``grad_histogram(model_axis=...)`` then takes K4 where the reference's
@@ -262,13 +264,9 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
         if mesh is None:
             method = "onehot"
         else:
-            mp = mesh.shape[model_axis]
-            # blocked sweeps have no fused variant in the reference
-            fused = (method == "pallas_fused" and hist_cuda.hist_node_block(
-                num_nodes, F // mp, num_bins) >= num_nodes)
             return hist_cuda.grad_hist_sharded_cuda(
                 bins, node_ids, grad, hess, num_nodes, num_bins, mesh,
-                model_axis, fused=fused)
+                model_axis)
     return data_allreduce(*_local_histogram(
         bins, node_ids, grad, hess, num_nodes, num_bins, method, onehot))
 

@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Fits chip_smoke.py's phase-4 model (HIGGS-shaped rows, 28 features, 256
 bins, depth 6, 10 rounds, learning rate 0.3) through ``hist_method="auto"``
-(K2 -> K1) and ``"pallas_fused"`` (K3): one warm-up fit, then one fit under
+(K2) and ``"pallas_fused"`` (K3): one warm-up fit, then one fit under
 ``torch.profiler``.  For each it prints the fit's wall time, the device
 time summed over all kernels and copies, the device's idle share (1 -
 device time / wall time; one stream, so kernels do not overlap), and the

@@ -274,8 +274,10 @@ def test_hist_matmul_ref_matches_pallas(interpret_mode, m, b, f, nbins, u8):
 
 @pytest.mark.parametrize("nnodes", [32, 20])
 def test_node_blocked_matches_pallas(interpret_mode, monkeypatch, nnodes):
-    """Node counts beyond one accumulator sweep node blocks in both
-    packages (budgets shrunk so blocking triggers at test size)."""
+    """Node counts beyond one accumulator: the reference's K2 sweeps node
+    blocks (budgets shrunk so blocking triggers at test size), the port's
+    takes every node at once (K3's kernel on the card, its plain version
+    here); both packages' block plans agree and their (G, H) match."""
     limit = 2 * 8 * 3 * 16 * 4                           # 8-node blocks
     monkeypatch.setattr(hist_pallas, "_ACC_BYTES_LIMIT", limit)
     monkeypatch.setattr(hist_cuda, "_ACC_BYTES_LIMIT", limit)
