@@ -57,14 +57,33 @@ Phases (any failure exits non-zero and prints no result line):
    tree.  Inside the workers K4 at 32 nodes is held against the plain
    histogram of the whole global array and timed beside its bound and the
    collectives.  Then one worker with world size 1 over NCCL fits 200,000
-   rows with ``model_axis`` and must match the plain card fit bitwise.
+   rows with ``model_axis`` and must match the plain card fit bitwise;
+6. ingest: the first 500,000 of phase 4's training rows are written as
+   libsvm text (``%.9g``, so every float32 survives) and the first
+   200,000 as CSV with the label column, then parsed with the port's
+   threaded ``create_parser`` (default thread count) and
+   ``dense_batches(8192)``: the parsed features and labels must be
+   bitwise the written arrays.  Edges on the first 50,000 parsed rows,
+   ``binned_batches`` (the wire must be bitwise phase 4's
+   ``binner.transform`` of the same rows), ``DeviceFeedLoader`` through
+   its pinned ring into one preallocated tensor on the card (bitwise
+   ``torch.from_numpy(wire).to(card)``), timed beside a synchronous
+   pageable ``.to(card)``, then ``fit_binned`` with labels only, as
+   phase 4 fits: its ensemble and margin must be bitwise the phase-4
+   model's fit of the same rows from memory, with K3's kernel on every
+   level and K1 never (counts set to 0 before the parse, read after the
+   fit, printed on a line of their own).  Last, ``python -m
+   dmlc_core_tpu_torch.examples.train_gbdt`` on the libsvm file must exit
+   0 with train accuracy >= 0.8.  Writing and parsing all 2,000,000 rows,
+   twice with the CLI, would not fit phase 6's ~120 s.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
 the main path's run (phase 4 for K1 and K3, phase 5 for K4), with the
 counts set to 0 just before it: K1 is on no main path, so its count is 0
-(phase 3 prints its launches there on a line of their own).  The last
-line is ``{"ok": true, "device": {...}}``.
+(phase 3 prints its launches there on a line of their own, and phase 6
+those of the ingest path).  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 import json
@@ -94,6 +113,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 RAGGED_ROWS = 1_000_003       # K1's and K3's ragged-shape checks
+N_INGEST = 500_000            # phase 6's libsvm rows (writing and parsing
+N_CSV = 200_000               # 2M rows twice would not fit its ~120 s)
+INGEST_BATCH = 8192
+CLI_TIMEOUT_S = 300
 K3_RAGGED = [
     # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
     # f_count, offset of the tensors in their allocations (elements); node
@@ -510,7 +533,8 @@ def phase_gbdt(card):
         fail("the first tree differs between the card and the CPU")
     if abs(accs["cuda"] - accs["cpu"]) > 0.005:
         fail("card and CPU accuracies differ by more than 0.005")
-    return launches
+    ref = dict(x=x, y=y, wire=wire, model=model, bins=bins, y_tr=y_tr)
+    return launches, ref
 
 
 def _scatter_fits(card, param, boundaries, bins, y):
@@ -860,6 +884,215 @@ def worker_main(mode, outdir):
     torch.save(result, os.path.join(outdir, f"{mode}{rank}.pt"))
     collective.finalize()
 
+# -- phase 6: ingest ----------------------------------------------------------
+def _write_text(path, x, y, head, sep, cell):
+    """``label<head>v<sep>v...`` lines, every value with %.9g (every
+    float32 survives the round trip), written 50,000 rows at a time."""
+    fmt = "%.9g" + head + sep.join(cell.format(j) for j in
+                                   range(x.shape[1])) + "\n"
+    with open(path, "w") as f:
+        for s in range(0, len(x), 50_000):
+            rows = np.concatenate([y[s:s + 50_000, None], x[s:s + 50_000]],
+                                  axis=1).tolist()
+            f.write("".join(fmt % tuple(r) for r in rows))
+    return os.path.getsize(path)
+
+
+def _parse_blocks(uri):
+    """Every RowBlock of ``uri`` through the port's threaded parser with
+    the default thread count; (blocks, seconds)."""
+    from dmlc_core_tpu_torch.data.factory import create_parser
+
+    start = time.perf_counter()
+    parser = create_parser(uri)
+    try:
+        blocks = list(parser)
+    finally:
+        parser.close()
+    return blocks, time.perf_counter() - start
+
+
+def _dense_rows(blocks, n_feature):
+    """The real rows of ``dense_batches`` over ``blocks``: (x, y, seconds)."""
+    from dmlc_core_tpu_torch.bridge.batching import dense_batches
+
+    start = time.perf_counter()
+    xs, ys = [], []
+    for b in dense_batches(blocks, INGEST_BATCH, n_feature):
+        xs.append(b.x[:b.num_rows].numpy())
+        ys.append(b.label[:b.num_rows].numpy())
+    return np.concatenate(xs), np.concatenate(ys), time.perf_counter() - start
+
+
+def _fill(stream, n, dev):
+    """The consumer of phase 6's feed: each batch's real rows copied into
+    one preallocated [n, F] tensor on the card; (bins, labels, seconds)."""
+    bins = torch.empty((n, N_FEATURES), dtype=torch.uint8, device=dev)
+    label = torch.empty(n, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    row = 0
+    for b in stream:
+        k = b.num_rows
+        bins[row:row + k] = b.bins[:k]
+        label[row:row + k] = b.label[:k]
+        row += k
+    torch.cuda.synchronize()
+    if row != n:
+        fail(f"the feed delivered {row} rows, expected {n}")
+    return bins, label, time.perf_counter() - start
+
+
+def _feed(card, binned, n, dev):
+    """``DeviceFeedLoader`` (prefetch 2) into the card: a first epoch with
+    telemetry on, which times each hand-off's wait, then a warm epoch
+    (the pinned ring allocated) with telemetry off, beside synchronous
+    pageable ``.to(card)`` copies of the same batches into the same
+    consumer.  Returns the warm epoch's bins and labels."""
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.bridge.binning import BinnedBatch
+    from dmlc_core_tpu_torch.bridge.loader import (DeviceFeedLoader,
+                                                   batch_nbytes)
+
+    nbytes = sum(batch_nbytes(b) for b in binned)
+    loader = DeviceFeedLoader(lambda: iter(binned), prefetch=2)
+    telemetry.enable()
+    telemetry.reset()
+    _, _, cold = _fill(loader, n, dev)
+    wait = telemetry.get_registry().counter(
+        "dmlc_transfer_seconds_total", path="device_feed",
+        phase="wait").value
+    telemetry.reset()
+    telemetry.disable()
+    bins, label, warm = _fill(loader, n, dev)
+    _, _, sync = _fill((BinnedBatch(*(t.to(dev) for t in b[:3]),
+                                    num_rows=b.num_rows) for b in binned),
+                       n, dev)
+    print(f"feed of {len(binned)} batches, {nbytes:,} batch bytes: pinned "
+          f"ring (prefetch 2) {warm:.4f} s warm, {nbytes / warm / 1e9:.3f} "
+          f"GB/s; first epoch with telemetry {cold:.4f} s, non-overlapped "
+          f"wait {wait:.4f} s; synchronous pageable .to(card) {sync:.4f} s, "
+          f"{nbytes / sync / 1e9:.3f} GB/s [{card}]", flush=True)
+    return bins, label
+
+
+def phase_ingest(card, ref):
+    import tempfile
+
+    from dmlc_core_tpu_torch.bridge.binning import HostBinner, binned_batches
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    print(f"== phase 6: ingest, {N_INGEST:,} libsvm rows and {N_CSV:,} CSV "
+          f"rows of phase 4's data -> parser -> batches -> uint8 wire -> "
+          f"device feed -> fit_binned", flush=True)
+    dev = torch.device("cuda")
+    x, y = ref["x"][:N_INGEST], ref["y"][:N_INGEST]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        svm = os.path.join(tmp, "train.libsvm")
+        csv = os.path.join(tmp, "train.csv")
+        start = time.perf_counter()
+        svm_bytes = _write_text(svm, x, y, " ", " ", "{}:%.9g")
+        csv_bytes = _write_text(csv, x[:N_CSV], y[:N_CSV], ",", ",", "%.9g")
+        print(f"wrote {svm_bytes:,} bytes of libsvm and {csv_bytes:,} bytes "
+              f"of CSV in {time.perf_counter() - start:.2f} s [{card}]",
+              flush=True)
+
+        # the ingest path: counts set to 0 just before, read just after
+        hist_cuda.reset_launches()
+        parsed = {}
+        for name, uri, nbytes, rows in (
+                ("libsvm", svm, svm_bytes, N_INGEST),
+                ("csv", csv + "?format=csv&label_column=0", csv_bytes,
+                 N_CSV)):
+            blocks, sec = _parse_blocks(uri)
+            px, py, dense_sec = _dense_rows(blocks, N_FEATURES)
+            print(f"parse {name}: {sec:.3f} s, {nbytes / sec / 1e6:.2f} MB/s, "
+                  f"{rows / sec:,.0f} rows/s; dense_batches {dense_sec:.3f} s "
+                  f"[{card}]", flush=True)
+            if not (np.array_equal(px.view(np.uint32),
+                                   x[:rows].view(np.uint32))
+                    and np.array_equal(py.view(np.uint32),
+                                       y[:rows].view(np.uint32))):
+                fail(f"the parsed {name} features or labels are not bitwise "
+                     f"the float32 arrays that were written")
+            parsed[name] = blocks, px
+        print("parsed features and labels bitwise equal to the written "
+              "float32 arrays (libsvm and CSV)", flush=True)
+        blocks, px = parsed.pop("libsvm")
+        del parsed
+
+        param = dict(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                     num_bins=NUM_BINS, learning_rate=0.3)
+        model = GBDT(GBDTParam(**param), num_feature=N_FEATURES)
+        start = time.perf_counter()
+        model.make_bins(px[:50_000])
+        binner = HostBinner(model.boundaries, NUM_BINS)
+        binned = list(binned_batches(blocks, binner, INGEST_BATCH))
+        bin_sec = time.perf_counter() - start
+        del blocks, px
+        wire = np.concatenate([b.bins[:b.num_rows].numpy() for b in binned])
+        same_wire = np.array_equal(wire, ref["wire"][:N_INGEST])
+        print(f"binning (edges on 50,000 rows, binned_batches): {bin_sec:.3f} "
+              f"s [{card}]; wire bitwise equal to phase 4's "
+              f"binner.transform: {same_wire}", flush=True)
+        if not same_wire:
+            fail("the binned_batches wire differs from phase 4's")
+
+        bins, y_dev = _feed(card, binned, N_INGEST, dev)
+        want = torch.from_numpy(ref["wire"][:N_INGEST]).to(dev)
+        if not torch.equal(bins, want):
+            fail("the fed tensor differs from torch.from_numpy(wire).to(card)")
+        if not torch.equal(y_dev, ref["y_tr"][:N_INGEST]):
+            fail("the fed labels differ from the written labels")
+        print("fed tensor bitwise equal to torch.from_numpy(wire).to(card)",
+              flush=True)
+
+        (ens, margin), fit_sec = device_time(model.fit_binned, bins, y_dev)
+        torch.cuda.synchronize()
+        launches = dict(hist_cuda.LAUNCHES)
+        print(f"ingest-path fit: {fit_sec:.3f} s [{card}]")
+        print(f"phase 6 launches on the ingest path: {launches}", flush=True)
+        if launches["grad_hist_fused_cuda"] < ROUNDS * MAX_DEPTH:
+            fail(f"the ingest-path fit launched K3's kernel "
+                 f"{launches['grad_hist_fused_cuda']} times, expected >= "
+                 f"{ROUNDS * MAX_DEPTH}")
+        if launches["hist_matmul_cuda"] != 0:
+            fail("the ingest-path fit launched K1")
+        # the same rows from the in-memory arrays, as phase 4 fits them
+        ref_ens, ref_margin = ref["model"].fit_binned(
+            ref["bins"][:N_INGEST], ref["y_tr"][:N_INGEST])
+        same = (all(torch.equal(a, b) for a, b in zip(ens, ref_ens))
+                and torch.equal(margin, ref_margin))
+        acc = ((margin > 0).float() == y_dev).float().mean().item()
+        print(f"ingest-path fit's ensemble and margin bitwise equal to the "
+              f"phase-4 auto fit of the same rows from memory: {same}; train "
+              f"acc {acc:.4f}", flush=True)
+        if not same:
+            fail("the ingest-path fit differs from the in-memory fit")
+        del bins, y_dev, want, binned
+
+        cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.examples.train_gbdt",
+               "--data", svm, "--num-feature", str(N_FEATURES), "--rounds",
+               str(ROUNDS), "--max-depth", str(MAX_DEPTH)]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        cli_sec = time.perf_counter() - start
+        print(proc.stdout.strip())
+        if proc.returncode != 0:
+            fail(f"the train_gbdt CLI exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        accs = [float(line.rsplit(" ", 1)[1]) for line in
+                proc.stdout.splitlines() if "train acc" in line]
+        print(f"train_gbdt CLI: exit 0 in {cli_sec:.1f} s, train acc "
+              f"{accs} [{card}]", flush=True)
+        if not accs or accs[0] < 0.8:
+            fail(f"the train_gbdt CLI's train accuracy {accs} < 0.8")
+    torch.cuda.empty_cache()
+
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
@@ -875,10 +1108,12 @@ def main():
     sys.path.insert(0, here)
     phase_build()
     k1, k3 = phase_kernels()
-    launches = phase_gbdt(card)
+    launches, ref = phase_gbdt(card)
     k1["launches"] = launches["hist_matmul_cuda"]     # 0: K1 is off the path
     k3["launches"] = launches["grad_hist_fused_cuda"]
     k4 = phase_distributed(card)
+    phase_ingest(card, ref)
+    del ref
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",
         source="dmlc_core_tpu_torch/csrc/hist.cu",

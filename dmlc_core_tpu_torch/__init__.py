@@ -8,7 +8,12 @@ sits at the same relative path:
 - :mod:`.ops.hist_cuda` — wrappers of the hand-written Hopper histogram
   kernels in ``csrc/hist.cu``, their plain PyTorch versions and launch
   counters;
-- :mod:`.bridge.binning` — host-side binning to the uint8 wire;
+- :mod:`.io`, :mod:`.data` — local files through byte-range InputSplits
+  into the threaded libsvm/CSV parsers and RowBlocks;
+- :mod:`.bridge.batching`, :mod:`.bridge.binning` — dense, sparse and
+  binned batches (host binning to the uint8 wire, streamed bin edges);
+- :mod:`.bridge.loader` — the pinned, double-buffered device feed;
+- :mod:`.examples.train_gbdt` — the ``train_gbdt`` entry point;
 - :mod:`.models.gbdt` — hist-GBDT training and scoring;
 - :mod:`.convert` — carries a JAX-trained ensemble across as tensors.
 
