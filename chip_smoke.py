@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's hist-GBDT path on one CUDA card and check it.
+"""Drive the PyTorch port's hist-GBDT paths on one CUDA card and check them.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA H100:
@@ -75,23 +75,51 @@ Phases (any failure exits non-zero and prints no result line):
    fit, printed on a line of their own).  Last, ``python -m
    dmlc_core_tpu_torch.examples.train_gbdt`` on the libsvm file must exit
    0 with train accuracy >= 0.8.  Writing and parsing all 2,000,000 rows,
-   twice with the CLI, would not fit phase 6's ~120 s.
+   twice with the CLI, would not fit phase 6's ~120 s;
+7. serve: phase 4's warm ``"auto"`` model is saved with ``serving_state``
+   through ``CheckpointManager.save(1)`` (manifest published) under
+   ``build/chip_smoke_serve/``, loaded with ``build_runtime("gbdt", 28,
+   checkpoint=...)`` on the card (its ``predict_float`` on 8,192 held-out
+   rows within 1e-6 of the CPU plain version from the same blob) and
+   served by a ``ScoringServer`` on 127.0.0.1, port 0 (``max_batch`` 64,
+   ``max_delay_ms`` 2) with a ``CheckpointWatcher`` on the directory.
+   Eight client threads, each on a keep-alive connection, send 1,000
+   requests of 1-64 of those rows (latency p50/p95/p99, requests/s and
+   rows/s printed); then they keep sending while 2 rounds are appended on
+   the card (``append_rounds``, K3's kernel) and published as step 2,
+   until 500 answers came from step 2 (about 1,500 requests in all: at
+   the ~50 requests/s the card's scoring path serves, 2,000 would not fit
+   the phase's ~40 s).  Every answer must be 200 and bitwise the
+   ``predict_float`` of the version that answered it, both versions must
+   answer, ``/healthz`` must report version 2 (the seconds from publish
+   to the first step-2 answer printed), a 27-wide row must get the
+   structured 400, and step 2's ``predict_float`` must be within 1e-6 of
+   the CPU plain version from its blob.  It prints the warmup seconds and
+   the direct ``predict`` time of 64 and 65,536 rows, builds the seeded
+   ``build_runtime("gbdt", 28)`` (a 256-row fit on the card), drains the
+   server and reads the K3 launches of the phase (>= 12 + 24).  Last,
+   ``python -m dmlc_core_tpu_torch.serve --model gbdt --checkpoint
+   <step 1> --num-feature 28 --port 0`` as a subprocess: the ``serving
+   ... on <url>`` line, one POST bitwise equal to the in-process step-1
+   answer, SIGTERM, and ``serve: shut down cleanly`` with exit 0.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
 the main path's run (phase 4 for K1 and K3, phase 5 for K4), with the
 counts set to 0 just before it: K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
-those of the ingest path).  The last line is ``{"ok": true, "device":
-{...}}``.
+those of the ingest path, and phase 7 those of the serving path).  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -117,6 +145,11 @@ N_INGEST = 500_000            # phase 6's libsvm rows (writing and parsing
 N_CSV = 200_000               # 2M rows twice would not fit its ~120 s)
 INGEST_BATCH = 8192
 CLI_TIMEOUT_S = 300
+SERVE_POOL = 8192             # phase 7's held-out rows the requests draw on
+SERVE_REQUESTS = 1000         # per wave; wave 2 runs on through the swap
+SERVE_CLIENTS = 8
+SERVE_MAX_BATCH = 64
+SERVE_APPEND_ROUNDS = 2
 K3_RAGGED = [
     # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
     # f_count, offset of the tensors in their allocations (elements); node
@@ -533,7 +566,8 @@ def phase_gbdt(card):
         fail("the first tree differs between the card and the CPU")
     if abs(accs["cuda"] - accs["cpu"]) > 0.005:
         fail("card and CPU accuracies differ by more than 0.005")
-    ref = dict(x=x, y=y, wire=wire, model=model, bins=bins, y_tr=y_tr)
+    ref = dict(x=x, y=y, wire=wire, model=model, bins=bins, y_tr=y_tr,
+               ens=fits[1][0])
     return launches, ref
 
 
@@ -1094,6 +1128,317 @@ def phase_ingest(card, ref):
     torch.cuda.empty_cache()
 
 
+# -- phase 7: serve ------------------------------------------------------------
+class _Client:
+    """One keep-alive HTTP connection, as a scoring client holds one."""
+
+    def __init__(self, url):
+        import http.client
+        from urllib.parse import urlparse
+
+        u = urlparse(url)
+        self._conn = http.client.HTTPConnection(u.hostname, u.port,
+                                                timeout=60)
+
+    def post(self, path, body):
+        self._conn.request("POST", path, body=body,
+                           headers={"Content-Type": "application/json"})
+        resp = self._conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    def get(self, path):
+        self._conn.request("GET", path)
+        resp = self._conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    def close(self):
+        self._conn.close()
+
+
+def _wave(url, pool, rng, stop_after=None, on_answer=None):
+    """Requests of 1-64 pool rows from SERVE_CLIENTS threads, each on its
+    own keep-alive connection: ``stop_after`` of them, or until
+    ``on_answer(reply)`` returns True.  Returns (answers, wall seconds);
+    each answer is (status, body, row ids, sent, received) on the host
+    clock."""
+    answers = []
+    lock = threading.Lock()
+    stop = threading.Event()
+    errors = []
+
+    def client():
+        conn = _Client(url)
+        try:
+            while not stop.is_set():
+                with lock:
+                    if stop_after is not None and \
+                            len(answers) + in_flight[0] >= stop_after:
+                        return
+                    in_flight[0] += 1
+                    idx = rng.randint(0, len(pool),
+                                      rng.randint(1, SERVE_MAX_BATCH + 1))
+                body = json.dumps({"instances": pool[idx].tolist()})
+                sent = time.perf_counter()
+                status, reply = conn.post("/v1/score", body)
+                got = time.perf_counter()
+                with lock:
+                    in_flight[0] -= 1
+                    answers.append((status, reply, idx, sent, got))
+                    if on_answer is not None and on_answer(reply):
+                        stop.set()
+        except Exception as exc:        # surfaced by the caller's fail()
+            errors.append(repr(exc))
+            stop.set()
+        finally:
+            conn.close()
+
+    in_flight = [0]
+    threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - start
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"phase 7 clients failed: {errors[:3]}")
+    return answers, wall
+
+
+def _check_answers(answers, want, label):
+    """Every answer 200 and bitwise the predict_float scores of the
+    version that answered it; returns the versions seen."""
+    versions = set()
+    for status, reply, idx, _, _ in answers:
+        if status != 200:
+            fail(f"{label}: a request answered {status}: {reply}")
+        v = reply.get("version")
+        if v not in want:
+            fail(f"{label}: an answer from unknown version {v!r}")
+        got = np.asarray(reply["predictions"], np.float32)
+        if not np.array_equal(got.view(np.uint32),
+                              want[v][idx].view(np.uint32)):
+            fail(f"{label}: an answer of version {v} is not bitwise that "
+                 f"version's predict_float")
+        versions.add(v)
+    return versions
+
+
+def _latency_line(answers, wall, label, card):
+    lat = np.array([got - sent for _, _, _, sent, got in answers]) * 1e3
+    rows = sum(len(idx) for _, _, idx, _, _ in answers)
+    p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+    print(f"{label}: {len(answers)} requests, latency p50 {p50:.3f} ms, "
+          f"p95 {p95:.3f} ms, p99 {p99:.3f} ms; {len(answers) / wall:.1f} "
+          f"requests/s, {rows / wall:.0f} rows/s [{card}]", flush=True)
+
+
+def _predict_ms(runtime, rows, reps):
+    """Median milliseconds of one synchronous ``predict`` (host binning,
+    transfer, trees, scores back on the host)."""
+    times = []
+    for _ in range(reps + 1):
+        start = time.perf_counter()
+        runtime.predict(rows)
+        times.append(time.perf_counter() - start)
+    return 1e3 * float(np.median(times[1:]))
+
+
+def phase_serve(card, ref):
+    from dmlc_core_tpu_torch.bridge.checkpoint import (CheckpointManager,
+                                                       load_checkpoint)
+    from dmlc_core_tpu_torch.models.gbdt import GBDT
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.serve import (CheckpointWatcher, GBDTRuntime,
+                                           ModelRegistry, ScoringServer,
+                                           build_runtime, runtime_builder)
+
+    print(f"== phase 7: serve the phase-4 model ({N_FEATURES} features, "
+          f"{NUM_BINS} bins, depth {MAX_DEPTH}, {ROUNDS} rounds) over HTTP "
+          f"from a checkpoint, hot-swap {SERVE_APPEND_ROUNDS} appended "
+          f"rounds, then the CLI", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(here, "build", "chip_smoke_serve")
+    shutil.rmtree(directory, ignore_errors=True)
+    model, ens = ref["model"], ref["ens"]
+    pool = ref["x"][N_ROWS:N_ROWS + SERVE_POOL]
+    rng = np.random.RandomState(7)
+    mgr = CheckpointManager(directory, keep=5)
+
+    # the serving path: counts set to 0 just before, read just after
+    hist_cuda.reset_launches()
+    mgr.save(1, model.serving_state(ens), async_=False)
+    uri1 = mgr.step_uri(1)
+    runtime = build_runtime("gbdt", N_FEATURES, checkpoint=uri1)
+    if runtime.gbdt.device.type != "cuda":
+        fail(f"build_runtime served on {runtime.gbdt.device}, not cuda")
+    want = {1: runtime.predict_float(pool)}
+    plain, plain_ens = GBDT.from_serving_state(load_checkpoint(uri1),
+                                               device="cpu")
+    cpu = plain.predict(plain_ens, plain.bin_features(pool)).numpy()
+    err = float(np.abs(cpu - want[1]).max())
+    print(f"step 1 blob {os.path.getsize(uri1):,} bytes; predict_float on "
+          f"the card vs the CPU plain version on {SERVE_POOL} rows: max abs "
+          f"err {err:.3g}", flush=True)
+    if err > 1e-6:
+        fail(f"the card's predict_float differs from the CPU plain version "
+             f"by {err:.3g} > 1e-6")
+    registry = ModelRegistry()
+    registry.add("gbdt", runtime, version=1, max_batch=SERVE_MAX_BATCH,
+                 max_delay_ms=2.0, default=True)
+    server = ScoringServer(registry, host="127.0.0.1", port=0)
+    start = time.perf_counter()
+    server.start()
+    warm_s = time.perf_counter() - start
+    watcher = CheckpointWatcher(registry, "gbdt", directory,
+                                runtime_builder("gbdt", N_FEATURES),
+                                poll_s=0.05, manager=mgr)
+    watcher.start()
+    try:
+        print(f"warmup (bucket ladder {registry.get().batcher.buckets}) and "
+              f"start: {warm_s:.3f} s [{card}]", flush=True)
+        answers, wall = _wave(server.url, pool, rng,
+                              stop_after=SERVE_REQUESTS)
+        _check_answers(answers, want, "wave 1")
+        _latency_line(answers, wall, f"wave 1 ({SERVE_CLIENTS} clients, "
+                      f"1-{SERVE_MAX_BATCH} rows each, max_batch "
+                      f"{SERVE_MAX_BATCH}, max_delay_ms 2)", card)
+
+        # wave 2: the clients keep sending while 2 rounds are appended on
+        # the card and published as step 2
+        swap = {}
+
+        def trainer():
+            try:
+                ens2, _ = model.append_rounds(
+                    ens, ref["bins"], ref["y_tr"],
+                    num_rounds=SERVE_APPEND_ROUNDS)
+                want[2] = GBDTRuntime(model, ens2).predict_float(pool)
+                swap["publish"] = time.perf_counter()
+                mgr.save(2, model.serving_state(ens2), async_=False)
+            except Exception as exc:    # surfaced by fail() below
+                swap["error"] = repr(exc)
+
+        seen_v2 = [0]
+        wave_start = time.perf_counter()
+
+        def swapped_and_settled(reply):
+            # stop at the 500th answer from step 2 (or when the trainer
+            # failed, or after 120 s, which fail below)
+            seen_v2[0] += reply.get("version") == 2
+            return (seen_v2[0] >= 500 or "error" in swap
+                    or time.perf_counter() - wave_start > 120)
+
+        t = threading.Thread(target=trainer)
+        t.start()
+        answers2, _ = _wave(server.url, pool, rng,
+                            on_answer=swapped_and_settled)
+        t.join(300)
+        if "publish" not in swap:
+            fail(f"appending rounds for step 2 failed: {swap.get('error')}")
+        versions = _check_answers(answers2, want, "wave 2")
+        first2 = min(got for _, reply, _, _, got in answers2
+                     if reply.get("version") == 2)
+        print(f"wave 2 through the hot swap: {len(answers2)} requests, all "
+              f"200, versions {sorted(versions)}; every answer bitwise its "
+              f"version's predict_float; publish -> first step-2 answer "
+              f"{first2 - swap['publish']:.3f} s (swap cycle "
+              f"{watcher.swaps_completed} ok, {watcher.rejections} "
+              f"rejected) [{card}]", flush=True)
+        if versions != {1, 2} or watcher.rejections:
+            fail(f"the hot swap did not serve both versions cleanly: "
+                 f"{sorted(versions)}, {watcher.rejections} rejections")
+        plain, plain_ens = GBDT.from_serving_state(
+            load_checkpoint(mgr.step_uri(2)), device="cpu")
+        cpu = plain.predict(plain_ens, plain.bin_features(pool)).numpy()
+        err = float(np.abs(cpu - want[2]).max())
+        print(f"step 2: predict_float on the card vs the CPU plain version "
+              f"from its blob: max abs err {err:.3g}", flush=True)
+        if err > 1e-6:
+            fail(f"step 2's predict_float differs from the CPU plain "
+                 f"version by {err:.3g} > 1e-6")
+        conn = _Client(server.url)
+        try:
+            status, health = conn.get("/healthz")
+            bad_status, bad = conn.post(
+                "/v1/score", json.dumps(
+                    {"instances": [[0.0] * (N_FEATURES - 1)]}))
+        finally:
+            conn.close()
+        print(f"/healthz after the swap: status {health['status']}, "
+              f"version {health['version']}; a {N_FEATURES - 1}-wide row: "
+              f"{bad_status} {bad}", flush=True)
+        if status != 200 or health["version"] != 2:
+            fail(f"/healthz after the swap: {status} {health}")
+        if bad_status != 400 or bad.get("error", {}).get("code") \
+                != "bad_request":
+            fail(f"a wrong-width request got {bad_status} {bad}")
+        live = registry.get().runtime
+        small, large = pool[:64], ref["x"][N_ROWS:N_ROWS + 65_536]
+        print(f"direct predict of the step-2 model: 64 rows "
+              f"{_predict_ms(live, small, 20):.3f} ms, 65,536 rows "
+              f"{_predict_ms(live, large, 5):.3f} ms [{card}]", flush=True)
+        seeded = build_runtime("gbdt", N_FEATURES, seed=0)
+        if not np.isfinite(seeded.predict(small)).all():
+            fail("the seeded runtime's scores are not finite")
+    finally:
+        watcher.close()
+        server.drain(timeout_s=30, settle_s=0.1)
+    torch.cuda.synchronize()
+    launches = dict(hist_cuda.LAUNCHES)
+    need = SERVE_APPEND_ROUNDS * MAX_DEPTH + 8 * 3
+    print(f"phase 7 launches on the serving path (the appended rounds and "
+          f"the seeded runtime's fit): {launches}", flush=True)
+    if launches["grad_hist_fused_cuda"] < need:
+        fail(f"phase 7 launched K3's kernel "
+             f"{launches['grad_hist_fused_cuda']} times, expected >= {need}")
+
+    cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.serve", "--model",
+           "gbdt", "--checkpoint", uri1, "--num-feature", str(N_FEATURES),
+           "--port", "0"]
+    start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    # a CLI that hangs before its first line must not hang the phase
+    killer = threading.Timer(CLI_TIMEOUT_S, proc.kill)
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving gbdt on http://"):
+            proc.kill()
+            fail(f"the serve CLI printed {line!r}: "
+                 f"{proc.communicate()[1][-3000:]}")
+        up_s = time.perf_counter() - start
+        url = line.split(" on ", 1)[1].split()[0]
+        idx = np.arange(17)
+        conn = _Client(url)
+        try:
+            status, reply = conn.post("/v1/score", json.dumps(
+                {"instances": pool[idx].tolist()}))
+        finally:
+            conn.close()
+        got = np.asarray(reply.get("predictions", []), np.float32)
+        same = status == 200 and np.array_equal(
+            got.view(np.uint32), want[1][idx].view(np.uint32))
+        proc.send_signal(signal.SIGTERM)
+        out, err_text = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"serve CLI: up in {up_s:.1f} s; one POST of 17 rows {status}, "
+          f"bitwise the in-process step-1 answer: {same}; exit "
+          f"{proc.returncode}, {out.strip().splitlines()[-1:]} [{card}]",
+          flush=True)
+    if not same:
+        fail(f"the serve CLI answered {status} {reply}")
+    if proc.returncode != 0 or "serve: shut down cleanly" not in out:
+        fail(f"the serve CLI did not shut down cleanly: {err_text[-3000:]}")
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -1113,6 +1458,7 @@ def main():
     k3["launches"] = launches["grad_hist_fused_cuda"]
     k4 = phase_distributed(card)
     phase_ingest(card, ref)
+    phase_serve(card, ref)
     del ref
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

@@ -3,8 +3,8 @@
 Counterpart of ``dmlc_core_tpu/collective``:
 
 - :mod:`.api` — the process-level API (init/finalize/get_rank/
-  get_world_size/allreduce/broadcast/allgather/tracker_print) over host
-  numpy arrays;
+  get_world_size/allreduce/broadcast/allgather/tracker_print and the
+  checkpoint/load_checkpoint recovery pair) over host numpy arrays;
 - :mod:`.mesh_collectives` — collectives over one axis of a mesh, on
   tensors, which the model-sharded histogram uses.
 """

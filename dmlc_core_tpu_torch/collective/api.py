@@ -4,7 +4,9 @@ Counterpart of ``dmlc_core_tpu/collective/api.py``: each *process* is a
 rank, arrays are host numpy arrays in and out, and every rank receives the
 same result.  ``init``/``finalize``/``get_rank``/``get_world_size``/
 ``allreduce``/``broadcast``/``allgather``/``tracker_print``/
-``version_number`` keep the reference's semantics; underneath, the
+``version_number``/``checkpoint``/``load_checkpoint`` keep the reference's
+semantics (checkpoints in its format, through :mod:`..bridge.checkpoint`);
+underneath, the
 reference's ``jax.distributed`` runtime becomes one ``torch.distributed``
 process group per job.
 
@@ -49,7 +51,7 @@ import torch.distributed as dist
 
 from dmlc_core_tpu_torch.param import get_env
 from dmlc_core_tpu_torch.utils.device import resolve_device
-from dmlc_core_tpu_torch.utils.logging import CHECK, Error
+from dmlc_core_tpu_torch.utils.logging import CHECK, Error, log_info
 
 __all__ = [
     "init",
@@ -312,18 +314,129 @@ def version_number() -> int:
     return _state["version"]
 
 
+def _check_version_template(uri_template: str) -> None:
+    CHECK(uri_template.format(version=1) != uri_template.format(version=2),
+          "checkpoint uri_template must contain a {version} placeholder, "
+          f"got {uri_template!r}")
+
+
 def checkpoint(model: Any, uri_template: str = "") -> None:
-    """rabit::Checkpoint: waits for the GBDT persistence slice, which ports
-    ``bridge/checkpoint.py``."""
-    raise NotImplementedError(
-        "collective.checkpoint needs the port of bridge/checkpoint.py "
-        "(the GBDT persistence slice, ROADMAP.md)")
+    """Persist a model tree for failure recovery (rabit::Checkpoint).
+
+    Every rank bumps its version; rank 0, holding state identical to every
+    other rank's, writes it through the URI-dispatched store, so a restart
+    resumes from the latest version.
+    """
+    _state["version"] += 1
+    if uri_template and get_rank() == 0:
+        from dmlc_core_tpu_torch.bridge.checkpoint import save_checkpoint
+
+        _check_version_template(uri_template)
+        save_checkpoint(uri_template.format(version=_state["version"]), model)
 
 
 def load_checkpoint(uri_template: str = "", version: Optional[int] = None,
                     template: Any = None) -> Any:
-    """rabit::LoadCheckPoint: waits for the GBDT persistence slice, which
-    ports ``bridge/checkpoint.py``."""
-    raise NotImplementedError(
-        "collective.load_checkpoint needs the port of bridge/checkpoint.py "
-        "(the GBDT persistence slice, ROADMAP.md)")
+    """Load the checkpoint saved by :func:`checkpoint`; None when absent.
+
+    Like rabit's ``LoadCheckPoint``, a freshly restarted worker (version
+    counter still 0) does not need to know which round died: rank 0
+    discovers the latest version on the store (exponential ascent + binary
+    search, O(log N) probes), falls back past a corrupt newest version,
+    and BROADCASTS both the version and the model leaves to every rank, so
+    ranks never resume out of step even when only rank 0 reaches the
+    store.  Multi-process recovery therefore needs ``template`` (the tree
+    structure non-root ranks rebuild).
+    """
+    if not uri_template:
+        return None
+    from dmlc_core_tpu_torch.bridge.checkpoint import (tree_flatten,
+                                                       tree_unflatten)
+
+    _check_version_template(uri_template)
+    world = get_world_size() if _state["initialized"] else 1
+    rank = get_rank() if _state["initialized"] else 0
+    multi = world > 1
+    if multi:
+        CHECK(template is not None,
+              "multi-process load_checkpoint needs template= (non-root "
+              "ranks rebuild the model from broadcast leaves)")
+
+    ver = version if version is not None else _state["version"]
+    model = None
+    if rank == 0 or not multi:
+        if ver <= 0:
+            ver = _discover_latest_version(uri_template)
+        model, ver = _load_with_fallback(uri_template, ver, template)
+    if multi:
+        ver = int(broadcast(np.int64(ver if rank == 0 else 0), root=0))
+        if ver > 0:
+            src = (tree_flatten(model)[1] if rank == 0
+                   else [None] * len(tree_flatten(template)[1]))
+            model = tree_unflatten(template, [broadcast(s, root=0)
+                                              for s in src])
+    if ver <= 0 or model is None:
+        return None
+    _state["version"] = ver
+    return model
+
+
+def _discover_latest_version(uri_template: str) -> int:
+    """Largest contiguous existing version: exponential ascent to bracket,
+    then binary search — O(log N) store probes instead of N."""
+    if not _checkpoint_exists(uri_template, 1):
+        return 0
+    lo = 1                      # known to exist
+    hi = 2
+    while _checkpoint_exists(uri_template, hi):
+        lo, hi = hi, hi * 2
+    # invariant: lo exists, hi does not; find the boundary
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if _checkpoint_exists(uri_template, mid):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def _load_with_fallback(uri_template: str, ver: int, template: Any):
+    """Load version ``ver``, falling back past corrupt/truncated newer
+    versions (a remote store without atomic rename can expose a partial
+    newest file — the same policy as ``CheckpointManager.restore``)."""
+    from dmlc_core_tpu_torch.bridge.checkpoint import load_checkpoint as _load
+
+    last_err: Optional[BaseException] = None
+    while ver > 0:
+        try:
+            return _load(uri_template.format(version=ver), template), ver
+        except Exception as e:  # noqa: BLE001 — fall back past bad versions
+            log_info(f"checkpoint version {ver} unreadable ({e}); "
+                     "falling back to previous version")
+            last_err = e
+            ver -= 1
+    if last_err is not None and not _checkpoint_exists(uri_template, 1):
+        # nothing restorable at all, and version 1 is genuinely absent:
+        # treat as a fresh start rather than an error
+        return None, 0
+    if last_err is not None:
+        raise RuntimeError(
+            f"no restorable checkpoint for {uri_template!r}") from last_err
+    return None, 0
+
+
+def _checkpoint_exists(uri_template: str, version: int) -> bool:
+    """Existence probe.  Only genuinely missing paths count as absent;
+    transient store errors propagate — treating them as absent would
+    silently roll training back to an older version and later overwrite
+    newer checkpoints with stale state."""
+    from dmlc_core_tpu_torch.io.stream import create_stream_for_read
+
+    try:
+        s = create_stream_for_read(uri_template.format(version=version))
+    except (FileNotFoundError, IsADirectoryError):
+        return False
+    if s is None:
+        return False
+    s.close()
+    return True

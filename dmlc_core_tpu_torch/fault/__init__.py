@@ -9,7 +9,10 @@ Injection sites (see :data:`SITES`):
 
 - ``io.stream.open``       — URI stream factory open;
 - ``io.stream.read``       — :meth:`Stream.read_exact` (``truncate`` rules);
-- ``threadediter.produce`` — the producer thread, per item.
+- ``threadediter.produce`` — the producer thread, per item;
+- ``serve.request`` / ``serve.queue`` / ``serve.predict`` /
+  ``serve.swap`` — the scoring server's ingress, batch assembly, model
+  call and hot-swap stages.
 
 **Disabled is the default and costs one attribute load + branch**: every
 helper returns immediately while no plan is configured, and the instrumented
@@ -39,7 +42,7 @@ from dmlc_core_tpu_torch.fault.plan import (ACT_KINDS, FaultPlan,
 __all__ = [
     "SITES", "KINDS",
     "enabled", "configure", "clear", "get_plan", "fires",
-    "inject", "truncate",
+    "inject", "truncate", "http_response",
     "FaultPlan", "FaultRule", "FaultPlanError",
 ]
 
@@ -53,10 +56,29 @@ SITES: Dict[str, str] = {
         "truncated object/dropped connection"),
     "threadediter.produce": (
         "producer thread, once per produced item (ctx: name=<iterator>)"),
+    "serve.request": (
+        "scoring HTTP ingress, once per POST /v1/score before parsing; "
+        "'http_status' REPLACES the response, delay/stall model a slow "
+        "handler thread, 'reset' kills the connection mid-request"),
+    "serve.queue": (
+        "micro-batch assembly loop, once per batch (ctx: depth=<queue "
+        "depth>); 'stall' models a stuck consumer — the queue backs up "
+        "and admission control starts shedding (503 + Retry-After)"),
+    "serve.predict": (
+        "once per assembled batch before the model call (ctx: "
+        "model=<family>, slot=<slot name>, rows=<n>); 'error' fails that "
+        "batch's requests with a structured 503 predict_failed and the "
+        "batcher continues"),
+    "serve.swap": (
+        "model-lifecycle watcher, once per stage of each hot-swap cycle "
+        "(ctx: model=<slot>, stage=watch|validate|warmup|swap); "
+        "'error'/'reset' during validate or warmup reject the candidate "
+        "— previous-good keeps serving"),
 }
 
 _plan: Optional[FaultPlan] = None
 _TRUNCATE_KINDS = frozenset({"truncate"})
+_HTTP_KINDS = frozenset({"http_status"})
 
 
 def enabled() -> bool:
@@ -156,6 +178,19 @@ def truncate(site: str, nbytes: int, **ctx: Any) -> int:
     if rule.fraction is not None:
         return min(nbytes, int(nbytes * rule.fraction))
     return min(nbytes, rule.keep)
+
+
+def http_response(site: str, **ctx: Any) \
+        -> Optional[Tuple[int, Dict[str, str], bytes]]:
+    """Injected (status, headers, body) replacing a request, or None."""
+    plan = _plan
+    if plan is None:
+        return None
+    rule = plan.select(site, _HTTP_KINDS, ctx)
+    if rule is None:
+        return None
+    _note(site, rule.kind)
+    return rule.status, dict(rule.headers), rule.body
 
 
 # -- env-driven bring-up ------------------------------------------------------

@@ -21,6 +21,11 @@ Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``
 [2**d].  Row/column sampling draws from ``jax.random`` in the reference
 and is not ported yet: those parameters raise ``NotImplementedError``.
+
+Persistence (``save_model``/``load_model``, ``serving_state``/
+``from_serving_state``/``resume``) writes the reference's checkpoint
+payload with its dtypes through :mod:`..bridge.checkpoint`, so a model
+saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dmlc_core_tpu_torch.bridge.checkpoint import (host_array,
+                                                   load_checkpoint,
+                                                   save_checkpoint)
 from dmlc_core_tpu_torch.ops import hist_cuda
 from dmlc_core_tpu_torch.ops.histogram import (
     apply_bins, as_tensor, bin_onehot, data_allreduce,
@@ -637,3 +645,191 @@ class GBDT:
         if self.param.objective == "softmax":
             return torch.argmax(margin, dim=1).to(torch.int32)
         return (margin > 0).to(torch.int32)
+
+    # -- persistence ---------------------------------------------------------
+    def save_model(self, uri: str, ensemble: TreeEnsemble,
+                   extra: Optional[dict] = None) -> None:
+        """Persist the model + binning boundaries to any URI, in the JAX
+        package's checkpoint format (the blob loads in either package).
+
+        ``extra`` adds caller-owned numpy leaves to the payload; keys must
+        not clash with the core schema.
+        """
+        save_checkpoint(uri, self._model_payload(ensemble, extra))
+
+    def _model_payload(self, ensemble: TreeEnsemble,
+                       extra: Optional[dict] = None) -> dict:
+        """The checkpoint tree ``save_model`` writes (trees + binning
+        boundaries + routing contract), as a dict of host arrays with the
+        reference's dtypes, so the header's dtype strings match byte for
+        byte — the single schema :meth:`serving_state` builds from too."""
+        CHECK(self.boundaries is not None, "model has no bin boundaries")
+        payload = {
+            "split_feat": host_array(ensemble.split_feat),
+            "split_bin": host_array(ensemble.split_bin),
+            "leaf_value": host_array(ensemble.leaf_value),
+            "default_left": host_array(ensemble.default_left),
+            "boundaries": np.asarray(self.boundaries),
+            # binning contract: loading into a param with a different
+            # missing-mode would silently mis-bin NaNs and ignore the
+            # learned default directions — record it so load can refuse
+            "handle_missing": np.array([int(self.param.handle_missing)]),
+            # predict-time contract: predict_margin adds the loader's
+            # base_score, so a mismatch silently shifts every margin
+            "base_score": np.array([self.param.base_score], np.float32),
+        }
+        # omit absent stats (ensembles loaded from pre-stats checkpoints):
+        # an object-dtype leaf could never be loaded back
+        if ensemble.split_gain is not None:
+            payload["split_gain"] = host_array(ensemble.split_gain)
+        if ensemble.split_cover is not None:
+            payload["split_cover"] = host_array(ensemble.split_cover)
+        for k, v in (extra or {}).items():
+            CHECK(k not in payload, f"extra key {k!r} clashes with the "
+                                    f"model schema")
+            arr = host_array(v)
+            # object arrays serialize as raw pointers and can never load
+            # back; reject at save time
+            CHECK(arr.dtype != object,
+                  f"extra key {k!r} has object dtype; convert to a "
+                  f"numeric or fixed-width string array first")
+            payload[k] = arr
+        return payload
+
+    def load_model(self, uri: str) -> TreeEnsemble:
+        return self.load_model_dict(load_checkpoint(uri))
+
+    def load_model_dict(self, flat: dict) -> TreeEnsemble:
+        """Restore from an already-loaded checkpoint dict (keys are the
+        flattened paths, each exactly ``"['<name>']"``); the ensemble's
+        tensors land on this model's device."""
+        _REQUIRED = object()
+
+        def get(name, default=_REQUIRED):
+            key = f"['{name}']"
+            if key not in flat:
+                CHECK(default is not _REQUIRED,
+                      f"checkpoint is missing required key {name!r}")
+                return default
+            return flat[key]
+
+        self.boundaries = np.asarray(get("boundaries"), dtype=np.float32)
+        sf = get("split_feat")
+        # models saved before sparsity-aware splits have no default_left /
+        # handle_missing keys: all-False + non-missing reproduces their
+        # exact routing
+        dl = get("default_left", default=None)
+        dl = (np.asarray(dl).astype(bool) if dl is not None
+              else np.zeros(np.asarray(sf).shape, dtype=bool))
+        hm = get("handle_missing", default=None)
+        saved_hm = bool(hm[0]) if hm is not None else False
+        CHECK(saved_hm == self.param.handle_missing,
+              f"model was saved with handle_missing={saved_hm} but this "
+              f"GBDT has handle_missing={self.param.handle_missing}; the "
+              f"binning and routing contracts differ — construct the "
+              f"loader with the matching GBDTParam")
+        bs = get("base_score", default=None)
+        saved_bs = float(bs[0]) if bs is not None else 0.0
+        CHECK(abs(saved_bs - self.param.base_score) < 1e-9,
+              f"model was saved with base_score={saved_bs} but this GBDT "
+              f"has base_score={self.param.base_score}; predictions would "
+              f"silently shift — construct the loader with the matching "
+              f"GBDTParam")
+        sg = get("split_gain", default=None)
+        sc = get("split_cover", default=None)
+
+        def dev(a):
+            return None if a is None else as_tensor(a, self.device)
+
+        return TreeEnsemble(dev(sf), dev(get("split_bin")),
+                            dev(get("leaf_value")), dev(dl), dev(sg),
+                            dev(sc))
+
+    def serving_state(self, ensemble: TreeEnsemble,
+                      extra: Optional[dict] = None) -> dict:
+        """Self-describing checkpoint tree for serving: the
+        :meth:`save_model` payload plus a ``serve_meta`` leaf recording
+        what a loader needs to rebuild this GBDT without knowing its
+        params (num_feature, num_bins, max_depth, objective, num_class).
+        The binner edges ride the same blob, so a swapped-in model always
+        serves through the bins it trained on.  Save it with
+        :class:`~dmlc_core_tpu_torch.bridge.checkpoint.CheckpointManager`
+        and restore with :meth:`from_serving_state`; ``extra`` adds
+        caller-owned leaves, which every loader ignores."""
+        merged = {
+            _SERVE_META_KEY: np.array(
+                [_SERVE_SCHEMA, self.num_feature, self.param.num_bins,
+                 self.param.max_depth,
+                 _OBJECTIVE_CODES[self.param.objective],
+                 self.param.num_class],
+                np.int64)}
+        for k, v in (extra or {}).items():
+            CHECK(k != _SERVE_META_KEY, "extra must not override serve_meta")
+            merged[k] = v
+        return self._model_payload(ensemble, merged)
+
+    @classmethod
+    def from_serving_state(cls, flat: dict, device=None
+                           ) -> Tuple["GBDT", TreeEnsemble]:
+        """Rebuild (GBDT, ensemble) on ``device`` (``cuda`` unless the
+        caller passes ``device="cpu"``) from a flat
+        :func:`~dmlc_core_tpu_torch.bridge.checkpoint.load_checkpoint` dict
+        written by :meth:`serving_state` of either package: boundaries
+        installed, predictions bitwise equal to the saver's."""
+        meta = flat.get(f"['{_SERVE_META_KEY}']")
+        CHECK(meta is not None,
+              "checkpoint has no serve_meta leaf — not a serving_state "
+              "blob (train-side save_model checkpoints need their "
+              "GBDTParam known to the loader)")
+        meta = np.asarray(meta).reshape(-1)
+        CHECK(meta.shape[0] == 6 and int(meta[0]) == _SERVE_SCHEMA,
+              f"unsupported serve_meta schema {meta!r}")
+        _, num_feature, num_bins, max_depth, obj_code, num_class = (
+            int(v) for v in meta)
+        CHECK(obj_code in _OBJECTIVE_FROM_CODE,
+              f"serve_meta names unknown objective code {obj_code}")
+        hm = flat.get("['handle_missing']")
+        bs = flat.get("['base_score']")
+        split_feat = flat.get("['split_feat']")
+        CHECK(split_feat is not None, "checkpoint is missing split_feat")
+        param = GBDTParam(
+            objective=_OBJECTIVE_FROM_CODE[obj_code],
+            num_bins=num_bins, max_depth=max_depth, num_class=num_class,
+            num_boost_round=max(1, int(np.asarray(split_feat).shape[0])),
+            handle_missing=bool(hm[0]) if hm is not None else False,
+            base_score=float(bs[0]) if bs is not None else 0.0)
+        gbdt = cls(param, num_feature, device=device)
+        return gbdt, gbdt.load_model_dict(flat)
+
+    @classmethod
+    def resume(cls, flat: dict, param: Optional[GBDTParam] = None,
+               device=None) -> Tuple["GBDT", TreeEnsemble]:
+        """Warm-start restore for continued training: ``(GBDT, ensemble)``
+        from a :meth:`serving_state` checkpoint with the binner edges
+        frozen, ready for :meth:`append_rounds` on fresh data.
+
+        ``serve_meta`` records only the structural contract (bins, depth,
+        objective, classes); pass ``param`` for the training
+        hyperparameters of the appended rounds.  Its structural fields
+        must match the checkpoint, since they define the routing and
+        binning contract of the uint8 serving wire.
+        """
+        gbdt, ensemble = cls.from_serving_state(flat, device=device)
+        if param is None:
+            return gbdt, ensemble
+        for f in ("objective", "num_bins", "max_depth", "num_class"):
+            CHECK(getattr(param, f) == getattr(gbdt.param, f),
+                  f"resume param {f}={getattr(param, f)!r} != checkpoint "
+                  f"{f}={getattr(gbdt.param, f)!r}; the structural "
+                  f"contract is frozen by the serving checkpoint")
+        # handle_missing/base_score mismatches are refused inside
+        # load_model_dict (the binning/margin contracts)
+        out = cls(param, gbdt.num_feature, device=device)
+        return out, out.load_model_dict(flat)
+
+
+# serving_state schema: bump when the serve_meta layout changes
+_SERVE_SCHEMA = 1
+_SERVE_META_KEY = "serve_meta"
+_OBJECTIVE_CODES = {"logistic": 0, "squared": 1, "softmax": 2}
+_OBJECTIVE_FROM_CODE = {v: k for k, v in _OBJECTIVE_CODES.items()}

@@ -14,7 +14,7 @@ import time
 from typing import Any
 
 __all__ = ["Error", "CHECK", "CHECK_EQ", "CHECK_NE", "CHECK_LT", "CHECK_LE",
-           "log_info", "log_warning", "log_fatal"]
+           "log_info", "log_warning", "log_error", "log_debug", "log_fatal"]
 
 
 class Error(RuntimeError):
@@ -41,6 +41,16 @@ def log_info(msg: Any) -> None:
 
 def log_warning(msg: Any) -> None:
     _emit("WARNING", str(msg), _caller(2))
+
+
+def log_error(msg: Any) -> None:
+    _emit("ERROR", str(msg), _caller(2))
+
+
+def log_debug(verbosity: int, msg: Any) -> None:
+    """Leveled debug line, written when ``DMLC_LOG_DEBUG`` >= ``verbosity``."""
+    if int(os.environ.get("DMLC_LOG_DEBUG", "0")) >= verbosity:
+        _emit("INFO", str(msg), _caller(2))
 
 
 def log_fatal(msg: Any) -> None:

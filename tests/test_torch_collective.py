@@ -5,7 +5,8 @@ the rank the env contract gives and the mesh shapes, each held to the JAX
 package's function on the same inputs.  Across processes: one launch of
 four port workers through the JAX package's own tracker (so the env
 contract the launcher writes is the one the port reads), on the CPU with
-gloo, checking the API's semantics and a 2 x 2 mesh's collectives.
+gloo, checking the API's semantics, a 2 x 2 mesh's collectives and the
+checkpoint recovery pair.
 """
 
 import socket
@@ -60,11 +61,40 @@ def test_single_process_broadcast_requires_root_value(standalone):
         collective.broadcast(None, root=0)
 
 
-def test_checkpoint_waits_for_persistence_slice(standalone):
-    with pytest.raises(NotImplementedError, match="bridge/checkpoint.py"):
-        collective.checkpoint({"w": np.zeros(2)}, "ck-{version}")
-    with pytest.raises(NotImplementedError, match="bridge/checkpoint.py"):
-        collective.load_checkpoint("ck-{version}")
+def test_checkpoint_waits_for_persistence_slice(standalone, tmp_path):
+    """The recovery pair on a world of one, now that persistence is
+    ported: versions count up, the newest loads, a corrupt newest version
+    falls back, and the blobs are the JAX package's format."""
+    from dmlc_core_tpu.bridge.checkpoint import load_checkpoint as jax_load
+
+    uri = str(tmp_path / "ck-{version}")
+    assert collective.load_checkpoint(uri) is None      # fresh start
+    with pytest.raises(Error, match="placeholder"):
+        collective.checkpoint({"w": np.zeros(2)}, str(tmp_path / "ck"))
+    collective.finalize()
+    collective.init()
+    for step in (1, 2, 3):
+        collective.checkpoint({"w": np.full(2, step, np.float32),
+                               "t": (np.int64(step), None)}, uri)
+    assert collective.version_number() == 3
+    template = {"w": np.zeros(2, np.float32), "t": (np.int64(0), None)}
+    flat = jax_load(uri.format(version=2))
+    np.testing.assert_array_equal(flat["['w']"], [2.0, 2.0])
+    collective.finalize()
+    collective.init()                                   # a restarted worker
+    model = collective.load_checkpoint(uri, template=template)
+    assert collective.version_number() == 3
+    np.testing.assert_array_equal(model["w"], [3.0, 3.0])
+    assert model["t"][1] is None and int(model["t"][0]) == 3
+    with open(uri.format(version=3), "r+b") as f:
+        f.truncate(10)
+    collective.finalize()
+    collective.init()
+    model = collective.load_checkpoint(uri, template=template)
+    assert collective.version_number() == 2
+    np.testing.assert_array_equal(model["w"], [2.0, 2.0])
+    np.testing.assert_array_equal(
+        collective.load_checkpoint(uri, version=1)["['w']"], [1.0, 1.0])
 
 
 @pytest.mark.parametrize("env", [
@@ -206,6 +236,23 @@ for axis, line in (("data", [m, m + 2]), ("model", [2 * d, 2 * d + 1])):
 
 collective.tracker_print(f"rank {rank} done")
 assert collective.version_number() == 0
+
+# the recovery pair: rank 0 writes, every rank's version counts; a fresh
+# init finds the newest version on rank 0 and broadcasts it and the
+# leaves, so ranks that never read the store resume in step
+uri = os.path.join(os.environ["RESULT_DIR"], "ck-{version}")
+for step in (1, 2):
+    collective.checkpoint({"w": np.full(3, step * 10 + rank, np.float32),
+                           "n": np.int64(step)}, uri)
+assert collective.version_number() == 2
+collective.finalize()
+collective.init({"device": "cpu", "timeout": 60,
+                 "DMLC_COORDINATOR_PORT": os.environ["STORE_PORT2"]})
+model = collective.load_checkpoint(
+    uri, template={"w": np.zeros(3, np.float32), "n": np.int64(0)})
+assert collective.version_number() == 2, collective.version_number()
+np.testing.assert_array_equal(model["w"], np.full(3, 20.0, np.float32))
+assert int(model["n"]) == 2
 collective.finalize()
 with open(os.path.join(os.environ["RESULT_DIR"], f"ok-{rank}"), "w") as f:
     f.write("ok")
@@ -226,7 +273,8 @@ def test_four_workers_through_the_tracker(tmp_path):
     from tests.conftest import run_tracker_workers
 
     proc = run_tracker_workers(tmp_path, WORKER, 4, timeout=120,
-                               env_extra={"STORE_PORT": str(store_port())})
+                               env_extra={"STORE_PORT": str(store_port()),
+                                          "STORE_PORT2": str(store_port())})
     assert proc.returncode == 0, proc.stderr[-4000:]
     for rank in range(4):
         assert (tmp_path / f"ok-{rank}").exists(), rank
