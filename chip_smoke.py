@@ -101,15 +101,44 @@ Phases (any failure exits non-zero and prints no result line):
    ``python -m dmlc_core_tpu_torch.serve --model gbdt --checkpoint
    <step 1> --num-feature 28 --port 0`` as a subprocess: the ``serving
    ... on <url>`` line, one POST bitwise equal to the in-process step-1
-   answer, SIGTERM, and ``serve: shut down cleanly`` with exit 0.
+   answer, SIGTERM, and ``serve: shut down cleanly`` with exit 0;
+8. train: (8a) ``fit_with_eval`` on phase 4's 2,000,000 rows with its
+   200,000 held-out rows: 10 rounds bitwise phase 4's ``"auto"`` fit, each
+   round's eval loss within 1e-6 of ``staged_losses``; 40 rounds, then
+   40 with ``early_stopping_rounds=3`` (on ``loss`` and on ``error`` at
+   learning rate 0.3, on ``loss`` at 1.5 and 2, which overshoot, so at
+   least one fit must stop early), whose kept trees must be bitwise the
+   first ``best_round + 1`` of the 40;
+   (8b) ``GBDTClassifier(device="cuda")`` on the 2,000,000 raw rows:
+   held-out accuracy >= 0.8, ``feature_importances_`` summing to 1,
+   ``save_model`` -> ``load_model`` with bitwise ``predict_proba``; (8c)
+   a ``TrainerDaemon`` on the card over a spool of 8 libsvm files of
+   31,250 of phase 4's rows (2 rounds a batch, a publish every 4 rounds,
+   a ``_DONE`` sentinel; at 62,500 rows a file the phase took 80 s on an
+   H100), its steps served live by a ``ScoringServer`` with a
+   ``CheckpointWatcher`` while 8 client threads send requests (the spool
+   hands out the next batch only after the newest step answered 20 of
+   them): every answer 200 and bitwise the ``predict_float`` of its
+   version, at least 3 versions, the final step 16 trees at cursor 8; the
+   seconds of parsing, binning, rounds, the margin recompute and
+   publishing, rounds/s, and publish -> first answer of each step; (8d)
+   ``python -m dmlc_core_tpu_torch.train`` over the same spool, killed by
+   a ``DMLC_FAULT_PLAN`` exit 43 at ``train.round`` after 9 rounds, then
+   rerun as ``--incarnation 1`` with one torn publish: it must resume
+   from step 2, count one rejection, finish, and end bitwise equal to
+   8c's final step; (8e) a port ``ShardLeaseCoordinator`` over 200,000
+   libsvm rows in 8 units feeding one daemon through ``FleetSource``:
+   every unit committed once, 200,000 rows trained.  Each part counts
+   K3's launches (6 a round) and K1's (none).
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
 the main path's run (phase 4 for K1 and K3, phase 5 for K4), with the
 counts set to 0 just before it: K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
-those of the ingest path, and phase 7 those of the serving path).  The
-last line is ``{"ok": true, "device": {...}}``.
+those of the ingest path, phase 7 those of the serving path and phase 8
+those of the training paths).  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import json
@@ -150,6 +179,18 @@ SERVE_REQUESTS = 1000         # per wave; wave 2 runs on through the swap
 SERVE_CLIENTS = 8
 SERVE_MAX_BATCH = 64
 SERVE_APPEND_ROUNDS = 2
+EVAL_ROUNDS = 40              # phase 8a's early-stopping fits
+EVAL_PATIENCE = 3
+TRAIN_FILES = 8               # phase 8's spool: 8 libsvm files of
+TRAIN_FILE_ROWS = 31_250      # 31,250 of phase 4's rows (250,000 rows;
+                              # 500,000 took phase 8 to 80 s on an H100)
+TEXT_CHUNK = 6_250            # rows formatted at a time
+TRAIN_ROUNDS_PER_BATCH = 2
+TRAIN_PUBLISH_ROUNDS = 4
+TRAIN_GATE_ANSWERS = 20       # answers of a step before the next batch
+TRAIN_FINAL_ANSWERS = 50      # answers of the last step before the stop
+FLEET_ROWS = 200_000          # phase 8e's corpus
+FLEET_UNITS = 8
 K3_RAGGED = [
     # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
     # f_count, offset of the tensors in their allocations (elements); node
@@ -1439,6 +1480,464 @@ def phase_serve(card, ref):
     torch.cuda.empty_cache()
 
 
+# -- phase 8: train ------------------------------------------------------------
+def _k3_launches():
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    torch.cuda.synchronize()
+    return hist_cuda.LAUNCHES["grad_hist_fused_cuda"]
+
+
+def _check_k3(label, want):
+    """Exactly ``want`` K3 launches since the last reset, and K1 none."""
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    got = _k3_launches()
+    print(f"{label}: {got} K3 launches (6 a round), K1 "
+          f"{hist_cuda.LAUNCHES['hist_matmul_cuda']}", flush=True)
+    if got != want or hist_cuda.LAUNCHES["hist_matmul_cuda"]:
+        fail(f"{label}: K3 launched {got} times, expected {want} (K1 "
+             f"{hist_cuda.LAUNCHES['hist_matmul_cuda']})")
+    return got
+
+
+def _fit_with_eval(card, ref):
+    """8a: ``fit_with_eval`` on phase 4's rows with its held-out rows."""
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    dev = torch.device("cuda")
+    held = torch.from_numpy(ref["wire"][N_ROWS:]).to(dev)
+    y_te = torch.from_numpy(ref["y"][N_ROWS:]).to(dev)
+    param = dict(max_depth=MAX_DEPTH, num_bins=NUM_BINS)
+
+    def model(rounds, lr=0.3):
+        m = GBDT(GBDTParam(num_boost_round=rounds, learning_rate=lr,
+                           **param), N_FEATURES)
+        m.set_boundaries(ref["model"].boundaries)
+        return m
+
+    m10 = model(ROUNDS)
+    hist_cuda.reset_launches()
+    (ens, hist), sec = device_time(m10.fit_with_eval, ref["bins"],
+                                   ref["y_tr"], held, y_te)
+    same = all(torch.equal(a, b) for a, b in zip(ens, ref["ens"]))
+    curve = m10.staged_losses(ens, held, y_te)
+    err = max(abs(float(c) - h["eval_loss"]) for c, h in zip(curve, hist))
+    print(f"8a fit_with_eval, {ROUNDS} rounds on {N_ROWS:,} rows, eval on "
+          f"{N_HELDOUT:,}: {sec:.3f} s [{card}]; ensemble bitwise equal to "
+          f"phase 4's auto fit: {same}; eval loss {hist[0]['eval_loss']:.5f}"
+          f" -> {hist[-1]['eval_loss']:.5f}, max |eval_loss - "
+          f"staged_losses| {err:.3g}", flush=True)
+    if not same:
+        fail("fit_with_eval's ensemble differs from phase 4's auto fit")
+    if len(hist) != ROUNDS or err > 1e-6:
+        fail(f"fit_with_eval's history ({len(hist)} rounds) disagrees with "
+             f"staged_losses by {err:.3g} > 1e-6")
+    launches = ROUNDS * MAX_DEPTH
+    # learning rates 1.5 and 2 overshoot, so the eval loss stops falling
+    # within 40 rounds and the stopping rule truncates
+    truncated = 0
+    for lr, metrics in ((0.3, ("loss", "error")), (1.5, ("loss",)),
+                        (2.0, ("loss",))):
+        m40 = model(EVAL_ROUNDS, lr)
+        (full, full_hist), sec = device_time(m40.fit_with_eval, ref["bins"],
+                                             ref["y_tr"], held, y_te)
+        launches += EVAL_ROUNDS * MAX_DEPTH
+        print(f"8a {EVAL_ROUNDS} rounds at learning rate {lr} without early "
+              f"stopping: {sec:.3f} s [{card}]", flush=True)
+        for metric in metrics:
+            (stop, stop_hist), sec = device_time(
+                m40.fit_with_eval, ref["bins"], ref["y_tr"], held, y_te,
+                early_stopping_rounds=EVAL_PATIENCE, eval_metric=metric)
+            launches += len(stop_hist) * MAX_DEPTH
+            kept = stop.num_trees
+            truncated += kept < EVAL_ROUNDS
+            same = all(torch.equal(a, b[:kept]) for a, b in zip(stop, full))
+            if metric == "loss":
+                same = same and [h["eval_loss"] for h in stop_hist] == \
+                    [h["eval_loss"] for h in full_hist[:len(stop_hist)]]
+            print(f"8a early stopping (learning rate {lr}, eval_metric "
+                  f"{metric!r}, patience {EVAL_PATIENCE}): {len(stop_hist)} "
+                  f"rounds run, best round {kept - 1}, {sec:.3f} s [{card}]; "
+                  f"the kept trees bitwise the first {kept} of the "
+                  f"{EVAL_ROUNDS}-round fit: {same}", flush=True)
+            if not same:
+                fail(f"early stopping ({lr}, {metric}) kept trees that "
+                     f"differ from the uninterrupted fit's")
+    if not truncated:
+        fail("no early-stopping fit stopped within 40 rounds")
+    _check_k3("8a launches", launches)
+
+
+def _classifier(card, ref, tmp):
+    """8b: the sklearn facade on the card at full width."""
+    from dmlc_core_tpu_torch.models.sklearn import GBDTClassifier
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    x, y = ref["x"], ref["y"]
+    hist_cuda.reset_launches()
+    clf = GBDTClassifier(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                         num_bins=NUM_BINS, learning_rate=0.3,
+                         device="cuda")
+    start = time.perf_counter()
+    clf.fit(x[:N_ROWS], y[:N_ROWS])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - start
+    if clf.model_.device.type != "cuda":
+        fail(f"GBDTClassifier trained on {clf.model_.device}")
+    acc = clf.score(x[N_ROWS:], y[N_ROWS:])
+    imp = clf.feature_importances_
+    path = os.path.join(tmp, "classifier.bin")
+    clf.save_model(path)
+    loaded = GBDTClassifier.load_model(path, device="cuda")
+    proba = clf.predict_proba(x[N_ROWS:])
+    same = np.array_equal(loaded.predict_proba(x[N_ROWS:]), proba)
+    print(f"8b GBDTClassifier(device='cuda').fit on {N_ROWS:,} raw rows "
+          f"(edges, binning, {ROUNDS} rounds): {sec:.3f} s [{card}]; "
+          f"held-out accuracy {acc:.4f}; feature_importances_ sum "
+          f"{imp.sum():.9f}; save_model -> load_model predict_proba bitwise "
+          f"equal: {same}", flush=True)
+    if acc < 0.8:
+        fail(f"GBDTClassifier held-out accuracy {acc:.4f} < 0.8")
+    if abs(imp.sum() - 1.0) > 1e-6 or (imp < 0).any():
+        fail(f"feature_importances_ sum {imp.sum()}")
+    if not same or proba.shape != (N_HELDOUT, 2):
+        fail("the loaded classifier's predict_proba differs")
+    _check_k3("8b launches", ROUNDS * MAX_DEPTH)
+
+
+class _Timed:
+    """Seconds spent in wrapped calls (the card synchronized around each
+    unless ``sync=False``), and each call's (result, end time)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.calls = {}
+
+    def wrap(self, name, fn, sync=True):
+        def timed(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            end = time.perf_counter()
+            self.seconds[name] = self.seconds.get(name, 0.0) + end - start
+            self.calls.setdefault(name, []).append((out, end))
+            return out
+        return timed
+
+
+class _Paced:
+    """The spool source, paced by the server: the next batch is handed out
+    only once the newest published step has answered ``TRAIN_GATE_ANSWERS``
+    requests, so every step serves before the next replaces it."""
+
+    def __init__(self, inner, seen, lock):
+        self.inner = inner
+        self.seen = seen
+        self.lock = lock
+        self.daemon = None
+
+    def next_batch(self, cursor):
+        published = self.daemon.publishes_completed
+        with self.lock:
+            ready = published == 0 or \
+                self.seen.get(published, 0) >= TRAIN_GATE_ANSWERS
+        return self.inner.next_batch(cursor) if ready else None
+
+    def exhausted(self, cursor):
+        return self.inner.exhausted(cursor)
+
+
+def _train_param():
+    from dmlc_core_tpu_torch.models.gbdt import GBDTParam
+
+    return GBDTParam(max_depth=MAX_DEPTH, num_bins=NUM_BINS,
+                     learning_rate=0.3)
+
+
+def _final_step(directory):
+    from dmlc_core_tpu_torch.bridge.checkpoint import (CheckpointManager,
+                                                       load_checkpoint)
+
+    mgr = CheckpointManager(directory)
+    step, _ = mgr.latest_valid(verify=True)
+    if step is None:
+        fail(f"no valid step under {directory}")
+    return step, load_checkpoint(mgr.step_uri(step))
+
+
+def _daemon_in_process(card, ref, spool, ckpt):
+    """8c: the daemon on the card over the spool, its steps served live."""
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.serve import (CheckpointWatcher, ModelRegistry,
+                                           ScoringServer, build_runtime,
+                                           runtime_builder)
+    from dmlc_core_tpu_torch.train import DirectorySource, TrainerDaemon
+
+    seen, lock = {}, threading.Lock()
+    source = _Paced(DirectorySource(spool, N_FEATURES), seen, lock)
+    daemon = TrainerDaemon(ckpt, source, N_FEATURES, param=_train_param(),
+                           rounds_per_batch=TRAIN_ROUNDS_PER_BATCH,
+                           publish_every_rounds=TRAIN_PUBLISH_ROUNDS,
+                           poll_s=0.05)
+    source.daemon = daemon
+    timer = _Timed()
+    source.inner.next_batch = timer.wrap("parse", source.inner.next_batch,
+                                         sync=False)
+    daemon._train_on = timer.wrap("train", daemon._train_on)
+    daemon._gbdt.predict_margin = timer.wrap("predict",
+                                             daemon._gbdt.predict_margin)
+    daemon._gbdt.bin_features = timer.wrap("binning",
+                                           daemon._gbdt.bin_features)
+    daemon.publish_now = timer.wrap("publish", daemon.publish_now)
+    errors = []
+
+    def run():
+        try:
+            daemon.run(exit_when_idle=True)
+        except Exception as exc:      # surfaced by fail() below
+            errors.append(repr(exc))
+
+    # the training path: counts set to 0 just before, read just after
+    hist_cuda.reset_launches()
+    start = time.perf_counter()
+    # a daemon thread: a run that fails below must not hang the exit
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    while daemon.publishes_completed == 0 and thread.is_alive():
+        time.sleep(0.01)
+    if errors or daemon.publishes_completed == 0:
+        fail(f"the daemon published nothing: {errors}")
+    mgr = daemon.manager
+    registry = ModelRegistry()
+    registry.add("gbdt", build_runtime("gbdt", N_FEATURES,
+                                       checkpoint=mgr.step_uri(1)),
+                 version=1, max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0,
+                 default=True)
+    server = ScoringServer(registry, host="127.0.0.1", port=0)
+    server.start()
+    watcher = CheckpointWatcher(registry, "gbdt", ckpt,
+                                runtime_builder("gbdt", N_FEATURES),
+                                poll_s=0.05, manager=mgr)
+    watcher.start()
+    pool = ref["x"][N_ROWS:N_ROWS + SERVE_POOL]
+    last = TRAIN_FILES * TRAIN_ROUNDS_PER_BATCH // TRAIN_PUBLISH_ROUNDS
+
+    def counted(reply):
+        v = reply.get("version")
+        with lock:
+            seen[v] = seen.get(v, 0) + 1
+            done = seen.get(last, 0) >= TRAIN_FINAL_ANSWERS
+        return (done or bool(errors)
+                or time.perf_counter() - start > 180)
+
+    try:
+        answers, _ = _wave(server.url, pool, np.random.RandomState(8),
+                           on_answer=counted)
+        thread.join(300)
+    finally:
+        watcher.close()
+        server.drain(timeout_s=30, settle_s=0.1)
+    if errors or thread.is_alive():
+        fail(f"the daemon failed: {errors}")
+    sec = time.perf_counter() - start
+    state = daemon.describe()
+    steps = mgr.all_steps()
+    want = {v: build_runtime("gbdt", N_FEATURES,
+                             checkpoint=mgr.step_uri(v)).predict_float(pool)
+            for v in steps}
+    versions = _check_answers(answers, want, "8c")
+    firsts = {}
+    for _, reply, _, _, got in answers:
+        v = reply["version"]
+        firsts[v] = min(firsts.get(v, got), got)
+    # publish_now returns the step it published, None when nothing was new
+    swap = {step: firsts[step] - end for step, end in timer.calls["publish"]
+            if step is not None and step in firsts and step > 1}
+    step, flat = _final_step(ckpt)
+    trees = np.asarray(flat["['split_feat']"]).shape[0]
+    cursor = int(np.asarray(flat["['train_cursor']"])[0])
+    t = timer.seconds
+    rounds_s = t["train"] - t["predict"] - t["binning"]
+    rate = state["rounds_completed"] / rounds_s
+    print(f"8c daemon over {TRAIN_FILES} files x {TRAIN_FILE_ROWS:,} rows "
+          f"({TRAIN_ROUNDS_PER_BATCH} rounds a batch, publish every "
+          f"{TRAIN_PUBLISH_ROUNDS} rounds), served live: {sec:.2f} s in all "
+          f"[{card}]; parse {t['parse']:.3f} s, binning {t['binning']:.3f} "
+          f"s, rounds {rounds_s:.3f} s ({rate:.1f} rounds/s), predict "
+          f"(margin recompute) {t['predict']:.3f} s, publish "
+          f"{t['publish']:.3f} s", flush=True)
+    print(f"8c steps {steps}, final step {step}: {trees} trees, cursor "
+          f"{cursor}; {len(answers)} answers, all 200 and bitwise the "
+          f"predict_float of their version; versions {sorted(versions)}; "
+          f"publish -> first answer of the new version "
+          f"{ {k: round(v, 3) for k, v in sorted(swap.items())} } s "
+          f"({watcher.swaps_completed} swaps, {watcher.rejections} "
+          f"rejected) [{card}]", flush=True)
+    if len(versions) < 3 or watcher.rejections:
+        fail(f"8c: versions {sorted(versions)} answered, "
+             f"{watcher.rejections} swaps rejected")
+    if trees != TRAIN_FILES * TRAIN_ROUNDS_PER_BATCH or \
+            cursor != TRAIN_FILES or state["quarantined"]:
+        fail(f"8c: the final step holds {trees} trees at cursor {cursor} "
+             f"({state})")
+    _check_k3("8c launches",
+              TRAIN_FILES * TRAIN_ROUNDS_PER_BATCH * MAX_DEPTH)
+    return flat
+
+
+def _daemon_cli(card, spool, ckpt, state_file, want):
+    """8d: the CLI on the card, killed mid-round and resumed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.train", "--data", spool,
+           "--ckpt", ckpt, "--num-feature", str(N_FEATURES),
+           "--rounds-per-batch", str(TRAIN_ROUNDS_PER_BATCH),
+           "--publish-every-rounds", str(TRAIN_PUBLISH_ROUNDS),
+           "--max-depth", str(MAX_DEPTH), "--num-bins", str(NUM_BINS),
+           "--learning-rate", "0.3", "--poll-s", "0.05", "--exit-when-idle",
+           "--state-file", state_file]
+    kill = {"rules": [{"site": "train.round", "kind": "exit", "code": 43,
+                       "match": {"incarnation": "0"}, "after": 9,
+                       "times": 1}]}
+    tear = {"rules": [{"site": "train.publish", "kind": "truncate",
+                       "keep": 64, "match": {"phase": "durable"},
+                       "times": 1}]}
+    runs = []
+    for extra, plan in (([], kill), (["--incarnation", "1"], tear)):
+        env = dict(os.environ, DMLC_FAULT_PLAN=json.dumps(plan))
+        start = time.perf_counter()
+        proc = subprocess.run(cmd + extra, cwd=here, env=env,
+                              capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        with open(state_file) as f:
+            runs.append((proc, time.perf_counter() - start, json.load(f)))
+    (killed, k_sec, k_state), (resumed, r_sec, r_state) = runs
+    print(f"8d CLI killed at train.round after 9 rounds: exit "
+          f"{killed.returncode} in {k_sec:.1f} s, state {k_state}; resumed "
+          f"(--incarnation 1, one torn publish): exit {resumed.returncode} "
+          f"in {r_sec:.1f} s, state {r_state} [{card}]", flush=True)
+    if killed.returncode != 43:
+        fail(f"the killed CLI exited {killed.returncode}: "
+             f"{killed.stderr[-3000:]}")
+    if resumed.returncode != 0:
+        fail(f"the resumed CLI exited {resumed.returncode}: "
+             f"{resumed.stderr[-3000:]}")
+    if (r_state["resumed_from"] != 2 or r_state["publish_rejections"] != 1
+            or r_state["cursor"] != TRAIN_FILES
+            or r_state["trees"] != TRAIN_FILES * TRAIN_ROUNDS_PER_BATCH):
+        fail(f"the resumed CLI's state {r_state}")
+    _, flat = _final_step(ckpt)
+    same = sorted(flat) == sorted(want) and all(
+        np.array_equal(np.asarray(flat[k]), np.asarray(want[k]))
+        for k in want)
+    print(f"8d final ensemble bitwise equal to 8c's: {same}", flush=True)
+    if not same:
+        fail("the killed-and-resumed CLI's final step differs from 8c's")
+
+
+def _fleet(card, path, ckpt):
+    """8e: a port coordinator over a libsvm corpus and one daemon fed from
+    it through ``FleetSource``."""
+    from dmlc_core_tpu_torch.parallel.fleet_ingest import plan_units
+    from dmlc_core_tpu_torch.tracker.rendezvous import ShardLeaseCoordinator
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.train import FleetSource, TrainerDaemon
+
+    units = plan_units(path, 1, num_units=FLEET_UNITS, fmt="libsvm")
+    coord = ShardLeaseCoordinator("127.0.0.1", units)
+    hist_cuda.reset_launches()
+    start = time.perf_counter()
+    coord.start()
+    rows = []
+    try:
+        source = FleetSource("w0", N_FEATURES, host="127.0.0.1",
+                             port=coord.port).start()
+        inner = source.next_batch
+
+        def counting(cursor):
+            batch = inner(cursor)
+            if batch is not None:
+                rows.append(len(batch.label))
+            return batch
+
+        source.next_batch = counting
+        daemon = TrainerDaemon(ckpt, source, N_FEATURES,
+                               param=_train_param(), rounds_per_batch=1,
+                               publish_every_rounds=TRAIN_PUBLISH_ROUNDS,
+                               poll_s=0.05)
+        daemon.run(exit_when_idle=True)
+        ledger = coord.result(timeout=60)
+    finally:
+        coord.stop()
+    sec = time.perf_counter() - start
+    state = daemon.describe()
+    once = (len(ledger) == FLEET_UNITS
+            and coord.committed_total == FLEET_UNITS
+            and all(e["assigned"] == 1 for e in ledger.values())
+            and coord.rejected_total == 0)
+    committed = sum(e["rows"] for e in ledger.values())
+    print(f"8e FleetSource over {FLEET_ROWS:,} rows in {FLEET_UNITS} units: "
+          f"{sec:.2f} s [{card}]; every unit committed once: {once}; rows "
+          f"committed {committed:,}, trained {sum(rows):,}; state {state}",
+          flush=True)
+    if not once or committed != FLEET_ROWS or sum(rows) != FLEET_ROWS:
+        fail(f"8e: coverage {len(ledger)} units, {committed} committed "
+             f"rows, {sum(rows)} trained rows")
+    if state["rounds_completed"] != FLEET_UNITS or state["trees"] != \
+            FLEET_UNITS:
+        fail(f"8e: the daemon's state {state}")
+    _check_k3("8e launches", FLEET_UNITS * MAX_DEPTH)
+
+
+def phase_train(card, ref):
+    import tempfile
+
+    print(f"== phase 8: train: fit_with_eval and early stopping, the sklearn "
+          f"facade, the continuous trainer over a spool of {TRAIN_FILES} x "
+          f"{TRAIN_FILE_ROWS:,} rows (in process, served live; then the CLI "
+          f"killed and resumed) and over the lease fleet", flush=True)
+    phase_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _fit_with_eval(card, ref)
+        _classifier(card, ref, tmp)
+        spool = os.path.join(tmp, "spool")
+        os.makedirs(spool)
+        start = time.perf_counter()
+        # the text of each TEXT_CHUNK rows once: the spool's files and the
+        # fleet corpus (its first rows) are made of the same chunks
+        n = TRAIN_FILES * TRAIN_FILE_ROWS
+        fmt = "%.9g " + " ".join(f"{j}:%.9g" for j in range(N_FEATURES)) \
+            + "\n"
+        chunks = ["".join(fmt % tuple(r) for r in np.concatenate(
+            [ref["y"][lo:lo + TEXT_CHUNK, None],
+             ref["x"][lo:lo + TEXT_CHUNK]], axis=1).tolist())
+            for lo in range(0, max(n, FLEET_ROWS), TEXT_CHUNK)]
+        per_file = TRAIN_FILE_ROWS // TEXT_CHUNK
+        for i in range(TRAIN_FILES):
+            with open(os.path.join(spool, f"part-{i:04d}.libsvm"), "w") as f:
+                f.write("".join(chunks[i * per_file:(i + 1) * per_file]))
+        open(os.path.join(spool, "_DONE"), "w").close()
+        corpus = os.path.join(tmp, "fleet.libsvm")
+        with open(corpus, "w") as f:
+            f.write("".join(chunks[:FLEET_ROWS // TEXT_CHUNK]))
+        del chunks
+        print(f"wrote the spool and the fleet corpus in "
+              f"{time.perf_counter() - start:.2f} s [{card}]", flush=True)
+        flat = _daemon_in_process(card, ref, spool,
+                                  os.path.join(tmp, "ckpt_c"))
+        _daemon_cli(card, spool, os.path.join(tmp, "ckpt_d"),
+                    os.path.join(tmp, "state_d.json"), flat)
+        _fleet(card, corpus, os.path.join(tmp, "ckpt_e"))
+    print(f"phase 8: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -1459,6 +1958,7 @@ def main():
     k4 = phase_distributed(card)
     phase_ingest(card, ref)
     phase_serve(card, ref)
+    phase_train(card, ref)
     del ref
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

@@ -25,8 +25,17 @@ from dmlc_core_tpu_torch.ops.histogram import (local_quantile_summary,
                                                merged_quantile_boundaries)
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
-__all__ = ["HostBinner", "BinnedBatch", "fit_binner", "binned_batches",
-           "wire_dtype"]
+__all__ = ["HostBinner", "BinnedBatch", "fit_binner",
+           "fit_binner_from_summaries", "default_summary_points",
+           "binned_batches", "wire_dtype"]
+
+
+def default_summary_points(num_bins: int) -> int:
+    """Per-chunk summary resolution K for ``num_bins`` target bins: the
+    one formula :func:`fit_binner` and every external summary producer
+    (the fleet-ingest workers) share, so their summaries merge into the
+    same edges."""
+    return max(64, 8 * num_bins)
 
 
 def wire_dtype(num_bins: int) -> np.dtype:
@@ -154,7 +163,7 @@ def fit_binner(source: Any, num_bins: int,
     ``handle_missing`` reserves the last bin id for NaN: edges then cover
     ``num_bins - 1`` real bins.
     """
-    K = num_points or max(64, 8 * num_bins)
+    K = num_points or default_summary_points(num_bins)
     all_points, all_counts = [], []
     n_feat = None
     for chunk in _dense_chunks(source, num_feature, handle_missing):
@@ -166,15 +175,36 @@ def fit_binner(source: Any, num_bins: int,
         all_points.append(pts)
         all_counts.append(cnt)
     CHECK(all_points, "fit_binner: empty source (no rows to summarise)")
-    points = np.stack(all_points).astype(np.float32)
-    counts = np.stack(all_counts).astype(np.float32)
+    return fit_binner_from_summaries(
+        np.stack(all_points), np.stack(all_counts), num_bins,
+        handle_missing=handle_missing, comm=comm, num_points=K)
+
+
+def fit_binner_from_summaries(points: np.ndarray, counts: np.ndarray,
+                              num_bins: int, *,
+                              handle_missing: bool = False, comm=None,
+                              num_points: Optional[int] = None) -> HostBinner:
+    """The allgather-merge tail of :func:`fit_binner`, callable on
+    pre-accumulated ``local_quantile_summary`` stacks.
+
+    ``points [C, F, K]`` / ``counts [C, F]`` are this rank's per-chunk
+    summaries (K is :func:`default_summary_points` of ``num_bins`` unless
+    ``num_points`` overrides it; every rank must use the same K).  With
+    ``comm`` the local stack is re-summarised to one fixed ``[F, K]``
+    block (weighted quantiles of the pooled points), allgathered and
+    merged globally, so every rank returns the same boundaries.  The
+    fleet-ingest workers (:mod:`..parallel.fleet_ingest`) fit their binner
+    through this path.
+    """
+    eff_bins = num_bins - 1 if handle_missing else num_bins
+    K = num_points or default_summary_points(num_bins)
+    points = np.asarray(points, dtype=np.float32)
+    counts = np.asarray(counts, dtype=np.float32)
     if comm is not None:
-        # weighted quantiles of the pooled points: one [F, K] block a rank
-        local = merged_quantile_boundaries(points, counts, K + 1)
+        local = merged_quantile_boundaries(points, counts, K + 1)  # [F, K]
         local_mass = counts.sum(axis=0).astype(np.float32)
         points = comm.allgather(local.astype(np.float32))    # [W, F, K]
         counts = comm.allgather(local_mass)                  # [W, F]
-    eff_bins = num_bins - 1 if handle_missing else num_bins
     boundaries = merged_quantile_boundaries(points, counts, eff_bins)
     return HostBinner(boundaries, num_bins, handle_missing=handle_missing)
 

@@ -80,11 +80,14 @@ def main(argv: Optional[List[str]] = None):
     ap = _parser()
     args = ap.parse_args(argv)
     if args.eval_data or args.early_stopping_rounds:
-        ap.error("--eval-data/--early-stopping-rounds are not yet in the "
-                 "PyTorch port (ROADMAP §1 item 6, GBDT extras)")
+        ap.error("--eval-data/--early-stopping-rounds are not yet wired "
+                 "into the port's train_gbdt CLI (ROADMAP §1 item 11, entry "
+                 "points); GBDT.fit_with_eval and the estimators have them")
     if args.checkpoint or args.checkpoint_dir:
-        ap.error("--checkpoint/--checkpoint-dir are not yet in the PyTorch "
-                 "port (ROADMAP §1 item 3, GBDT persistence)")
+        ap.error("--checkpoint/--checkpoint-dir are not yet wired into the "
+                 "port's train_gbdt CLI (ROADMAP §1 item 11, entry points); "
+                 "GBDT.save_model and python -m dmlc_core_tpu_torch.train "
+                 "have them")
 
     from dmlc_core_tpu_torch import collective
     from dmlc_core_tpu_torch.bridge.batching import dense_batches

@@ -12,7 +12,12 @@ Injection sites (see :data:`SITES`):
 - ``threadediter.produce`` — the producer thread, per item;
 - ``serve.request`` / ``serve.queue`` / ``serve.predict`` /
   ``serve.swap`` — the scoring server's ingress, batch assembly, model
-  call and hot-swap stages.
+  call and hot-swap stages;
+- ``tracker.framed.recv`` / ``tracker.framed.send`` — the lease
+  protocol's framing;
+- ``io.fleet.lease`` — the fleet-ingest lease client, per wire op;
+- ``train.ingest`` / ``train.round`` / ``train.publish`` — the continuous
+  trainer's batch fetch, boosting round and checkpoint publish.
 
 **Disabled is the default and costs one attribute load + branch**: every
 helper returns immediately while no plan is configured, and the instrumented
@@ -50,12 +55,23 @@ logger = logging.getLogger("dmlc_core_tpu_torch.fault")
 
 # the named sites the codebase is instrumented with -> what faults mean there
 SITES: Dict[str, str] = {
+    "tracker.framed.recv": (
+        "FramedSocket receive path; 'truncate' simulates a peer closing "
+        "mid-frame, act kinds fire before the read"),
+    "tracker.framed.send": "FramedSocket send path",
     "io.stream.open": "URI stream factory open (create_stream[_for_read])",
     "io.stream.read": (
         "Stream.read_exact; 'truncate' cuts the stream short, modeling a "
         "truncated object/dropped connection"),
     "threadediter.produce": (
         "producer thread, once per produced item (ctx: name=<iterator>)"),
+    "io.fleet.lease": (
+        "fleet-ingest shard-lease client, once per wire op before it runs "
+        "(ctx: op=acquire|renew|commit, worker=<id>); 'delay' models a "
+        "straggling rank, 'reset' a flaky control link (the client "
+        "retries), and 'exit' with match op=commit kills a worker mid-unit "
+        "— the lease expires and the unit must be reassigned with "
+        "exactly-once coverage (docs/performance.md \"Fleet ingest\")"),
     "serve.request": (
         "scoring HTTP ingress, once per POST /v1/score before parsing; "
         "'http_status' REPLACES the response, delay/stall model a slow "
@@ -74,6 +90,24 @@ SITES: Dict[str, str] = {
         "(ctx: model=<slot>, stage=watch|validate|warmup|swap); "
         "'error'/'reset' during validate or warmup reject the candidate "
         "— previous-good keeps serving"),
+    "train.ingest": (
+        "continuous trainer, once per batch fetch before the source is "
+        "read (ctx: cursor=<position>, incarnation=<n>); 'error'/'reset' "
+        "model a flaky source — the fetch is retried next tick, the "
+        "cursor does not advance (docs/training.md)"),
+    "train.round": (
+        "continuous trainer, once per boosting round before it computes "
+        "(ctx: round=<odometer>, incarnation=<n>); 'exit' kills the "
+        "trainer mid-round — restart must resume from the last valid "
+        "manifest with the rounds since it retrained, never a torn "
+        "checkpoint (the continuous chaos drill)"),
+    "train.publish": (
+        "continuous trainer checkpoint publish (ctx: step=<n>, "
+        "phase=begin|durable, incarnation=<n>); 'exit' at phase=durable "
+        "kills between blob and manifest — the step must never become a "
+        "swap candidate; 'truncate' at phase=durable tears the durable "
+        "blob before the publish-side verify, which must reject the step "
+        "and re-publish it idempotently"),
 }
 
 _plan: Optional[FaultPlan] = None

@@ -17,6 +17,10 @@ runs on every rank on identical sums, and leaf sums are summed over the
 ``data`` group.  Every rank ends with the same ensemble; margins stay
 local.
 
+Beside fitting and scoring it carries the reference's estimator extras:
+``fit_with_eval`` (eval-set losses, early stopping), ``staged_losses``,
+``predict_leaf``, ``feature_importance`` and ``dump_trees``.
+
 Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``
 [2**d].  Row/column sampling draws from ``jax.random`` in the reference
@@ -160,13 +164,14 @@ def _l1_threshold(G, alpha: float):
     return torch.sign(G) * torch.clamp(torch.abs(G) - alpha, min=0.0)
 
 
-def _check_softmax_labels(label, num_class: int) -> None:
+def _check_softmax_labels(label, num_class: int, what: str = "labels"
+                          ) -> None:
     host = label.cpu().numpy() if isinstance(label, torch.Tensor) \
         else np.asarray(label)
     if host.size == 0:
         return
     CHECK(host.min() >= 0 and host.max() < num_class,
-          f"softmax labels must lie in [0, {num_class}); "
+          f"softmax {what} must lie in [0, {num_class}); "
           f"got range [{host.min()}, {host.max()}]")
 
 
@@ -493,8 +498,9 @@ class GBDT:
             if getattr(self.param, name) < 1.0:
                 raise NotImplementedError(
                     f"GBDTParam.{name}={getattr(self.param, name)}: row and "
-                    f"column sampling draw from jax.random in the reference "
-                    f"and are not ported yet")
+                    f"column sampling draw from jax.random's threefry in the "
+                    f"reference and are not ported yet (ROADMAP §1, known "
+                    f"gap: row and column sampling)")
 
     def _bins(self, bins):
         return _widen_bins(as_tensor(bins, self.device)).contiguous()
@@ -525,31 +531,40 @@ class GBDT:
         return self.param.num_class if self.param.objective == "softmax" \
             else 1
 
-    # -- public API ----------------------------------------------------------
-    def fit_binned(self, bins, label, weight=None
-                   ) -> Tuple[TreeEnsemble, Any]:
-        """Train on pre-binned features; returns (ensemble, final margin)."""
+    def _fit_inputs(self, bins, label, weight):
+        """The tensors, method and bin one-hot every fit starts from."""
         p = self.param
         self._check_sampling()
         if p.objective == "softmax":
             _check_softmax_labels(label, p.num_class)
         bins = self._bins(bins)
-        B = bins.shape[0]
         label = as_tensor(label, self.device, torch.float32)
-        weight = _apply_pos_weight(self._rows(weight, B), label, p)
+        weight = _apply_pos_weight(self._rows(weight, bins.shape[0]), label,
+                                   p)
         method = self._method(bins)
         # the bin one-hot is invariant across rounds and levels
         onehot = bin_onehot(bins, p.num_bins) if method == "onehot" else None
+        return bins, label, weight, method, onehot
+
+    def _base_margin(self, rows: int):
         K = self._k()
-        margin = torch.full((B,) if K == 1 else (B, K), p.base_score,
-                            dtype=torch.float32, device=self.device)
+        return torch.full((rows,) if K == 1 else (rows, K),
+                          self.param.base_score, dtype=torch.float32,
+                          device=self.device)
+
+    # -- public API ----------------------------------------------------------
+    def fit_binned(self, bins, label, weight=None
+                   ) -> Tuple[TreeEnsemble, Any]:
+        """Train on pre-binned features; returns (ensemble, final margin)."""
+        bins, label, weight, method, onehot = self._fit_inputs(bins, label,
+                                                               weight)
+        margin = self._base_margin(bins.shape[0])
         trees = []
-        for _ in range(p.num_boost_round):
+        for _ in range(self.param.num_boost_round):
             margin, tree = self._round(margin, bins, label, weight, method,
                                        onehot)
             trees.append(tree)
-        return TreeEnsemble(*(torch.stack([t[i] for t in trees])
-                              for i in range(6))), margin
+        return _stack_trees(trees), margin
 
     def boost_round(self, margin, bins, label, weight,
                     round_index: Optional[int] = None):
@@ -576,15 +591,9 @@ class GBDT:
         is seeded from the ensemble's own predictions unless given."""
         CHECK(num_rounds >= 1, "append_rounds needs num_rounds >= 1")
         bins = self._bins(bins)
-        B = bins.shape[0]
-        K = self._k()
         if margin is None:
-            if ensemble is None:
-                margin = torch.full((B,) if K == 1 else (B, K),
-                                    self.param.base_score,
-                                    dtype=torch.float32, device=self.device)
-            else:
-                margin = self.predict_margin(ensemble, bins)
+            margin = (self._base_margin(bins.shape[0]) if ensemble is None
+                      else self.predict_margin(ensemble, bins))
         new = []
         for r in range(num_rounds):
             margin, tree = self.boost_round(margin, bins, label, weight)
@@ -645,6 +654,225 @@ class GBDT:
         if self.param.objective == "softmax":
             return torch.argmax(margin, dim=1).to(torch.int32)
         return (margin > 0).to(torch.int32)
+
+    # -- training with eval / early stopping ---------------------------------
+    def _tree_margin_fn(self):
+        """One tree's leaf value for every row: ``fn(sf, sb, lv, dl, bins)``
+        (the per-round eval-margin step of :meth:`fit_with_eval`)."""
+        d = self.param.max_depth
+        miss_id = self.param.num_bins - 1 if self.param.handle_missing \
+            else -1
+
+        def one_tree(sf, sb, lv, dl, bins):
+            return _predict_tree(sf, sb, lv, dl, self._bins(bins), d,
+                                 miss_id)
+
+        return one_tree
+
+    def fit_with_eval(self, bins, label, eval_bins=None, eval_label=None,
+                      weight=None, early_stopping_rounds: int = 0,
+                      compiled: bool = True, eval_metric: str = "loss"):
+        """Boosting with validation loss tracking and early stopping.
+
+        Returns (ensemble, history): history is a list of per-round dicts
+        with ``round`` and ``train_loss`` (the objective's loss on the
+        training margin) and, with an eval set, ``eval_loss`` (the
+        ``eval_metric``: loss | error | rmse | mae).  With
+        ``early_stopping_rounds`` > 0 the fit stops once the eval loss has
+        not improved by more than 1e-9 for that many rounds, and the
+        ensemble is truncated to the best round.
+
+        The trees are grown exactly as :meth:`fit_binned` grows them, so
+        without early stopping the ensemble is bitwise the
+        :meth:`fit_binned` ensemble.  The reference's ``compiled=True``
+        runs every round in one program and applies the stopping rule
+        afterwards; here both values of ``compiled`` run the same loop,
+        which stops at the stopping round, and return the same ensemble
+        and history (the reference proves its two paths equal too).
+        """
+        p = self.param
+        K = self._k()
+        if K > 1 and eval_label is not None:
+            _check_softmax_labels(eval_label, K, what="eval labels")
+        bins, label, weight, method, onehot = self._fit_inputs(bins, label,
+                                                               weight)
+        metric_fn = _eval_metric_fn(eval_metric, p.objective)
+        margin = self._base_margin(bins.shape[0])
+        eval_margin = None
+        if eval_bins is not None:
+            eval_bins = self._bins(eval_bins)
+            eval_label = as_tensor(eval_label, self.device, torch.float32)
+            eval_margin = self._base_margin(eval_bins.shape[0])
+        trees = []
+        history = []
+        stopper = _EarlyStop(early_stopping_rounds)
+        tree_margin = self._tree_margin_fn()
+        for r in range(p.num_boost_round):
+            margin, tree = self._round(margin, bins, label, weight, method,
+                                       onehot)
+            trees.append(tree)
+            entry = {"round": r,
+                     "train_loss": float(_logloss(margin, label,
+                                                  p.objective))}
+            if eval_margin is not None:
+                eval_margin = eval_margin + _per_tree(
+                    lambda sf, sb, lv, dl: tree_margin(sf, sb, lv, dl,
+                                                       eval_bins),
+                    tree[:4], K > 1)
+                eval_loss = float(metric_fn(eval_margin, eval_label))
+                entry["eval_loss"] = eval_loss
+                if stopper.update(r, eval_loss):
+                    trees = trees[:stopper.best_round + 1]
+                    history.append(entry)
+                    break
+            history.append(entry)
+        return _stack_trees(trees), history
+
+    def staged_losses(self, ensemble: TreeEnsemble, bins, label,
+                      metric: str = "loss") -> np.ndarray:
+        """Per-round cumulative metric of the ensemble on any dataset (the
+        learning curve, post hoc).  ``metric``: loss (the objective's own)
+        | error | rmse | mae.  float32 [num_trees]."""
+        p = self.param
+        if p.objective == "softmax":
+            _check_softmax_labels(label, p.num_class)
+        metric_fn = _eval_metric_fn(metric, p.objective)
+        bins = self._bins(bins)
+        label = as_tensor(label, self.device, torch.float32)
+        trees = [as_tensor(a, self.device) for a in ensemble[:4]]
+        tree_margin = self._tree_margin_fn()
+        margin = self._base_margin(bins.shape[0])
+        losses = []
+        for t in range(trees[0].shape[0]):
+            margin = margin + _per_tree(
+                lambda sf, sb, lv, dl: tree_margin(sf, sb, lv, dl, bins),
+                [a[t] for a in trees], trees[0].dim() == 3)
+            losses.append(metric_fn(margin, label))
+        if not losses:
+            return np.zeros((0,), np.float32)
+        return torch.stack(losses).to(torch.float32).cpu().numpy()
+
+    def predict_leaf(self, ensemble: TreeEnsemble, bins) -> np.ndarray:
+        """Leaf index of every row in every tree (XGBoost pred_leaf):
+        int32 [B, T] (or [B, T, K] for softmax), ids in
+        [0, 2**max_depth)."""
+        d = self.param.max_depth
+        miss_id = self.param.num_bins - 1 if self.param.handle_missing \
+            else -1
+        bins = self._bins(bins)
+        trees = [as_tensor(a, self.device) for a in
+                 (ensemble.split_feat, ensemble.split_bin,
+                  ensemble.default_left)]
+        multiclass = trees[0].dim() == 3
+        ids = [_per_tree(
+            lambda sf, sb, dl: _route_tree(sf, sb, dl, bins, d, miss_id),
+            [a[t] for a in trees], multiclass)
+            for t in range(trees[0].shape[0])]
+        if not ids:
+            shape = (bins.shape[0], 0) + ((trees[0].shape[1],)
+                                          if multiclass else ())
+            return np.zeros(shape, np.int32)
+        return torch.stack(ids, dim=1).to(torch.int32).cpu().numpy()
+
+    # -- introspection -------------------------------------------------------
+    def feature_importance(self, ensemble: TreeEnsemble,
+                           kind: str = "weight") -> np.ndarray:
+        """Per-feature importance (the XGBoost importance_type set):
+        'weight' = split count, 'gain'/'total_gain' = mean/summed split
+        gain, 'cover'/'total_cover' = mean/summed hessian mass at splits.
+        Gain and cover need the split statistics recorded at fit time
+        (absent on ensembles loaded from pre-stats checkpoints)."""
+        kinds = ("weight", "gain", "total_gain", "cover", "total_cover")
+        CHECK(kind in kinds, f"importance kind {kind!r} not in {kinds}")
+        sf = host_array(ensemble.split_feat).reshape(-1)
+        mask = sf >= 0
+        counts = np.bincount(sf[mask], minlength=self.num_feature)
+        if kind == "weight":
+            return counts.astype(np.float64)
+        stat = (ensemble.split_gain if "gain" in kind
+                else ensemble.split_cover)
+        CHECK(stat is not None,
+              f"{kind} importance needs split statistics; this ensemble "
+              f"was loaded from a checkpoint without them — refit to get "
+              f"them")
+        stat = host_array(stat).reshape(-1)
+        totals = np.bincount(sf[mask], weights=stat[mask],
+                             minlength=self.num_feature).astype(np.float64)
+        if kind.startswith("total_"):
+            return totals
+        return np.divide(totals, counts, out=np.zeros_like(totals),
+                         where=counts > 0)
+
+    def dump_trees(self, ensemble: TreeEnsemble,
+                   feature_names=None) -> str:
+        """Text dump of every tree, the reference's format to the byte
+        (XGBoost get_dump style): internal nodes show the split feature,
+        the real threshold (the bin id mapped back through the
+        boundaries; rows with value < threshold go left), the missing-row
+        default direction and the recorded gain/cover; leaves show their
+        values.  No-split nodes collapse into their left subtree, as
+        routing does."""
+        CHECK(self.boundaries is not None,
+              "dump_trees needs the binning boundaries; call make_bins or "
+              "load_model first")
+        sf_all = host_array(ensemble.split_feat)
+        sb_all = host_array(ensemble.split_bin)
+        lv_all = host_array(ensemble.leaf_value)
+        dl_all = host_array(ensemble.default_left)
+        sg_all = (None if ensemble.split_gain is None
+                  else host_array(ensemble.split_gain))
+        sc_all = (None if ensemble.split_cover is None
+                  else host_array(ensemble.split_cover))
+        multiclass = sf_all.ndim == 3
+        lines = []
+
+        def one_tree(sf, sb, lv, dl, sg, sc, title):
+            lines.append(f"booster[{title}]:")
+            d = self.param.max_depth
+
+            def walk(node, depth, indent):
+                if depth < d:
+                    i = 2 ** depth - 1 + node    # flat level-order id
+                    if sf[i] >= 0:
+                        f = int(sf[i])
+                        b = int(sb[i])
+                        bounds = self.boundaries[f]
+                        thr = (float(bounds[b]) if b < len(bounds)
+                               else float("inf"))
+                        name = (feature_names[f]
+                                if feature_names is not None else f"f{f}")
+                        miss = "yes" if (dl is not None and dl[i]) else "no"
+                        extra = ""
+                        if sg is not None:
+                            extra = (f",gain={sg[i]:.6g}"
+                                     f",cover={sc[i]:.6g}")
+                        lines.append(f"{indent}{i}:[{name}<{thr:.6g}] "
+                                     f"missing_left={miss}{extra}")
+                        walk(node * 2, depth + 1, indent + "  ")
+                        walk(node * 2 + 1, depth + 1, indent + "  ")
+                        return
+                # leaf or collapsed no-split subtree: rows fall through
+                # left to the leaf slot
+                leaf = node
+                for _ in range(depth, d):
+                    leaf = leaf * 2
+                lines.append(f"{indent}leaf={lv[leaf]:.6g}")
+
+            walk(0, 0, "  ")
+
+        for t in range(sf_all.shape[0]):
+            if multiclass:
+                for k in range(sf_all.shape[1]):
+                    one_tree(sf_all[t, k], sb_all[t, k], lv_all[t, k],
+                             dl_all[t, k],
+                             None if sg_all is None else sg_all[t, k],
+                             None if sc_all is None else sc_all[t, k],
+                             f"{t}.class{k}")
+            else:
+                one_tree(sf_all[t], sb_all[t], lv_all[t], dl_all[t],
+                         None if sg_all is None else sg_all[t],
+                         None if sc_all is None else sc_all[t], str(t))
+        return "\n".join(lines) + "\n"
 
     # -- persistence ---------------------------------------------------------
     def save_model(self, uri: str, ensemble: TreeEnsemble,
@@ -833,3 +1061,67 @@ _SERVE_SCHEMA = 1
 _SERVE_META_KEY = "serve_meta"
 _OBJECTIVE_CODES = {"logistic": 0, "squared": 1, "softmax": 2}
 _OBJECTIVE_FROM_CODE = {v: k for k, v in _OBJECTIVE_CODES.items()}
+
+
+def _stack_trees(trees) -> TreeEnsemble:
+    """Stack per-round tree tuples into an ensemble [T, ...]."""
+    return TreeEnsemble(*(torch.stack([t[i] for t in trees])
+                          for i in range(6)))
+
+
+class _EarlyStop:
+    """The sequential stopping rule: improvement = eval loss drop > 1e-9;
+    stop once ``patience`` rounds pass without one."""
+
+    def __init__(self, patience: int):
+        self.patience = patience
+        self.best_round = -1
+        self.best_loss = float("inf")
+
+    def update(self, r: int, loss: float) -> bool:
+        """Record round r's eval loss; True = stop after this round."""
+        if loss < self.best_loss - 1e-9:
+            self.best_loss, self.best_round = loss, r
+            return False
+        return bool(self.patience) and r - self.best_round >= self.patience
+
+
+def _eval_metric_fn(metric: str, objective: str):
+    """Eval metric for fit_with_eval: 'loss' = the objective's own loss
+    (logloss/mlogloss/MSE), 'error' = classification error rate (0.5
+    threshold / argmax), 'rmse' / 'mae' = regression errors.  All are
+    minimized by early stopping."""
+    if metric == "loss":
+        return lambda m, y: _logloss(m, y, objective)
+    if metric == "error":
+        CHECK(objective in ("logistic", "softmax"),
+              f"eval_metric='error' needs a classification objective, "
+              f"got {objective!r}")
+        if objective == "softmax":
+            return lambda m, y: torch.mean(
+                (torch.argmax(m, dim=1) != y.to(torch.int32)).to(
+                    torch.float32))
+        return lambda m, y: torch.mean(((m > 0) != (y > 0.5)).to(
+            torch.float32))
+    if metric in ("rmse", "mae"):
+        CHECK(objective == "squared",
+              f"eval_metric={metric!r} compares margins to targets "
+              f"directly — only meaningful for objective='squared', got "
+              f"{objective!r} (classification margins are log-odds)")
+        if metric == "rmse":
+            return lambda m, y: torch.sqrt(torch.mean((m - y) ** 2))
+        return lambda m, y: torch.mean(torch.abs(m - y))
+    CHECK(False, f"unknown eval_metric {metric!r}; "
+                 f"use loss|error|rmse|mae")
+
+
+def _logloss(margin, label, objective: str):
+    if objective == "logistic":
+        return torch.mean(torch.logaddexp(torch.zeros_like(margin), margin)
+                          - label * margin)
+    if objective == "softmax":
+        # mlogloss: mean cross-entropy of the true class
+        logp = torch.log_softmax(margin, dim=1)
+        ids = label.to(torch.int64)
+        return -torch.mean(torch.gather(logp, 1, ids[:, None])[:, 0])
+    return torch.mean((margin - label) ** 2)
