@@ -129,16 +129,50 @@ Phases (any failure exits non-zero and prints no result line):
    8c's final step; (8e) a port ``ShardLeaseCoordinator`` over 200,000
    libsvm rows in 8 units feeding one daemon through ``FleetSource``:
    every unit committed once, 200,000 rows trained.  Each part counts
-   K3's launches (6 a round) and K1's (none).
+   K3's launches (6 a round) and K1's (none);
+9. serving tier: phase 4's model saved as step 1 under
+   ``build/chip_smoke_tier/``; five processes start at once, each its own
+   CUDA context on the card: ``python -m dmlc_core_tpu_torch.serve
+   --transport evloop`` on that step, a ``ReplicaFleet`` of 3 GBDT
+   replicas watching its directory (admission bound 256 KiB a replica),
+   and one linear and one MLP replica (the JAX defaults,
+   ``hidden="32,32"``, ``num_class=2``) on checkpoints of seeded params.
+   (9a) ``run_churn``: 1,000 idle keep-alive connections and 32 active
+   workers for 5 s with zero refused, reset or dropped; 64 requests of
+   1-64 held-out rows, 8 pipelined in one write, answered in order, each
+   bitwise ``predict_float`` and byte-identical to an in-process
+   threaded server's answer; the CLI's clean exit.  (9c) 64 rows through
+   a router to the linear and the MLP replica, twice: bitwise equal, and
+   within 1e-6 (linear) and 1e-5 (MLP, bf16) of the CPU plain version of
+   the same checkpoint; an f32 forward of the MLP's params must read
+   more than 1e-5 from the bf16 CPU version, so the gate tells bf16 from
+   f32.  (9b) a ``RouterServer`` over the 3 GBDT replicas in a process
+   of its own, as the CLI runs it with ``--replicas``, but over replicas
+   with an admission bound of 256 KiB, not the CLI's 64 MiB default
+   (with 64 MiB, 3x overload queues past the router's 5 s try deadline
+   and times out: ROADMAP.md §1 item 4e); ``run_load`` open-loop
+   from this process (1-64 held-out rows a request) at phase 7's
+   measured requests/s for 10 s, then at 3 times that for 75 s while
+   replica 1 is SIGKILLed at 3 s, relaunched by the fleet's monitor, and
+   every replica restarts in turn (``rolling_restart``) inside the load:
+   zero crashed, refused, timed out or wrong answers (every 200 bitwise
+   ``predict_float`` of the version that answered), every non-200 a
+   structured 503, the router seeing replica 1 ejected and healthy
+   again, hedges fired; (9d) while the fleet takes load at phase 7's
+   rate, 2 rounds are appended on the card and published as step 2:
+   every replica swaps, both versions answer, every answer bitwise its
+   version's, the seconds from publish to the last replica's first
+   step-2 answer printed, >= 12 K3 launches in this process (scoring
+   launches none).
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
 the main path's run (phase 4 for K1 and K3, phase 5 for K4), with the
 counts set to 0 just before it: K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
-those of the ingest path, phase 7 those of the serving path and phase 8
-those of the training paths).  The last line is ``{"ok": true,
-"device": {...}}``.
+those of the ingest path, phase 7 those of the serving path, phase 8
+those of the training paths and phase 9 those of the serving tier).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -191,6 +225,27 @@ TRAIN_GATE_ANSWERS = 20       # answers of a step before the next batch
 TRAIN_FINAL_ANSWERS = 50      # answers of the last step before the stop
 FLEET_ROWS = 200_000          # phase 8e's corpus
 FLEET_UNITS = 8
+TIER_REPLICAS = 3             # phase 9b's fleet
+TIER_RUN_S = 10.0             # 9b's first run and 9d's run
+TIER_CHAOS_S = 75.0           # 9b's second run: the kill and a rolling
+                              # restart of 3 card replicas (~10-13 s each
+                              # to start on an H100 host) fall inside it
+TIER_KILL_AT_S = 3.0
+TIER_START_S = 240            # replica start-up, five processes at once
+TIER_LOAD = dict(num_feature=N_FEATURES, timeout_s=30.0,
+                 max_workers=256)   # run_load's settings in 9b and 9d
+TIER_QUEUE_BYTES = 256 << 10  # 9b's admission bound per replica, 2,340
+                              # rows: at the 1,200-3,800 rows/s a card
+                              # replica drains, 0.6-2 s of queue, inside the
+                              # router's 5 s try deadline, so overload sheds
+                              # a structured 503 instead of timing out
+CHURN_CONNECTIONS = 1000      # 9a's idle keep-alive connections
+CHURN_ACTIVE = 32
+CHURN_S = 5.0
+PIPELINE_DEPTH = 8            # 9a: requests sent in one write
+MLP_TOL = 1e-5                # 9c: the card's bf16 MLP against the CPU's
+                              # bf16 MLP (the same code); 9c's f32 control
+                              # must read above it
 K3_RAGGED = [
     # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
     # f_count, offset of the tensors in their allocations (elements); node
@@ -1192,6 +1247,12 @@ class _Client:
         resp = self._conn.getresponse()
         return resp.status, json.loads(resp.read())
 
+    def post_raw(self, path, body):
+        self._conn.request("POST", path, body=body,
+                           headers={"Content-Type": "application/json"})
+        resp = self._conn.getresponse()
+        return resp.status, resp.read()
+
     def close(self):
         self._conn.close()
 
@@ -1272,6 +1333,7 @@ def _latency_line(answers, wall, label, card):
     print(f"{label}: {len(answers)} requests, latency p50 {p50:.3f} ms, "
           f"p95 {p95:.3f} ms, p99 {p99:.3f} ms; {len(answers) / wall:.1f} "
           f"requests/s, {rows / wall:.0f} rows/s [{card}]", flush=True)
+    return len(answers) / wall
 
 
 def _predict_ms(runtime, rows, reps):
@@ -1341,9 +1403,10 @@ def phase_serve(card, ref):
         answers, wall = _wave(server.url, pool, rng,
                               stop_after=SERVE_REQUESTS)
         _check_answers(answers, want, "wave 1")
-        _latency_line(answers, wall, f"wave 1 ({SERVE_CLIENTS} clients, "
-                      f"1-{SERVE_MAX_BATCH} rows each, max_batch "
-                      f"{SERVE_MAX_BATCH}, max_delay_ms 2)", card)
+        rate = _latency_line(
+            answers, wall, f"wave 1 ({SERVE_CLIENTS} clients, "
+            f"1-{SERVE_MAX_BATCH} rows each, max_batch {SERVE_MAX_BATCH}, "
+            f"max_delay_ms 2)", card)
 
         # wave 2: the clients keep sending while 2 rounds are appended on
         # the card and published as step 2
@@ -1478,6 +1541,7 @@ def phase_serve(card, ref):
         fail(f"the serve CLI did not shut down cleanly: {err_text[-3000:]}")
     shutil.rmtree(directory, ignore_errors=True)
     torch.cuda.empty_cache()
+    return rate
 
 
 # -- phase 8: train ------------------------------------------------------------
@@ -1938,6 +2002,479 @@ def phase_train(card, ref):
     torch.cuda.empty_cache()
 
 
+# -- phase 9: the serving tier ---------------------------------------------------
+def _http_raw(sock, buf=b""):
+    """One HTTP/1.1 response off a raw socket: (status, body bytes, the
+    bytes read past it)."""
+    while b"\r\n\r\n" not in buf:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("EOF before a response head")
+        buf += chunk
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    need = 0
+    for line in lines[1:]:
+        key, _, value = line.partition(":")
+        if key.strip().lower() == "content-length":
+            need = int(value)
+    while len(rest) < need:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("EOF inside a response body")
+        rest += chunk
+    return int(lines[0].split(" ", 2)[1]), rest[:need], rest[need:]
+
+
+def _post_bytes(path, body):
+    return (f"POST {path} HTTP/1.1\r\nHost: x\r\nContent-Type: "
+            f"application/json\r\nContent-Length: {len(body)}\r\n\r\n"
+            ).encode() + body
+
+
+def _host_port(url):
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    return u.hostname, u.port
+
+
+def _fleet_logs(fleet):
+    for i in range(fleet.count):
+        path = os.path.join(fleet.log_dir, f"replica-{i}.log")
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                text = f.read()
+            print(f"--- {path} (last 3000 bytes) ---\n{text[-3000:]}",
+                  file=sys.stderr, flush=True)
+
+
+def _wait_fleets(fleets, timeout_s):
+    """Every replica of every fleet answering /healthz "ok"; a replica that
+    exits during start-up fails the phase with its log."""
+    deadline = time.perf_counter() + timeout_s
+    pending = list(fleets)
+    while pending:
+        for fleet in list(pending):
+            if any(n > 1 for n in fleet.launches()):
+                _fleet_logs(fleet)
+                fail(f"a {fleet.model} replica exited during start-up "
+                     f"(launches {fleet.launches()})")
+            try:
+                fleet.wait_healthy(timeout_s=0.5)
+                pending.remove(fleet)
+            except RuntimeError:
+                pass
+        if pending and time.perf_counter() > deadline:
+            for fleet in pending:
+                _fleet_logs(fleet)
+            fail(f"replicas not healthy after {timeout_s} s")
+
+
+def _load_line(label, report, rows_s, card):
+    from dmlc_core_tpu_torch.serve.loadgen import load_line
+
+    print(f"{load_line(label, report, rows_s)} [{card}]", flush=True)
+
+
+def _check_load(label, report):
+    """Zero crashed, refused or wrong; every non-200 answer a structured
+    503."""
+    c = report["counts"]
+    conns = report["connections"]
+    if c["crashed"] or c["invalid"] or c["error"] or c["timeout"] \
+            or c["rejected"] or conns["refused"] or conns["resets"]:
+        fail(f"{label}: {c}, connections {conns}")
+    if c["ok"] + c["shed"] != report["requests"] \
+            or not report["accounting"]["ok"]:
+        fail(f"{label}: not every request answered once, 200 or 503: {c}, "
+             f"{report['accounting']}")
+
+
+def _tier_evloop(card, proc, url, runtime, pool, want):
+    """9a: the evloop CLI server (a process of its own on the card) under
+    CHURN_CONNECTIONS idle keep-alive connections and CHURN_ACTIVE workers;
+    then pipelined requests, each answer bitwise the threaded transport's
+    and predict_float."""
+    from dmlc_core_tpu_torch.serve import ScoringServer
+    from dmlc_core_tpu_torch.serve.loadgen import run_churn
+
+    seen = {}
+
+    def sample_open():
+        # the server's own count of open connections, mid-run
+        time.sleep(CHURN_S * 0.6)
+        try:
+            conn = _Client(url)
+            _, stats = conn.get("/stats")
+            conn.close()
+            seen.update({k: v for k, v in stats["metrics"].items()
+                         if k.startswith("dmlc_serve_connections{")})
+        except Exception as exc:      # surfaced in the printed line
+            seen["error"] = repr(exc)
+
+    sampler = threading.Thread(target=sample_open)
+    sampler.start()
+    report = run_churn(url, connections=CHURN_CONNECTIONS,
+                       duration_s=CHURN_S, num_feature=N_FEATURES,
+                       active=CHURN_ACTIVE, seed=9)
+    sampler.join(60)
+    conns, reqs = report["connections"], report["requests"]
+    lat = report["latency_ms"]
+    print(f"9a churn: {CHURN_CONNECTIONS} idle keep-alive connections + "
+          f"{CHURN_ACTIVE} active workers for {CHURN_S:g} s: peak open "
+          f"{conns['peak_open']}, refused {conns['refused']}, resets "
+          f"{conns['resets']}, open errors {conns['open_errors']}, closed by "
+          f"the server {conns['closed_by_server']}; {reqs['ok']} ok, "
+          f"{reqs['errors']} errors, {report['achieved_qps']} requests/s, "
+          f"p50 {lat['p50']} ms, p99 {lat['p99']} ms; the server's "
+          f"connection gauges mid-run {seen} [{card}]", flush=True)
+    if conns["refused"] or conns["resets"] or conns["open_errors"] \
+            or conns["closed_by_server"] or reqs["errors"] or not reqs["ok"] \
+            or conns["peak_open"] < CHURN_CONNECTIONS + CHURN_ACTIVE:
+        fail(f"9a churn: {conns}, {reqs}")
+
+    rng = np.random.RandomState(17)
+    groups = [[rng.randint(0, len(pool), rng.randint(1, SERVE_MAX_BATCH + 1))
+               for _ in range(PIPELINE_DEPTH)] for _ in range(8)]
+    evloop = []
+    host, port = _host_port(url)
+    for group in groups:
+        bodies = [json.dumps({"instances": pool[idx].tolist()}).encode()
+                  for idx in group]
+        with socket.create_connection((host, port), timeout=60) as s:
+            s.sendall(b"".join(_post_bytes("/v1/score", b) for b in bodies))
+            rest = b""
+            for idx, body in zip(group, bodies):
+                status, answer, rest = _http_raw(s, rest)
+                evloop.append((idx, body, status, answer))
+    threaded = ScoringServer(runtime, transport="threaded")
+    threaded.start()
+    try:
+        conn = _Client(threaded.url)
+        try:
+            same = 0
+            for idx, body, status, answer in evloop:
+                threaded_status, want_body = conn.post_raw("/v1/score", body)
+                reply = json.loads(answer)
+                got = np.asarray(reply.get("predictions", []), np.float32)
+                if status != 200 or reply["num_rows"] != len(idx) \
+                        or not np.array_equal(got.view(np.uint32),
+                                              want[idx].view(np.uint32)):
+                    fail(f"9a: a pipelined answer is out of order or not "
+                         f"bitwise predict_float: {status} {answer[:200]}")
+                same += threaded_status == 200 and answer == want_body
+        finally:
+            conn.close()
+    finally:
+        threaded.drain(timeout_s=30, settle_s=0.0)
+    print(f"9a pipelined: {len(evloop)} requests in {len(groups)} writes of "
+          f"{PIPELINE_DEPTH}, answered in order, each bitwise predict_float;"
+          f" bodies byte-identical to the threaded transport's: {same}/"
+          f"{len(evloop)}", flush=True)
+    if same != len(evloop):
+        fail("9a: the evloop and threaded transports answered other bytes")
+    proc.send_signal(signal.SIGTERM)
+    out, err_text = proc.communicate(timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0 or "serve: shut down cleanly" not in out:
+        fail(f"9a: the evloop CLI did not shut down cleanly: "
+             f"{err_text[-3000:]}")
+
+
+def _tier_families(card, fleets, uris, pool):
+    """9c: linear and MLP replicas (the JAX defaults) on the card behind a
+    router each: within tolerance of the CPU plain version, and bitwise
+    across two requests.  The MLP's bound must tell bf16 from f32: an f32
+    forward of the same params, on the CPU, must read above it."""
+    from dmlc_core_tpu_torch.models.mlp import MLP, MLPParam
+    from dmlc_core_tpu_torch.serve import RouterServer, build_runtime
+
+    rows = pool[:SERVE_MAX_BATCH]
+    body = json.dumps({"instances": rows.tolist()})
+    for kind, fleet in fleets.items():
+        router = RouterServer(fleet.urls).start()
+        try:
+            conn = _Client(router.url)
+            try:
+                s1, first = conn.post("/v1/score", body)
+                s2, again = conn.post("/v1/score", body)
+            finally:
+                conn.close()
+        finally:
+            router.close()
+        got = np.asarray(first.get("predictions", []), np.float32)
+        got2 = np.asarray(again.get("predictions", []), np.float32)
+        cpu_rt = build_runtime(kind, N_FEATURES, checkpoint=uris[kind],
+                               device="cpu")
+        cpu = cpu_rt.predict(rows)
+        tol = 1e-6 if kind == "linear" else MLP_TOL
+        ok = (s1 == s2 == 200 and got.shape == cpu.shape
+              and np.allclose(got, cpu, rtol=0 if kind == "linear" else tol,
+                              atol=tol))
+        err = float(np.abs(got - cpu).max()) if got.shape == cpu.shape \
+            else float("inf")
+        bitwise = got.shape == got2.shape and np.array_equal(
+            got.view(np.uint32), got2.view(np.uint32))
+        control = ""
+        if kind == "mlp":
+            f32 = MLP(MLPParam(num_feature=N_FEATURES, hidden="32,32",
+                               num_class=2, bf16=False), device="cpu")
+            f32_err = float(np.abs(
+                f32.predict(cpu_rt.params, rows).numpy() - cpu).max())
+            control = f"; an f32 forward of the same params reads " \
+                      f"{f32_err:.3g}"
+            if f32_err <= tol:
+                fail(f"9c mlp: the f32 control reads {f32_err:.3g}, inside "
+                     f"the bound {tol:g}: the gate cannot tell bf16 from "
+                     f"f32")
+        print(f"9c {kind}: {len(rows)} rows through the router to one card "
+              f"replica, shape {got.shape}; max abs err vs the CPU plain "
+              f"version {err:.3g} (bound {tol:g}){control}; bitwise across "
+              f"two requests: {bitwise}", flush=True)
+        if not ok or not bitwise:
+            fail(f"9c {kind}: {s1} {s2}, err {err:.3g}, bitwise {bitwise}")
+
+
+def phase_tier(card, ref, serve_rate):
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.bridge.checkpoint import CheckpointManager
+    from dmlc_core_tpu_torch.models.linear import LinearModel, LinearParam
+    from dmlc_core_tpu_torch.models.mlp import MLP, MLPParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.serve import (GBDTRuntime, ReplicaFleet,
+                                           build_runtime)
+    from dmlc_core_tpu_torch.serve.loadgen import PoolLoad, RouterProcess
+
+    print(f"== phase 9: the serving tier: the event loop under "
+          f"{CHURN_CONNECTIONS} connections, {TIER_REPLICAS} card replicas "
+          f"of the phase-4 model behind a router (open-loop load, a SIGKILL, "
+          f"a rolling restart), linear and MLP replicas, a rolling model "
+          f"update", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_tier")
+    shutil.rmtree(root, ignore_errors=True)
+    model, ens = ref["model"], ref["ens"]
+    pool = ref["x"][N_ROWS:N_ROWS + SERVE_POOL]
+    telemetry.enable()
+
+    # the serving tier's path: counts set to 0 just before, read just after
+    hist_cuda.reset_launches()
+    mgr = CheckpointManager(os.path.join(root, "gbdt"), keep=5)
+    mgr.save(1, model.serving_state(ens), async_=False)
+    uri1 = mgr.step_uri(1)
+    runtime = build_runtime("gbdt", N_FEATURES, checkpoint=uri1)
+    want = {0: runtime.predict_float(pool)}
+    want[1] = want[0]      # the watcher swaps step 1 in as version 1
+    uris = {}
+    for kind, make, seed in (
+            ("linear", lambda: LinearModel(LinearParam(
+                num_feature=N_FEATURES)), 11),
+            ("mlp", lambda: MLP(MLPParam(num_feature=N_FEATURES,
+                                         hidden="32,32", num_class=2)), 12)):
+        m = CheckpointManager(os.path.join(root, kind))
+        m.save(1, make().init_params(seed), async_=False)
+        uris[kind] = m.step_uri(1)
+    logs = os.path.join(root, "logs")
+    fleet = ReplicaFleet(
+        TIER_REPLICAS, model="gbdt", num_feature=N_FEATURES, checkpoint=uri1,
+        device="cuda", log_dir=logs, max_queue_bytes=TIER_QUEUE_BYTES,
+        extra_args=["--watch-dir", mgr.directory, "--watch-interval-s",
+                    "0.2"])
+    families = {kind: ReplicaFleet(1, model=kind, num_feature=N_FEATURES,
+                                   checkpoint=uris[kind], device="cuda",
+                                   log_dir=os.path.join(logs, kind))
+                for kind in ("linear", "mlp")}
+    cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.serve", "--model",
+           "gbdt", "--checkpoint", uri1, "--num-feature", str(N_FEATURES),
+           "--transport", "evloop", "--port", "0"]
+    router = None
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    killer = threading.Timer(TIER_START_S + 300, proc.kill)
+    killer.start()
+    try:
+        start = time.perf_counter()
+        fleet.start(wait_healthy=False)
+        for f in families.values():
+            f.start(wait_healthy=False)
+        line = proc.stdout.readline()
+        if not line.startswith("serving gbdt on http://"):
+            proc.kill()
+            fail(f"9a: the evloop CLI printed {line!r}: "
+                 f"{proc.communicate()[1][-3000:]}")
+        _wait_fleets([fleet] + list(families.values()), TIER_START_S)
+        print(f"phase 9 start-up: the evloop server and "
+              f"{TIER_REPLICAS + 2} replicas, each its own process and CUDA "
+              f"context on the one card, up in "
+              f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
+
+        _tier_evloop(card, proc, line.split(" on ", 1)[1].split()[0],
+                     runtime, pool, want[0])
+        _tier_families(card, families, uris, pool)
+        for f in families.values():
+            f.close()
+
+        # 9b: open-loop load through the router, then a kill and a
+        # rolling restart under 3x that load
+        router = RouterProcess(fleet.urls)
+        load = PoolLoad(pool, want, max_rows=SERVE_MAX_BATCH)
+        report, rows_s, _ = load.run(router.url, serve_rate, TIER_RUN_S, 1,
+                                     **TIER_LOAD)
+        _load_line(f"9b run 1, {TIER_REPLICAS} replicas", report, rows_s,
+                   card)
+        _check_load("9b run 1", report)
+        fired = 'dmlc_router_hedges_total{outcome="fired"}'
+        hedges0 = router.counter(fired)
+        states, drill = [], {}
+        stop = threading.Event()
+
+        def watch_r1():
+            while not stop.is_set():
+                try:
+                    st = router.get("/healthz")["replicas"]["r1"]["state"]
+                except (OSError, ValueError, KeyError):
+                    st = "unread"
+                if not states or states[-1] != st:
+                    states.append(st)
+                stop.wait(0.05)
+
+        def chaos():
+            try:
+                time.sleep(TIER_KILL_AT_S)
+                drill["kill"] = time.perf_counter()
+                fleet.kill(1)
+                while fleet.launches()[1] < 2:
+                    if time.perf_counter() - drill["kill"] > 60:
+                        raise RuntimeError("the monitor did not relaunch "
+                                           "replica 1")
+                    time.sleep(0.05)
+                fleet.wait_healthy([1], timeout_s=TIER_START_S)
+                drill["back"] = time.perf_counter()
+                fleet.rolling_restart(settle_s=0.5, timeout_s=TIER_START_S)
+                drill["rolled"] = time.perf_counter()
+            except Exception as exc:    # surfaced by fail() below
+                drill["error"] = repr(exc)
+
+        watcher = threading.Thread(target=watch_r1)
+        watcher.start()
+        chaos_thread = threading.Thread(target=chaos)
+        t0 = time.perf_counter()
+        chaos_thread.start()
+        report, rows_s, _ = load.run(router.url, 3 * serve_rate,
+                                     TIER_CHAOS_S, 2, **TIER_LOAD)
+        chaos_thread.join(2 * TIER_START_S)
+        stop.set()
+        watcher.join(10)
+        _load_line(f"9b run 2, 3x the rate, SIGKILL of replica 1 at "
+                   f"{TIER_KILL_AT_S:g} s, then a rolling restart", report,
+                   rows_s, card)
+        hedges = router.counter(fired) - hedges0
+        print(f"9b drill: replica 1 killed at "
+              f"{drill.get('kill', t0) - t0:.1f} s, back at "
+              f"{drill.get('back', t0) - t0:.1f} s, rolling restart done at "
+              f"{drill.get('rolled', t0) - t0:.1f} s (load ran "
+              f"{report['wall_s']} s); launches {fleet.launches()}; replica "
+              f"1's states at the router {states}; hedges fired {hedges:g}",
+              flush=True)
+        if "error" in drill or "rolled" not in drill:
+            _fleet_logs(fleet)
+            fail(f"9b: the kill and rolling restart failed: {drill}")
+        if drill["rolled"] - t0 > report["wall_s"]:
+            fail("9b: the rolling restart outlasted the load")
+        _check_load("9b run 2", report)
+        if "ejected" not in states \
+                or "healthy" not in states[states.index("ejected"):]:
+            fail(f"9b: the router never saw replica 1 ejected and healthy "
+                 f"again: {states}")
+        if hedges < 1:
+            fail("9b: no request was hedged")
+        if fleet.launches() != [2, 3, 2]:
+            fail(f"9b: replica launches {fleet.launches()}, expected "
+                 f"[2, 3, 2]")
+
+        # 9d: while the fleet takes load, 2 rounds appended on the card and
+        # published as step 2 in the fleet's watch directory
+        swap = {}
+
+        def trainer():
+            try:
+                time.sleep(2.0)
+                ens2, _ = model.append_rounds(
+                    ens, ref["bins"], ref["y_tr"],
+                    num_rounds=SERVE_APPEND_ROUNDS)
+                want[2] = GBDTRuntime(model, ens2).predict_float(pool)
+                swap["publish"] = time.perf_counter()
+                mgr.save(2, model.serving_state(ens2), async_=False)
+                # each replica asked directly until it answers step 2
+                body = json.dumps({"instances": pool[:1].tolist()})
+                first = {}
+                while len(first) < fleet.count:
+                    if time.perf_counter() - swap["publish"] > 120:
+                        raise RuntimeError(f"replicas {first} swapped")
+                    for i, url in enumerate(fleet.urls):
+                        if i in first:
+                            continue
+                        conn = _Client(url)
+                        try:
+                            _, reply = conn.post("/v1/score", body)
+                        finally:
+                            conn.close()
+                        if reply.get("version") == 2:
+                            first[i] = time.perf_counter()
+                    time.sleep(0.02)
+                swap["first"] = first
+            except Exception as exc:    # surfaced by fail() below
+                swap["error"] = repr(exc)
+
+        t = threading.Thread(target=trainer)
+        t.start()
+        report, rows_s, versions = load.run(router.url, serve_rate,
+                                            TIER_RUN_S, 3, **TIER_LOAD)
+        t.join(300)
+        _load_line("9d run 3, through the rolling model update", report,
+                   rows_s, card)
+        if "error" in swap or "first" not in swap:
+            _fleet_logs(fleet)
+            fail(f"9d: the model update failed: {swap}")
+        _check_load("9d run 3", report)
+        health = []
+        for u in fleet.urls:
+            conn = _Client(u)
+            try:
+                health.append(conn.get("/healthz")[1].get("version"))
+            finally:
+                conn.close()
+        lag = max(swap["first"].values()) - swap["publish"]
+        print(f"9d: answers by version {versions}; every replica's /healthz "
+              f"version {health}; publish -> the last replica's first step-2"
+              f" answer {lag:.3f} s [{card}]", flush=True)
+        if health != [2] * fleet.count or not versions.get(2) \
+                or not (versions.get(0) or versions.get(1)):
+            fail(f"9d: not every replica swapped, or not both versions "
+                 f"answered: {health}, {versions}")
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        if router is not None:
+            router.close()
+        for f in list(families.values()) + [fleet]:
+            f.close()
+    torch.cuda.synchronize()
+    launches = dict(hist_cuda.LAUNCHES)
+    need = SERVE_APPEND_ROUNDS * MAX_DEPTH
+    print(f"phase 9 launches on the serving tier's path (9d's appended "
+          f"rounds; scoring launches none): {launches}; phase 9 took "
+          f"{time.perf_counter() - phase_start:.1f} s", flush=True)
+    if launches["grad_hist_fused_cuda"] < need:
+        fail(f"phase 9 launched K3's kernel "
+             f"{launches['grad_hist_fused_cuda']} times, expected >= {need}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -1946,6 +2483,7 @@ def main():
         sys.path.insert(0, here)
         worker_main(sys.argv[2], sys.argv[3])
         return
+    start = time.perf_counter()
     card = phase_device()
     if not os.path.isdir(os.path.join(here, "dmlc_core_tpu_torch")):
         fail(f"no dmlc_core_tpu_torch package beside {__file__}")
@@ -1957,9 +2495,12 @@ def main():
     k3["launches"] = launches["grad_hist_fused_cuda"]
     k4 = phase_distributed(card)
     phase_ingest(card, ref)
-    phase_serve(card, ref)
+    serve_rate = phase_serve(card, ref)
     phase_train(card, ref)
+    phase_tier(card, ref, serve_rate)
     del ref
+    print(f"chip_smoke: phases 1-9 passed in "
+          f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",
         source="dmlc_core_tpu_torch/csrc/hist.cu",

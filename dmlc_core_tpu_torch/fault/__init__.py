@@ -13,6 +13,8 @@ Injection sites (see :data:`SITES`):
 - ``serve.request`` / ``serve.queue`` / ``serve.predict`` /
   ``serve.swap`` — the scoring server's ingress, batch assembly, model
   call and hot-swap stages;
+- ``serve.router.forward`` — the multi-replica router's forward path, per
+  attempt (replica-death, slow-link, and injected-response chaos);
 - ``tracker.framed.recv`` / ``tracker.framed.send`` — the lease
   protocol's framing;
 - ``io.fleet.lease`` — the fleet-ingest lease client, per wire op;
@@ -90,6 +92,16 @@ SITES: Dict[str, str] = {
         "(ctx: model=<slot>, stage=watch|validate|warmup|swap); "
         "'error'/'reset' during validate or warmup reject the candidate "
         "— previous-good keeps serving"),
+    "serve.router.forward": (
+        "multi-replica router, once per forward attempt before the replica "
+        "connection is opened (ctx: replica=<name>, attempt=<n>, "
+        "tag=primary|hedge); 'reset' models a replica dying at connect "
+        "time (zero response bytes read — the router retries on another "
+        "replica), 'stall'/'delay' model a slow replica link (hedging "
+        "territory), 'error' a router-side forwarding bug (structured "
+        "503 replica_failed, never a dropped connection), and "
+        "'http_status' REPLACES the replica round-trip with an injected "
+        "response"),
     "train.ingest": (
         "continuous trainer, once per batch fetch before the source is "
         "read (ctx: cursor=<position>, incarnation=<n>); 'error'/'reset' "

@@ -1,0 +1,176 @@
+"""MLP classifier/regressor: the generic NN path of the port.
+
+Counterpart of ``dmlc_core_tpu/models/mlp.py``: the same parameters and
+initial weights (numpy ``RandomState(seed)``), ``bf16`` matmuls, the same
+losses, and an Adam step written out by hand so that it follows
+``optax.adam``'s order of operations (``torch.optim.Adam`` orders them
+otherwise).  ``jax.nn.gelu`` defaults to the tanh approximation, so the
+port's gelu is ``F.gelu(x, approximate="tanh")``.  The model lives on
+``device`` (``cuda`` unless the caller passes ``device="cpu"``).
+
+A column-sharded hidden layer (the reference's ``model_axis``) needs more
+than one card and is not ported (ROADMAP.md §1 item 9a).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dmlc_core_tpu_torch.bridge.batching import DenseBatch
+from dmlc_core_tpu_torch.models.linear import batch_to
+from dmlc_core_tpu_torch.param import Parameter, field
+from dmlc_core_tpu_torch.utils.device import resolve_device
+
+__all__ = ["MLPParam", "MLP", "AdamState"]
+
+# optax.adam's defaults
+_B1 = 0.9
+_B2 = 0.999
+_EPS = 1e-8
+
+
+class MLPParam(Parameter):
+    num_feature = field(int, lower=1, help="input dimension")
+    hidden = field(str, default="128,128",
+                   help="comma-separated hidden layer widths")
+    num_class = field(int, default=2, lower=1,
+                      help="output classes (1 = regression)")
+    learning_rate = field(float, default=1e-3, lower=0.0, help="adam lr")
+    activation = field(str, default="relu", enum=["relu", "tanh", "gelu"],
+                       help="nonlinearity")
+    bf16 = field(bool, default=True, help="bfloat16 matmuls")
+
+    def hidden_sizes(self) -> List[int]:
+        return [int(w) for w in self.hidden.split(",") if w.strip()]
+
+
+class AdamState(NamedTuple):
+    """``optax.scale_by_adam``'s state: the step count and both moments,
+    each a tree shaped like the params."""
+    count: torch.Tensor
+    mu: Dict[str, Any]
+    nu: Dict[str, Any]
+
+
+def _tanh_gelu(h: torch.Tensor) -> torch.Tensor:
+    return F.gelu(h, approximate="tanh")
+
+
+_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh, "gelu": _tanh_gelu}
+
+
+def _leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
+    return [t for layer in params["layers"] for t in (layer["w"], layer["b"])]
+
+
+def _rebuild(leaves: List[torch.Tensor]) -> Dict[str, Any]:
+    return {"layers": [{"w": leaves[i], "b": leaves[i + 1]}
+                       for i in range(0, len(leaves), 2)]}
+
+
+class MLP:
+    """Plain-torch MLP with a hand-written Adam state."""
+
+    def __init__(self, param: MLPParam, model_axis: Optional[str] = None,
+                 device=None):
+        if model_axis is not None:
+            raise NotImplementedError(
+                "MLP(model_axis=...) shards the hidden layers over a model "
+                "mesh axis, which needs more than one card: not ported "
+                "(ROADMAP.md §1 item 9a)")
+        self.param = param
+        self.device = resolve_device(device)
+
+    def init_params(self, seed: int = 0) -> Dict[str, Any]:
+        rng = np.random.RandomState(seed)
+        layers = []
+        sizes = [self.param.num_feature] + self.param.hidden_sizes()
+        out_dim = 1 if self.param.num_class == 1 else self.param.num_class
+        dims = list(zip(sizes, sizes[1:])) + [(sizes[-1], out_dim)]
+        for fan_in, fan_out in dims:
+            scale = np.sqrt(2.0 / fan_in)
+            w = rng.normal(0, scale, (fan_in, fan_out)).astype(np.float32)
+            layers.append({
+                "w": torch.from_numpy(w).to(self.device),
+                "b": torch.zeros((fan_out,), dtype=torch.float32,
+                                 device=self.device),
+            })
+        return {"layers": layers}
+
+    def _apply(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        act = _ACTIVATIONS[self.param.activation]
+        compute_dtype = torch.bfloat16 if self.param.bf16 else torch.float32
+        h = x.to(compute_dtype)
+        layers = params["layers"]
+        for i, layer in enumerate(layers):
+            h = h @ layer["w"].to(compute_dtype) \
+                + layer["b"].to(compute_dtype)
+            if i < len(layers) - 1:
+                h = act(h)
+        return h.to(torch.float32)
+
+    def _loss(self, params: Dict[str, Any], batch: DenseBatch) -> torch.Tensor:
+        logits = self._apply(params, batch.x)
+        w = batch.weight
+        denom = torch.clamp(w.sum(), min=1.0)
+        if self.param.num_class == 1:
+            err = (logits[:, 0] - batch.label) ** 2
+            return (err * w).sum() / denom
+        labels = batch.label.to(torch.int64)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
+        return (nll * w).sum() / denom
+
+    def init_optimizer(self, params: Dict[str, Any]) -> AdamState:
+        zeros = _rebuild([torch.zeros_like(t) for t in _leaves(params)])
+        return AdamState(
+            count=torch.zeros((), dtype=torch.int32, device=self.device),
+            mu=zeros,
+            nu=_rebuild([torch.zeros_like(t) for t in _leaves(params)]))
+
+    def train_step(self, params: Dict[str, Any], opt_state: AdamState,
+                   batch: DenseBatch) \
+            -> Tuple[Dict[str, Any], AdamState, torch.Tensor]:
+        """One Adam step (``optax.adam(learning_rate)``); returns
+        ``(params, opt_state, loss)``."""
+        batch = batch_to(batch, self.device)
+        leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+        with torch.enable_grad():
+            loss = self._loss(_rebuild(leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        lr = self.param.learning_rate
+        with torch.no_grad():
+            count = opt_state.count + 1
+            # optax's bias correction: 1 - decay**count in float32
+            bc1 = 1 - torch.tensor(_B1, dtype=torch.float32,
+                                   device=self.device) ** count
+            bc2 = 1 - torch.tensor(_B2, dtype=torch.float32,
+                                   device=self.device) ** count
+            new_p, new_mu, new_nu = [], [], []
+            for p, g, m, v in zip(leaves, grads, _leaves(opt_state.mu),
+                                  _leaves(opt_state.nu)):
+                m = (1 - _B1) * g + _B1 * m
+                v = (1 - _B2) * g ** 2 + _B2 * v
+                update = (m / bc1) / (torch.sqrt(v / bc2) + _EPS)
+                new_p.append(p.detach() + (-lr) * update)
+                new_mu.append(m)
+                new_nu.append(v)
+        return (_rebuild(new_p),
+                AdamState(count=count, mu=_rebuild(new_mu),
+                          nu=_rebuild(new_nu)),
+                loss.detach())
+
+    @torch.no_grad()
+    def predict(self, params: Dict[str, Any], x) -> torch.Tensor:
+        # non_blocking: a copy from pageable memory is staged before the
+        # call returns, and does not wait for the work queued before it
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device,
+                                                       non_blocking=True)
+        logits = self._apply(params, x)
+        if self.param.num_class == 1:
+            return logits[:, 0]
+        return torch.softmax(logits, dim=-1)

@@ -12,8 +12,11 @@ with ``B`` drawn from the bucket ladder it warmed up.
 
 :class:`GBDTRuntime` serves a trained
 :class:`~dmlc_core_tpu_torch.models.gbdt.TreeEnsemble` on the model's
-device (``cuda`` unless ``device="cpu"``).  The linear and MLP runtimes of
-the reference wait for the port of their models.
+device (``cuda`` unless ``device="cpu"``); :class:`LinearRuntime` and
+:class:`MLPRuntime` serve the params of
+:class:`~dmlc_core_tpu_torch.models.linear.LinearModel` (margin or
+sigmoid) and :class:`~dmlc_core_tpu_torch.models.mlp.MLP` (softmax
+probabilities or the regression head) there.
 
 **The sync point.**  ``predict_async`` returns a :class:`PendingResult`:
 the scores' copy to a pinned host tensor is queued behind the predict on
@@ -21,13 +24,14 @@ the device, with an event recorded after it.  :func:`to_host` waits on that
 event only, so the scheduler can queue batch N+1 before it waits for
 batch N without waiting for N+1 as well.
 
-:func:`build_runtime` builds a runtime from a ``serving_state`` checkpoint,
-or from a seeded synthetic fit for the CLI and tests.
+:func:`build_runtime` builds a runtime from a checkpoint (a GBDT
+``serving_state``, or linear or MLP params), or from seeded synthetic
+params for the CLI and tests.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +40,8 @@ from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.telemetry import tracecontext
 from dmlc_core_tpu_torch.utils.logging import CHECK, log_info
 
-__all__ = ["ModelRuntime", "GBDTRuntime", "PendingResult", "to_host",
-           "build_runtime"]
+__all__ = ["ModelRuntime", "LinearRuntime", "MLPRuntime", "GBDTRuntime",
+           "PendingResult", "to_host", "build_runtime"]
 
 
 class PendingResult:
@@ -140,6 +144,45 @@ class ModelRuntime:
         return warmed
 
 
+class LinearRuntime(ModelRuntime):
+    """Serving facade over LinearModel params (w, b): ``LinearModel.predict``
+    of the rows (the sigmoid of the margin for ``logistic``, the margin
+    itself for ``squared``)."""
+
+    name = "linear"
+
+    def __init__(self, model, params: Dict[str, torch.Tensor]):
+        super().__init__(model.param.num_feature)
+        self.model = model
+        self.params = params
+
+    @torch.no_grad()
+    def predict_async(self, x: np.ndarray) -> PendingResult:
+        from dmlc_core_tpu_torch.bridge.batching import DenseBatch
+
+        # the copy is from pageable memory, which CUDA stages before the
+        # call returns, so the host array may go at once
+        rows = torch.as_tensor(x, dtype=torch.float32).to(self.model.device,
+                                                          non_blocking=True)
+        return PendingResult(self.model.predict(
+            self.params, DenseBatch(rows, None, None)))
+
+
+class MLPRuntime(ModelRuntime):
+    """Serving facade over MLP params: ``MLP.predict`` of the rows
+    (softmax probs / regression head)."""
+
+    name = "mlp"
+
+    def __init__(self, model, params: Dict[str, Any]):
+        super().__init__(model.param.num_feature)
+        self.model = model
+        self.params = params
+
+    def predict_async(self, x: np.ndarray) -> PendingResult:
+        return PendingResult(self.model.predict(self.params, x))
+
+
 class GBDTRuntime(ModelRuntime):
     """Serving facade over a trained TreeEnsemble + binning boundaries.
 
@@ -184,21 +227,49 @@ class GBDTRuntime(ModelRuntime):
         return to_host(self.gbdt.predict(self.ensemble, bins))
 
 
+def _load_params(checkpoint: str, template: Any,
+                 device: torch.device) -> Any:
+    """The params of a checkpoint, in ``template``'s structure, as tensors
+    on ``device``."""
+    from dmlc_core_tpu_torch.bridge.checkpoint import (load_checkpoint,
+                                                       tree_map)
+
+    return tree_map(lambda a: torch.tensor(a).to(device),
+                    load_checkpoint(checkpoint, template=template))
+
+
 def build_runtime(kind: str, num_feature: int, *, seed: int = 0,
+                  num_class: int = 2, hidden: str = "32,32",
                   checkpoint: Optional[str] = None,
                   device=None) -> ModelRuntime:
     """Construct a runtime for serving on ``device`` (``cuda`` unless the
-    caller passes ``device="cpu"``): the model of a ``serving_state``
-    checkpoint URI when given, else a seeded synthetic fit.
+    caller passes ``device="cpu"``): the model of a checkpoint URI when
+    given, else seeded synthetic params.
 
-    ``gbdt`` without a checkpoint fits a small seeded ensemble on 256
-    synthetic rows at build time, as the reference does (there is no
-    meaningful "random ensemble").
+    ``linear`` and ``mlp`` start from ``init_params(seed)`` (for load and
+    latency purposes the same as a trained model) and restore a
+    checkpoint into that architecture.  ``gbdt`` without a checkpoint
+    fits a small seeded ensemble on 256 synthetic rows at build time, as
+    the reference does (there is no meaningful "random ensemble").
     """
-    if kind in ("linear", "mlp"):
-        raise NotImplementedError(
-            f"the {kind!r} runtime needs the port of the linear and MLP "
-            f"models (ROADMAP.md §1 item 9); the port serves 'gbdt'")
+    if kind == "linear":
+        from dmlc_core_tpu_torch.models.linear import LinearModel, LinearParam
+
+        param = LinearParam(num_feature=num_feature)
+        model = LinearModel(param, device=device)
+        params = model.init_params(seed)
+        if checkpoint:
+            params = _load_params(checkpoint, params, model.device)
+        return LinearRuntime(model, params)
+    if kind == "mlp":
+        from dmlc_core_tpu_torch.models.mlp import MLP, MLPParam
+
+        model = MLP(MLPParam(num_feature=num_feature, hidden=hidden,
+                             num_class=num_class), device=device)
+        params = model.init_params(seed)
+        if checkpoint:
+            params = _load_params(checkpoint, params, model.device)
+        return MLPRuntime(model, params)
     if kind == "gbdt":
         from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
 

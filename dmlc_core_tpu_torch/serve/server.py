@@ -1,9 +1,8 @@
 """The scoring transport: stdlib HTTP in front of the model registry.
 
-Counterpart of ``dmlc_core_tpu/serve/server.py``, on the threaded
-transport only: the same routes, JSON bodies and error envelopes.  The
-selectors event-loop transport (``transport="evloop"``) is not ported yet
-(ROADMAP.md §1 item 4) and raises ``NotImplementedError``.
+Counterpart of ``dmlc_core_tpu/serve/server.py``: the same routes, JSON
+bodies and error envelopes, on the threaded transport or the selectors
+event loop (``transport="evloop"``, :mod:`.eventloop`).
 
 Endpoints (all JSON):
 
@@ -62,9 +61,9 @@ __all__ = ["ScoringServer", "parse_instances", "healthz_payload",
 MAX_BODY_BYTES = 8 << 20  # one request, not a bulk upload
 
 # the two transports behind DMLC_SERVE_TRANSPORT: "threaded" is the
-# ThreadingHTTPServer (one handler thread per connection); "evloop", the
-# reference's selectors-based front end, is named so that asking for it
-# says it is not ported rather than that it does not exist
+# ThreadingHTTPServer (one handler thread per connection), "evloop" is the
+# selectors-based non-blocking front end (serve/eventloop.py) that holds
+# 10k+ keep-alive connections on a couple of event-loop threads
 TRANSPORTS = ("threaded", "evloop")
 
 
@@ -439,11 +438,13 @@ class ScoringServer:
                 f"{TRANSPORTS} (DMLC_SERVE_TRANSPORT)")
         self.transport = transport
         if transport == "evloop":
-            raise NotImplementedError(
-                "transport='evloop' needs the port of serve/eventloop.py "
-                "(ROADMAP.md §1 item 4a); use transport='threaded'")
-        self._httpd = _Server((host, port), _Handler)
-        self._httpd.app = self  # type: ignore[attr-defined]
+            # imported lazily: eventloop imports this module for the
+            # shared request plumbing (parse_instances, healthz_payload)
+            from dmlc_core_tpu_torch.serve.eventloop import EventLoopServer
+            self._httpd = EventLoopServer((host, port), app=self)
+        else:
+            self._httpd = _Server((host, port), _Handler)
+            self._httpd.app = self  # type: ignore[attr-defined]
         self._serve_thread: Optional[threading.Thread] = None
         # drain/lifecycle state: handler threads bump the in-flight
         # odometer, the drain path and /healthz read it
