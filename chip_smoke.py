@@ -163,7 +163,23 @@ Phases (any failure exits non-zero and prints no result line):
    every replica swaps, both versions answer, every answer bitwise its
    version's, the seconds from publish to the last replica's first
    step-2 answer printed, >= 12 K3 launches in this process (scoring
-   launches none).
+   launches none);
+10. sampling and the entry points: (10a) phase 4's fit with subsample and
+   colsample_bytree/bylevel/bynode at 0.8, twice (bitwise equal, K3 on
+   every level, held-out accuracy >= 0.8, seconds and rows/s beside
+   phase 4's unsampled fit); the card's row weights and masks bitwise
+   the CPU's draws for the same (seed, round, class), kept-row shares
+   within 0.8 +- 0.005, one tree's draws timed; ``append_rounds(None,
+   ...)`` twice over 5 rounds and ``fit_with_eval`` bitwise the sampled
+   ``fit_binned``; the first sampled tree of a 200,000-row fit equal on
+   the card and on the CPU; a 3-class relabel of 200,000 rows at
+   subsample 0.8, twice bitwise; (10b) 200,000 of phase 4's rows (and
+   50,000 held-out rows) as libsvm through the port's ``train_gbdt``
+   (``--eval-data --early-stopping-rounds 3``; ``--checkpoint-dir``),
+   ``train_logreg`` (sparse, ``--checkpoint``) and ``train_mlp``
+   (``--checkpoint-dir``) as subprocesses, each exiting 0, then their
+   reruns, which must resume from the latest step; and
+   ``graft_entry.entry()`` on the card within 1e-6 of its CPU run.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -171,7 +187,8 @@ the main path's run (phase 4 for K1 and K3, phase 5 for K4), with the
 counts set to 0 just before it: K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
 those of the ingest path, phase 7 those of the serving path, phase 8
-those of the training paths and phase 9 those of the serving tier).
+those of the training paths, phase 9 those of the serving tier and
+phase 10 those of the sampled fits).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -243,6 +260,12 @@ CHURN_CONNECTIONS = 1000      # 9a's idle keep-alive connections
 CHURN_ACTIVE = 32
 CHURN_S = 5.0
 PIPELINE_DEPTH = 8            # 9a: requests sent in one write
+SAMPLED = dict(subsample=0.8, colsample_bytree=0.8, colsample_bylevel=0.8,
+               colsample_bynode=0.8)  # phase 10a's rates
+SAMPLE_SEED = 7
+N_SOFTMAX = 200_000           # 10a's 3-class relabel
+N_ENTRY = 200_000             # 10b's libsvm rows (phase 6's first 200,000)
+N_ENTRY_EVAL = 50_000         # 10b's held-out libsvm rows
 MLP_TOL = 1e-5                # 9c: the card's bf16 MLP against the CPU's
                               # bf16 MLP (the same code); 9c's f32 control
                               # must read above it
@@ -663,7 +686,7 @@ def phase_gbdt(card):
     if abs(accs["cuda"] - accs["cpu"]) > 0.005:
         fail("card and CPU accuracies differ by more than 0.005")
     ref = dict(x=x, y=y, wire=wire, model=model, bins=bins, y_tr=y_tr,
-               ens=fits[1][0])
+               ens=fits[1][0], fit_sec=fits[1][2])
     return launches, ref
 
 
@@ -2084,7 +2107,8 @@ def _check_load(label, report):
     conns = report["connections"]
     if c["crashed"] or c["invalid"] or c["error"] or c["timeout"] \
             or c["rejected"] or conns["refused"] or conns["resets"]:
-        fail(f"{label}: {c}, connections {conns}")
+        fail(f"{label}: {c}, connections {conns}, statuses "
+             f"{report['statuses']}, slowest {report['slowest_traces']}")
     if c["ok"] + c["shed"] != report["requests"] \
             or not report["accounting"]["ok"]:
         fail(f"{label}: not every request answered once, 200 or 503: {c}, "
@@ -2475,6 +2499,294 @@ def phase_tier(card, ref, serve_rate):
     torch.cuda.empty_cache()
 
 
+# -- phase 10: sampling and the entry points ------------------------------------
+def _draw_one_tree(p, rnd, rows, device, class_index=0):
+    """One tree's draws: its row weights and column mask, and every
+    level's node masks."""
+    from dmlc_core_tpu_torch.models.gbdt import _level_mask_fn, _tree_sampling
+
+    row_w, fmask = _tree_sampling(p, rnd, rows, N_FEATURES, class_index,
+                                  device)
+    level = _level_mask_fn(p, rnd, N_FEATURES, device)
+    return [row_w, fmask] + [level(d, 2 ** d, fmask)
+                             for d in range(MAX_DEPTH)]
+
+
+def _draw_device_ms(p, dev):
+    """Device time of one tree's draws at phase 4's rows (torch.profiler,
+    device events only), and the CUDA-event time a draw takes on the
+    stream (host gaps between its small launches included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_core_tpu_torch.utils.timer import cuda_event_ms
+
+    stream_ms = cuda_event_ms(lambda: _draw_one_tree(p, 0, N_ROWS, dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _draw_one_tree(p, 0, N_ROWS, dev)
+        torch.cuda.synchronize()
+    device_us = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            device_us += next((getattr(e, n) for n in (
+                "self_device_time_total", "self_cuda_time_total")
+                if hasattr(e, n)), 0.0)
+    return (device_us / 1e3 if device_us > 0 else None), stream_ms
+
+
+def _sampled_fit(card, ref):
+    """10a: phase 4's fit with row and column sampling on."""
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    dev = torch.device("cuda")
+    base = dict(max_depth=MAX_DEPTH, num_bins=NUM_BINS, learning_rate=0.3,
+                seed=SAMPLE_SEED, **SAMPLED)
+
+    def model(rounds=ROUNDS, device=None, **kw):
+        m = GBDT(GBDTParam(num_boost_round=rounds, **dict(base, **kw)),
+                 N_FEATURES, device=device)
+        m.set_boundaries(ref["model"].boundaries)
+        return m
+
+    bins, y_tr = ref["bins"], ref["y_tr"]
+    held = torch.from_numpy(ref["wire"][N_ROWS:]).to(dev)
+    y_te = torch.from_numpy(ref["y"][N_ROWS:]).to(dev)
+    m = model()
+    torch.cuda.synchronize()
+    # the sampled path: counts set to 0 just before, read just after
+    hist_cuda.reset_launches()
+    fits = [device_time(m.fit_binned, bins, y_tr) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = dict(hist_cuda.LAUNCHES)
+    (ens, margin), sec = fits[1]
+    same = (all(torch.equal(a, b) for a, b in zip(ens, fits[0][0][0]))
+            and torch.equal(margin, fits[0][0][1]))
+    prob = m.predict(ens, held)
+    held_acc = ((prob > 0.5).float() == y_te).float().mean().item()
+    unsampled = ref["fit_sec"]
+    print(f"10a sampled fit ({SAMPLED}), {ROUNDS} rounds on {N_ROWS:,} "
+          f"rows: {fits[0][1]:.3f} s cold, {sec:.3f} s warm, "
+          f"{N_ROWS / sec:,.0f} rows/s; phase 4's unsampled warm fit in this "
+          f"run {unsampled:.3f} s, {N_ROWS / unsampled:,.0f} rows/s [{card}]",
+          flush=True)
+    print(f"10a launches on the sampled path (2 fits): {launches}; two fits "
+          f"bitwise equal: {same}; held-out accuracy {held_acc:.4f}",
+          flush=True)
+    if launches["grad_hist_fused_cuda"] < ROUNDS * MAX_DEPTH:
+        fail(f"the sampled fits launched K3's kernel "
+             f"{launches['grad_hist_fused_cuda']} times, expected >= "
+             f"{ROUNDS * MAX_DEPTH}")
+    if launches["hist_matmul_cuda"]:
+        fail("the sampled fits launched K1")
+    if not same:
+        fail("two sampled fits differ on the card")
+    if held_acc < 0.8:
+        fail(f"sampled fit: held-out accuracy {held_acc:.4f} < 0.8")
+
+    # the card's draws are bitwise the CPU's
+    shares = []
+    for rnd, k in ((0, 0), (ROUNDS - 1, 0), (3, 2)):
+        card_draw = _draw_one_tree(m.param, rnd, N_ROWS, dev, k)
+        cpu_draw = _draw_one_tree(m.param, rnd, N_ROWS, torch.device("cpu"),
+                                  k)
+        if not all(torch.equal(a.cpu(), b)
+                   for a, b in zip(card_draw, cpu_draw)):
+            fail(f"the card's draws for round {rnd}, class {k} differ from "
+                 f"the CPU's")
+    for rnd in range(ROUNDS):
+        shares.append(_draw_one_tree(m.param, rnd, N_ROWS, dev)[0]
+                      .mean().item())
+    print(f"10a draws (row weights, column mask, {MAX_DEPTH} level masks) "
+          f"bitwise the CPU's for (round, class) (0, 0), ({ROUNDS - 1}, 0), "
+          f"(3, 2); kept-row share per round {min(shares):.5f}.."
+          f"{max(shares):.5f}", flush=True)
+    if max(abs(v - SAMPLED["subsample"]) for v in shares) > 0.005:
+        fail(f"kept-row shares {shares} outside 0.8 +- 0.005")
+    draw_ms, stream_ms = _draw_device_ms(m.param, dev)
+    print(f"10a one tree's draws at {N_ROWS:,} rows: device time "
+          f"{'not measured' if draw_ms is None else f'{draw_ms:.3f} ms'} "
+          f"(torch.profiler), {stream_ms:.3f} ms on the stream (CUDA "
+          f"events); the warm fit's {ROUNDS} trees {1e3 * sec:.1f} ms "
+          f"[{card}]", flush=True)
+
+    # the streaming entry points and the eval-tracked fit grow the same bits
+    half, hmargin = m.append_rounds(None, bins, y_tr,
+                                    num_rounds=ROUNDS // 2)
+    half, hmargin = m.append_rounds(half, bins, y_tr,
+                                    num_rounds=ROUNDS - ROUNDS // 2,
+                                    margin=hmargin)
+    appended = (all(torch.equal(a, b) for a, b in zip(half, ens))
+                and torch.equal(hmargin, margin))
+    (eval_ens, hist), eval_sec = device_time(m.fit_with_eval, bins, y_tr,
+                                             held, y_te)
+    evaled = all(torch.equal(a, b) for a, b in zip(eval_ens, ens))
+    print(f"10a append_rounds(None, ...) twice over {ROUNDS // 2} rounds "
+          f"bitwise fit_binned's: {appended}; fit_with_eval ({eval_sec:.3f} "
+          f"s, eval loss {hist[0]['eval_loss']:.5f} -> "
+          f"{hist[-1]['eval_loss']:.5f}) bitwise fit_binned's: {evaled}",
+          flush=True)
+    if not appended:
+        fail("append_rounds under sampling differs from fit_binned")
+    if not evaled:
+        fail("fit_with_eval under sampling differs from fit_binned")
+
+    # the first tree on the card is the CPU plain version's
+    trees = {}
+    for where in ("cuda", "cpu"):
+        mm = model(rounds=2, device=where, hist_method="pallas")
+        (e, _), s = device_time(mm.fit_binned, ref["wire"][:N_AGREE],
+                                ref["y"][:N_AGREE])
+        trees[where] = type(e)(*(None if a is None else a.cpu() for a in e))
+        print(f"10a {where}: sampled fit of {N_AGREE:,} rows, 2 rounds, "
+              f"{s:.3f} s", flush=True)
+    first = _same_tree(trees["cuda"], trees["cpu"], 0)
+    print(f"10a first sampled tree identical on the card and the CPU: "
+          f"{first}; split agreement "
+          f"{_split_agreement(trees['cuda'], trees['cpu']):.4f}", flush=True)
+    if not first:
+        fail("the first sampled tree differs between the card and the CPU")
+
+    # softmax: each class's tree draws its own rows
+    x3 = ref["x"][:N_SOFTMAX]
+    y3 = torch.from_numpy(ref["y"][:N_SOFTMAX]
+                          + (x3[:, 1] > 0).astype(np.float32)).to(dev)
+    soft = model(objective="softmax", num_class=3, subsample=0.8,
+                 colsample_bytree=1.0, colsample_bylevel=1.0,
+                 colsample_bynode=1.0)
+    hist_cuda.reset_launches()
+    sfits = [device_time(soft.fit_binned, bins[:N_SOFTMAX], y3)
+             for _ in range(2)]
+    k3 = _k3_launches()
+    (sens, smargin), ssec = sfits[1]
+    ssame = (all(torch.equal(a, b) for a, b in zip(sens, sfits[0][0][0]))
+             and torch.equal(smargin, sfits[0][0][1]))
+    sacc = (smargin.argmax(1) == y3.long()).float().mean().item()
+    print(f"10a softmax, 3 classes, subsample 0.8, {N_SOFTMAX:,} rows: "
+          f"{ssec:.3f} s warm, train acc {sacc:.4f}, two fits bitwise "
+          f"equal: {ssame}, {k3} K3 launches [{card}]", flush=True)
+    if not ssame or smargin.shape != (N_SOFTMAX, 3) \
+            or not torch.isfinite(smargin).all():
+        fail("the sampled softmax fits differ or have bad margins")
+    if k3 < 2 * ROUNDS * 3 * MAX_DEPTH:
+        fail(f"the softmax fits launched K3's kernel {k3} times")
+    if sacc < 0.7:
+        fail(f"sampled softmax: train accuracy {sacc:.4f} < 0.7")
+    return launches
+
+
+def _cli(module, *args):
+    return [sys.executable, "-m", f"dmlc_core_tpu_torch.examples.{module}"] \
+        + [str(a) for a in args]
+
+
+def _run_wave(here, cmds):
+    """Run the commands at once; each must exit 0.  Returns their output
+    (stdout + stderr) by name."""
+    procs = {name: subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            out[name] = stdout + stderr
+            if proc.returncode != 0:
+                fail(f"10b {name} exited {proc.returncode}: {stderr[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _entry_points(card, ref):
+    """10b: the CLIs on phase 4's rows as libsvm, and the graft entry."""
+    import tempfile
+
+    from dmlc_core_tpu_torch import graft_entry
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    x, y = ref["x"], ref["y"]
+    with tempfile.TemporaryDirectory() as tmp:
+        svm = os.path.join(tmp, "train.libsvm")
+        ev = os.path.join(tmp, "eval.libsvm")
+        _write_text(svm, x[:N_ENTRY], y[:N_ENTRY], " ", " ", "{}:%.9g")
+        _write_text(ev, x[N_ROWS:N_ROWS + N_ENTRY_EVAL],
+                    y[N_ROWS:N_ROWS + N_ENTRY_EVAL], " ", " ", "{}:%.9g")
+        common = ["--data", svm, "--num-feature", N_FEATURES]
+        gbdt = common + ["--max-depth", MAX_DEPTH, "--subsample", 0.8,
+                         "--colsample-bynode", 0.8]
+        gdir = os.path.join(tmp, "gbdt_ckpt")
+        ltmpl = os.path.join(tmp, "logreg-{version}.bin")
+        mdir = os.path.join(tmp, "mlp_ckpt")
+        start = time.perf_counter()
+        first = _run_wave(here, {
+            "train_gbdt --eval-data": _cli(
+                "train_gbdt", *gbdt, "--rounds", EVAL_ROUNDS,
+                "--learning-rate", 1.5, "--eval-data", ev,
+                "--early-stopping-rounds", EVAL_PATIENCE),
+            "train_gbdt --checkpoint-dir": _cli(
+                "train_gbdt", *gbdt, "--rounds", 10, "--checkpoint-every", 5,
+                "--checkpoint-dir", gdir),
+            "train_logreg": _cli("train_logreg", *common, "--form", "sparse",
+                                 "--epochs", 1, "--checkpoint", ltmpl),
+            "train_mlp": _cli("train_mlp", *common, "--epochs", 2,
+                              "--checkpoint-dir", mdir)})
+        wave1 = time.perf_counter() - start
+        second = _run_wave(here, {
+            "train_gbdt --checkpoint-dir (rerun)": _cli(
+                "train_gbdt", *gbdt, "--rounds", 15, "--checkpoint-every", 5,
+                "--checkpoint-dir", gdir),
+            "train_logreg (rerun)": _cli(
+                "train_logreg", *common, "--form", "sparse", "--epochs", 2,
+                "--checkpoint", ltmpl),
+            "train_mlp (rerun)": _cli("train_mlp", *common, "--epochs", 3,
+                                      "--checkpoint-dir", mdir)})
+        wave2 = time.perf_counter() - start - wave1
+    for name, text in list(first.items()) + list(second.items()):
+        lines = [line for line in text.splitlines()
+                 if any(w in line for w in ("eval:", "trained ", "epoch ",
+                                            "resuming"))]
+        print(f"10b {name}: exit 0; " + " | ".join(lines[-4:]), flush=True)
+    want = {"train_gbdt --checkpoint-dir (rerun)":
+            "resuming from checkpoint step 5 (5/15 rounds done)",
+            "train_logreg (rerun)": "resuming from checkpoint version 1",
+            "train_mlp (rerun)": "resuming from checkpoint epoch 1"}
+    for name, line in want.items():
+        if line not in second[name]:
+            fail(f"10b {name} did not resume: no {line!r} in its output")
+    if "trees kept" not in first["train_gbdt --eval-data"]:
+        fail("10b train_gbdt --eval-data printed no eval line")
+    print(f"10b CLIs: two waves of 4 and 3 processes on the card, "
+          f"{wave1:.1f} s and {wave2:.1f} s [{card}]", flush=True)
+
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    err = (got.cpu() - cpu_fn(*cpu_args)).abs().max().item()
+    print(f"10b graft_entry.entry() on the card: {tuple(got.shape)} "
+          f"{got.device.type}, max abs diff from the CPU run {err:.3g}",
+          flush=True)
+    if got.device.type != "cuda" or err > 1e-6:
+        fail(f"graft_entry on the card differs from the CPU by {err:.3g}")
+
+
+def phase_sampling(card, ref):
+    print("== phase 10: row and column sampling at full width, and the "
+          "entry points (train_gbdt eval/early stopping/checkpoints, "
+          "train_logreg, train_mlp, graft_entry)", flush=True)
+    phase_start = time.perf_counter()
+    launches = _sampled_fit(card, ref)
+    _entry_points(card, ref)
+    print(f"phase 10: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -2498,8 +2810,9 @@ def main():
     serve_rate = phase_serve(card, ref)
     phase_train(card, ref)
     phase_tier(card, ref, serve_rate)
+    phase_sampling(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-9 passed in "
+    print(f"chip_smoke: phases 1-10 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

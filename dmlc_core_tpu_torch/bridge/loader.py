@@ -1,8 +1,15 @@
 """Double-buffered device feed: host batches -> the card, overlapped.
 
-Counterpart of ``dmlc_core_tpu/bridge/loader.py`` (``DeviceFeedLoader``
-and the transfer accounting it shares; ``MeshBatchLoader`` is not ported
-yet), in PyTorch's idiom.  On ``cuda`` each host batch is copied into one
+Counterpart of ``dmlc_core_tpu/bridge/loader.py`` (``DeviceFeedLoader``,
+``MeshBatchLoader`` and the transfer accounting they share), in PyTorch's
+idiom.
+
+:class:`MeshBatchLoader` stages a parser's dense or sparse batches on a
+prefetch thread and places each on the rank's device; with one process
+per rank, a rank yields its own ``global_batch_size / world`` rows (the
+JAX loader's per-process share of one global batch).
+
+:class:`DeviceFeedLoader`: on ``cuda`` each host batch is copied into one
 of a ring of ``prefetch + 1`` pinned host buffers (allocated once per batch
 layout and reused), then onto the card with a ``non_blocking`` copy on a
 side stream, with an event recorded after it.  The loader keeps
@@ -30,11 +37,13 @@ import numpy as np
 import torch
 
 from dmlc_core_tpu_torch import telemetry
+from dmlc_core_tpu_torch.bridge.batching import dense_batches, sparse_batches
+from dmlc_core_tpu_torch.io.threadediter import ThreadedIter
 from dmlc_core_tpu_torch.telemetry import clock
 from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
-__all__ = ["DeviceFeedLoader", "batch_nbytes"]
+__all__ = ["MeshBatchLoader", "DeviceFeedLoader", "batch_nbytes"]
 
 
 def _leaves(batch: Any) -> List[torch.Tensor]:
@@ -108,6 +117,107 @@ def _accounted_place(inner: Callable[[Any], Any],
         return placed
 
     return place
+
+
+class MeshBatchLoader:
+    """Iterate device-placed batches of a parser, one process per rank.
+
+    Args:
+      parser: host-side Parser (already sharded per process through
+        ``part_index``/``num_parts`` at creation).
+      mesh: the job's :class:`~..parallel.mesh.Mesh` (the reference's
+        signature; each rank places its own rows on its device).
+      form: "dense" or "sparse".
+      global_batch_size: rows per global step; this process stages
+        ``global_batch_size / world`` rows.
+      num_feature: required for the dense form.
+      nnz_bucket: fixed nonzero bucket for the sparse form (else the
+        power-of-two ladder of :func:`~.batching.bucket_size`).
+      prefetch: host batches staged ahead on the producer thread.
+      device: where batches land; ``cuda`` unless the caller passes
+        ``device="cpu"``.
+    """
+
+    def __init__(self, parser: Any, mesh: Any, form: str = "dense",
+                 global_batch_size: int = 1024,
+                 num_feature: Optional[int] = None,
+                 nnz_bucket: Optional[int] = None, prefetch: int = 2,
+                 drop_remainder: bool = True, device: Any = None):
+        import torch.distributed as dist
+
+        nproc = dist.get_world_size() if dist.is_initialized() else 1
+        CHECK(global_batch_size % nproc == 0,
+              "global_batch_size must divide evenly across processes")
+        self._device = resolve_device(device)
+        self._local_rows = global_batch_size // nproc
+        if form == "dense":
+            CHECK(num_feature is not None, "dense form requires num_feature")
+            factory = lambda: dense_batches(  # noqa: E731
+                parser, self._local_rows, num_feature, drop_remainder)
+        elif form == "sparse":
+            factory = lambda: sparse_batches(  # noqa: E731
+                parser, self._local_rows, nnz_bucket, drop_remainder)
+        else:
+            raise ValueError(f"unknown batch form {form!r}")
+        self._parser = parser
+        self._host_iter = ThreadedIter(_EpochProducer(parser, factory),
+                                       max_capacity=prefetch, name="loader")
+
+    def _place(self, host_batch: Any) -> Any:
+        dev = self._device
+        return _rebuild(host_batch, iter([t.to(dev) for t in
+                                          _leaves(host_batch)]))
+
+    def _host_batches(self) -> Iterator[Any]:
+        while True:
+            host_batch = self._host_iter.next()
+            if host_batch is None:
+                return
+            yield host_batch
+
+    def __iter__(self) -> Iterator[Any]:
+        place = _accounted_place(self._place, "mesh_shard")
+        for host_batch in self._host_batches():
+            yield place(host_batch)
+
+    def before_first(self) -> None:
+        self._host_iter.before_first()
+
+    def bytes_read(self) -> int:
+        return self._parser.bytes_read()
+
+    def close(self) -> None:
+        self._host_iter.destroy()
+        if hasattr(self._parser, "close"):
+            self._parser.close()
+
+
+class _EpochProducer:
+    """ThreadedIter producer over a restartable batch-iterator factory."""
+
+    def __init__(self, parser: Any, factory: Callable[[], Any]):
+        self._parser = parser
+        self._factory = factory
+        self._it = None
+
+    def before_first(self) -> None:
+        self._parser.before_first()
+        self._it = None
+
+    def next(self, reuse):
+        if self._it is None:
+            self._it = iter(self._factory())
+        try:
+            return next(self._it)
+        except StopIteration:
+            self._it = None
+            return None
+        except BaseException:
+            # a mid-epoch failure leaves the iterator spent: a later next()
+            # would read as a clean (truncated) epoch end, so drop it and
+            # let the next pull restart the factory
+            self._it = None
+            raise
 
 
 class _Slot:

@@ -15,6 +15,18 @@ preallocated ``[N, F]`` tensor on the device (padding rows dropped by
 binned as they are (what ``binned_batches`` does), so the file is parsed
 once.  ``--device`` defaults to ``cuda`` and there is no quiet CPU
 fallback: pass ``--device cpu`` to run the plain versions on the CPU.
+
+The reference's single-host flows are all here:
+
+- ``--eval-data URI [--early-stopping-rounds N]``: ``fit_with_eval`` on
+  the held-out file (binned with the training edges), printing the first
+  and last eval loss and the trees kept;
+- ``--checkpoint-dir DIR [--checkpoint-every K]``: a round-by-round fit
+  (``boost_round(round_index=r)``) that saves the margin and the trees so
+  far every K rounds through ``CheckpointManager``; rerunning with the
+  same directory resumes at the latest step.  The step payload is the
+  reference's, so either package resumes the other's;
+- ``--checkpoint URI``: the trained ensemble's arrays, saved at the end.
 """
 
 from __future__ import annotations
@@ -64,14 +76,114 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--handle-missing", action="store_true",
                     help="sparsity-aware splits: absent/NaN features take "
                          "a reserved bin with learned default directions")
-    ap.add_argument("--eval-data", default="")
-    ap.add_argument("--early-stopping-rounds", type=int, default=0)
-    ap.add_argument("--checkpoint", default="")
-    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--eval-data", default="",
+                    help="held-out URI: track per-round eval loss "
+                         "(logloss/mlogloss/MSE per objective)")
+    ap.add_argument("--early-stopping-rounds", type=int, default=0,
+                    help="stop when eval loss hasn't improved for N rounds "
+                         "(needs --eval-data); the ensemble truncates to "
+                         "the best round")
+    ap.add_argument("--checkpoint", default="",
+                    help="URI to save the trained ensemble's arrays to")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="resumable training: step-numbered checkpoints "
+                         "land here every --checkpoint-every rounds; "
+                         "rerunning with the same dir resumes from the "
+                         "latest one")
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def _fit_resumable(model, bins, label, args):
+    """Round-by-round fit with ``CheckpointManager``: rerunning with the
+    same ``--checkpoint-dir`` resumes at the latest step.  Returns
+    (ensemble, margin, seconds, rounds this run trained)."""
+    from dmlc_core_tpu_torch.bridge.checkpoint import (CheckpointManager,
+                                                       host_array)
+    from dmlc_core_tpu_torch.models.gbdt import _stack_trees
+    from dmlc_core_tpu_torch.utils.timer import get_time
+
+    mgr = CheckpointManager(args.checkpoint_dir, keep=3)
+    latest = mgr.latest_step()
+    dev = model.device
+    if latest is None:
+        start, trees = 0, []
+        margin = model._base_margin(bins.shape[0])
+    else:
+        state = {k[2:-2]: v for k, v in mgr.restore(latest).items()}
+        start = int(state["round"])
+        margin = torch.from_numpy(np.array(state["margin"],
+                                           np.float32)).to(dev)
+        trees = []
+        for i in range(start):
+            arity = len([k for k in state if k.startswith(f"t{i}_")])
+            trees.append(tuple(torch.from_numpy(np.array(state[f"t{i}_{j}"]))
+                               .to(dev) for j in range(arity)))
+        print(f"resuming from checkpoint step {latest} "
+              f"({start}/{args.rounds} rounds done)")
+    weight = torch.ones(bins.shape[0], dtype=torch.float32, device=dev)
+    t0 = get_time()
+    for r in range(start, args.rounds):
+        margin, tree = model.boost_round(margin, bins, label, weight,
+                                         round_index=r)
+        trees.append(tree)
+        if (r + 1) % args.checkpoint_every == 0 and (r + 1) < args.rounds:
+            payload = {"round": np.int64(r + 1),
+                       "margin": host_array(margin)}
+            for i, t in enumerate(trees):
+                for j, arr in enumerate(t):
+                    payload[f"t{i}_{j}"] = host_array(arr)
+            mgr.save(r + 1, payload)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    mgr.wait_until_finished()
+    secs = get_time() - t0
+    ensemble = _stack_trees(trees)
+    # only the rounds this run trained: a resumed run must not claim the
+    # skipped rounds' throughput
+    return ensemble, margin, secs, args.rounds - start
+
+
+def _load_rows(uri: str, part: int, nparts: int, num_feature: int,
+               fill: float, meter=None):
+    """Parse ``uri``'s share into dense batches, metering the bytes read;
+    returns the batches and their real row count."""
+    from dmlc_core_tpu_torch.bridge.batching import dense_batches
+    from dmlc_core_tpu_torch.data.factory import create_parser
+
+    parser = create_parser(uri, part, nparts, type="auto")
+    batches, seen = [], 0
+    try:
+        for batch in dense_batches(parser, BATCH_ROWS, num_feature,
+                                   fill_value=fill):
+            batches.append(batch)
+            read = parser.bytes_read()
+            if meter is not None:
+                meter.add(read - seen, nrows=batch.num_rows)
+            seen = read
+    finally:
+        parser.close()
+    return batches, sum(b.num_rows for b in batches)
+
+
+def _to_device(batches, n: int, binner, num_feature: int, device):
+    """Bin the batches on the host and feed them through
+    ``DeviceFeedLoader`` into one ``[n, F]`` wire tensor and its labels."""
+    from dmlc_core_tpu_torch.bridge.loader import DeviceFeedLoader
+
+    wire = torch.from_numpy(np.empty(0, binner.dtype)).dtype
+    bins = torch.empty((n, num_feature), dtype=wire, device=device)
+    label = torch.empty(n, dtype=torch.float32, device=device)
+    row = 0
+    for b in DeviceFeedLoader(lambda: map(binner.transform_batch, batches),
+                              device=device):
+        k = b.num_rows
+        bins[row:row + k] = b.bins[:k]
+        label[row:row + k] = b.label[:k]
+        row += k
+    return bins, label
 
 
 def main(argv: Optional[List[str]] = None):
@@ -79,21 +191,10 @@ def main(argv: Optional[List[str]] = None):
     ensemble and the final training margin."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.eval_data or args.early_stopping_rounds:
-        ap.error("--eval-data/--early-stopping-rounds are not yet wired "
-                 "into the port's train_gbdt CLI (ROADMAP §1 item 11, entry "
-                 "points); GBDT.fit_with_eval and the estimators have them")
-    if args.checkpoint or args.checkpoint_dir:
-        ap.error("--checkpoint/--checkpoint-dir are not yet wired into the "
-                 "port's train_gbdt CLI (ROADMAP §1 item 11, entry points); "
-                 "GBDT.save_model and python -m dmlc_core_tpu_torch.train "
-                 "have them")
 
     from dmlc_core_tpu_torch import collective
-    from dmlc_core_tpu_torch.bridge.batching import dense_batches
     from dmlc_core_tpu_torch.bridge.binning import HostBinner
-    from dmlc_core_tpu_torch.bridge.loader import DeviceFeedLoader
-    from dmlc_core_tpu_torch.data.factory import create_parser
+    from dmlc_core_tpu_torch.bridge.checkpoint import save_checkpoint
     from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
     from dmlc_core_tpu_torch.parallel.mesh import local_shard_info
     from dmlc_core_tpu_torch.utils.profiler import ThroughputMeter
@@ -126,21 +227,11 @@ def main(argv: Optional[List[str]] = None):
     # before any file is read
     model = GBDT(param, num_feature=args.num_feature, device=args.device)
 
-    parser = create_parser(args.data, part, nparts, type="auto")
     fill = np.nan if args.handle_missing else 0.0
     meter = ThroughputMeter("ingest")
-    batches, seen = [], 0
-    try:
-        for batch in dense_batches(parser, BATCH_ROWS, args.num_feature,
-                                   fill_value=fill):
-            batches.append(batch)
-            read = parser.bytes_read()
-            meter.add(read - seen, nrows=batch.num_rows)
-            seen = read
-    finally:
-        parser.close()
+    batches, n = _load_rows(args.data, part, nparts, args.num_feature, fill,
+                            meter)
     print(meter.summary())
-    n = sum(b.num_rows for b in batches)
     if n == 0:
         ap.error(f"no rows in {args.data!r}")
 
@@ -153,27 +244,49 @@ def main(argv: Optional[List[str]] = None):
     model.make_bins(np.concatenate(sample)[:SAMPLE_ROWS], count=n)
     binner = HostBinner(model.boundaries, args.num_bins,
                         handle_missing=args.handle_missing)
-    wire = torch.from_numpy(np.empty(0, binner.dtype)).dtype
-    bins = torch.empty((n, args.num_feature), dtype=wire, device=model.device)
-    label = torch.empty(n, dtype=torch.float32, device=model.device)
-    row = 0
-    for b in DeviceFeedLoader(lambda: map(binner.transform_batch, batches),
-                              device=model.device):
-        k = b.num_rows
-        bins[row:row + k] = b.bins[:k]
-        label[row:row + k] = b.label[:k]
-        row += k
+    bins, label = _to_device(batches, n, binner, args.num_feature,
+                             model.device)
     del batches
 
-    model.fit_binned(bins, label)      # warm-up: kernel build and caches
-    (ensemble, margin), secs = device_time(model.fit_binned, bins, label)
+    rounds_run = args.rounds
+    if args.checkpoint_dir:
+        if args.eval_data or args.early_stopping_rounds:
+            ap.error("--checkpoint-dir cannot be combined with --eval-data/"
+                     "--early-stopping-rounds (the resumable loop does not "
+                     "track eval curves yet)")
+        ensemble, margin, secs, rounds_run = _fit_resumable(
+            model, bins, label, args)
+    elif args.eval_data:
+        ev_batches, ev_n = _load_rows(args.eval_data, 0, 1, args.num_feature,
+                                      fill)
+        ev_bins, ev_label = _to_device(ev_batches, ev_n, binner,
+                                       args.num_feature, model.device)
+
+        def fit():
+            return model.fit_with_eval(
+                bins, label, ev_bins, ev_label,
+                early_stopping_rounds=args.early_stopping_rounds)
+
+        fit()                          # warm-up: kernel build and caches
+        (ensemble, history), secs = device_time(fit)
+        rounds_run = len(history)
+        print(f"eval: first {history[0]['eval_loss']:.5f} -> "
+              f"last {history[-1]['eval_loss']:.5f} "
+              f"({ensemble.num_trees} trees kept)")
+        margin = model.predict_margin(ensemble, bins)
+    else:
+        model.fit_binned(bins, label)  # warm-up: kernel build and caches
+        (ensemble, margin), secs = device_time(model.fit_binned, bins, label)
     if args.objective == "softmax":
         acc = (margin.argmax(1) == label).float().mean().item()
     else:
         acc = ((margin > 0).float() == label).float().mean().item()
-    rows_per_sec = n * args.rounds / secs
-    print(f"trained {args.rounds} rounds on {n} rows in {secs:.2f}s "
+    rows_per_sec = n * rounds_run / secs
+    print(f"trained {rounds_run} rounds on {n} rows in {secs:.2f}s "
           f"({rows_per_sec:,.0f} rows/sec/chip), train acc {acc:.4f}")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, ensemble._asdict())
+        print(f"checkpoint written to {args.checkpoint}")
     collective.finalize()
     return ensemble, margin
 

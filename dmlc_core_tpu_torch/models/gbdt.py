@@ -21,10 +21,16 @@ Beside fitting and scoring it carries the reference's estimator extras:
 ``fit_with_eval`` (eval-set losses, early stopping), ``staged_losses``,
 ``predict_leaf``, ``feature_importance`` and ``dump_trees``.
 
+Row and column sampling (``subsample``, ``colsample_bytree|bylevel|
+bynode``) draw the reference's ``jax.random`` bits through
+:mod:`..utils.threefry`, keyed by (seed, round, class, depth) as there, on
+the fit's device.  Under a mesh a rank draws its own slice of the one
+draw over the global rows, so a sampled distributed fit grows the trees
+of the single-process fit.
+
 Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``
-[2**d].  Row/column sampling draws from ``jax.random`` in the reference
-and is not ported yet: those parameters raise ``NotImplementedError``.
+[2**d].
 
 Persistence (``save_model``/``load_model``, ``serving_state``/
 ``from_serving_state``/``resume``) writes the reference's checkpoint
@@ -42,11 +48,14 @@ import torch
 from dmlc_core_tpu_torch.bridge.checkpoint import (host_array,
                                                    load_checkpoint,
                                                    save_checkpoint)
+from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
 from dmlc_core_tpu_torch.ops import hist_cuda
 from dmlc_core_tpu_torch.ops.histogram import (
     apply_bins, as_tensor, bin_onehot, data_allreduce,
     distributed_quantile_boundaries, grad_histogram, resolve_hist_method)
 from dmlc_core_tpu_torch.param import Parameter, field
+from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
+from dmlc_core_tpu_torch.utils import threefry
 from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
@@ -71,13 +80,18 @@ class GBDTParam(Parameter):
     min_split_loss = field(float, default=0.0, lower=0.0,
                            help="gamma: minimum gain to split a node")
     subsample = field(float, default=1.0, lower=1e-6, upper=1.0,
-                      help="per-tree row subsampling rate (not ported)")
+                      help="per-tree row subsampling rate")
     colsample_bytree = field(float, default=1.0, lower=1e-6, upper=1.0,
-                             help="per-tree feature sampling (not ported)")
+                             help="per-tree feature subsampling rate")
     colsample_bylevel = field(float, default=1.0, lower=1e-6, upper=1.0,
-                              help="per-level feature sampling (not ported)")
+                              help="per-level feature subsampling rate "
+                                   "(a fresh mask every tree depth, nested "
+                                   "in colsample_bytree's; a softmax "
+                                   "round's K trees share it)")
     colsample_bynode = field(float, default=1.0, lower=1e-6, upper=1.0,
-                             help="per-node feature sampling (not ported)")
+                             help="per-node feature subsampling rate (a "
+                                  "fresh mask per (depth, node), nested in "
+                                  "the tree and level masks)")
     max_delta_step = field(float, default=0.0, lower=0.0,
                            help="cap on |leaf weight| before shrinkage, "
                                 "also applied in gain scoring; 0 disables")
@@ -104,10 +118,6 @@ class GBDTParam(Parameter):
                              "weights in registers; 'onehot' a matmul, "
                              "'scatter' exact f32 segment sums (the CPU "
                              "default)")
-
-
-_SAMPLING = ("subsample", "colsample_bytree", "colsample_bylevel",
-             "colsample_bynode")
 
 
 class TreeEnsemble(NamedTuple):
@@ -202,11 +212,17 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                 min_child_weight: float, learning_rate: float,
                 model_axis: Optional[str] = None, method: str = "scatter",
                 onehot=None,
-                min_split_loss: float = 0.0, missing: bool = False,
-                reg_alpha: float = 0.0, monotone=None,
+                min_split_loss: float = 0.0, feat_mask=None,
+                missing: bool = False,
+                reg_alpha: float = 0.0, monotone=None, level_mask_fn=None,
                 max_delta_step: float = 0.0):
     """Grow one tree level by level; returns (split_feat, split_bin,
     leaf_value, default_left, split_gain, split_cover, margin_delta).
+
+    ``feat_mask`` ([F] bool) disables features for the whole tree
+    (colsample_bytree); ``level_mask_fn(depth, n_nodes, feat_mask)`` gives
+    the [n_nodes, F] mask of one level (colsample_bylevel/bynode), drawn
+    from the tree's survivors.
 
     ``missing=True`` scores every candidate twice from the same cumsums,
     with the missing bin (``num_bins - 1``) right and left, and stores the
@@ -286,6 +302,12 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
         # splitting on the last bin sends everything left: never valid
         valid = valid & (torch.arange(num_bins, device=dev)
                          < num_bins - 1)[None, None, :]
+        if level_mask_fn is not None:
+            # the level/node draw consumes the tree mask (nested sampling)
+            valid = valid & level_mask_fn(depth, n_nodes,
+                                          feat_mask)[:, :, None]
+        elif feat_mask is not None:
+            valid = valid & feat_mask[None, :, None]
         gain = torch.where(valid, gain, -float("inf"))
         flat = gain.reshape(n_nodes, F * num_bins)
         best = torch.argmax(flat, dim=-1)                # first maximum
@@ -366,12 +388,95 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
             split_cover, margin_delta)
 
 
-def _softmax_round(p, bins, margin, label, weight, grow):
-    """One multiclass round: K trees from one margin snapshot."""
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as JAX's weak typing rounds a Python rate
+    compared with a float32 draw."""
+    return float(np.float32(x))
+
+
+def _tree_sampling(p, rnd: int, B: int, F: int, class_index: int = 0,
+                   device=None, offset: int = 0):
+    """Per-tree (row_weight [B] f32, feature_mask [F] bool), each None at
+    a rate of 1.  The draw is keyed by (seed, rnd, class_index) as the
+    reference keys it: each of a softmax round's K trees draws its own
+    rows and columns.  ``offset`` is the global index of the first row
+    (a rank's place under a mesh); the draw of a row depends only on it."""
+    row_w = None
+    fmask = None
+    if p.subsample < 1.0 or p.colsample_bytree < 1.0:
+        key = threefry.fold_in(threefry.prng_key(p.seed), rnd)
+        if class_index:
+            key = threefry.fold_in(key, class_index)
+        if p.subsample < 1.0:
+            u = threefry.uniform(threefry.fold_in(key, 0), (B,), device,
+                                 offset=offset)
+            row_w = (u < _f32(p.subsample)).to(torch.float32)
+        if p.colsample_bytree < 1.0:
+            u = threefry.uniform(threefry.fold_in(key, 1), (F,), device)
+            fmask = u < _f32(p.colsample_bytree)
+            # never mask every feature: the cheapest column always stays
+            fmask[torch.argmin(u)] = True
+    return row_w, fmask
+
+
+def _level_mask_fn(p, rnd: int, F: int, device=None):
+    """colsample_bylevel / colsample_bynode: ``mask(depth, n_nodes,
+    tree_mask=None) -> [n_nodes, F]`` bool, or None when both rates are 1.
+    Keyed by (seed, rnd, depth) without the class, so a softmax round's K
+    trees share it.  Nested: bylevel samples from the tree mask's
+    survivors and bynode from bylevel's, and each node's cheapest column
+    always stays."""
+    if p.colsample_bylevel >= 1.0 and p.colsample_bynode >= 1.0:
+        return None
+    base = threefry.fold_in(threefry.prng_key(p.seed), rnd)
+    base = threefry.fold_in(base, 7)     # apart from the row/column draws
+
+    def mask(depth: int, n_nodes: int, tree_mask=None):
+        key = threefry.fold_in(base, depth)
+        allowed = (tree_mask if tree_mask is not None
+                   else torch.ones((F,), dtype=torch.bool, device=device))
+        if p.colsample_bylevel < 1.0:
+            u = torch.where(allowed, threefry.uniform(key, (F,), device),
+                            float("inf"))
+            allowed = (u < _f32(p.colsample_bylevel)) & allowed
+            allowed[torch.argmin(u)] = True
+        m = allowed[None, :].expand(n_nodes, F)
+        if p.colsample_bynode < 1.0:
+            un = torch.where(allowed[None, :],
+                             threefry.uniform(threefry.fold_in(key, 1),
+                                              (n_nodes, F), device),
+                             float("inf"))
+            m = (un < _f32(p.colsample_bynode)) & m
+            m[torch.arange(n_nodes, device=device),
+              torch.argmin(un, dim=1)] = True
+        return m
+
+    return mask
+
+
+def _row_sampling(p, rnd: int, n_rows: int, B: int, F: int,
+                  class_index: int = 0, device=None, offset: int = 0):
+    """:func:`_tree_sampling` drawn over ``n_rows`` rows and padded with
+    weight 0 to ``B``: the draw never depends on row padding."""
+    row_w, fmask = _tree_sampling(p, rnd, n_rows, F, class_index, device,
+                                  offset)
+    if row_w is not None and B != n_rows:
+        row_w = torch.nn.functional.pad(row_w, (0, B - n_rows))
+    return row_w, fmask
+
+
+def _softmax_round(p, bins, margin, label, weight, rnd: int, grow,
+                   offset: int = 0):
+    """One multiclass round: K trees from one margin snapshot, each tree
+    drawing its own rows and columns."""
     K = p.num_class
+    B, F = bins.shape
     g_all, h_all = _softmax_grad_hess(margin, label, K)
-    trees = [grow(bins, g_all[:, k] * weight, h_all[:, k] * weight)
-             for k in range(K)]
+    trees = []
+    for k in range(K):
+        row_w, fmask = _tree_sampling(p, rnd, B, F, k, bins.device, offset)
+        w = weight if row_w is None else weight * row_w
+        trees.append(grow(bins, g_all[:, k] * w, h_all[:, k] * w, fmask))
     delta = torch.stack([t[6] for t in trees], dim=1)    # [B, K]
     return margin + delta, tuple(
         torch.stack([t[i] for t in trees]) for i in range(6))
@@ -493,14 +598,18 @@ class GBDT:
                 method = "onehot"
         return method
 
-    def _check_sampling(self) -> None:
-        for name in _SAMPLING:
-            if getattr(self.param, name) < 1.0:
-                raise NotImplementedError(
-                    f"GBDTParam.{name}={getattr(self.param, name)}: row and "
-                    f"column sampling draw from jax.random's threefry in the "
-                    f"reference and are not ported yet (ROADMAP §1, known "
-                    f"gap: row and column sampling)")
+    def _row_offset(self, rows: int) -> int:
+        """Global index of this rank's first row: rows shard over the
+        ambient mesh's ``data`` axis in coordinate order, so the offset is
+        the row count of the lower data coordinates (gathered once, on
+        the fit's device).  0 without a mesh or without row sampling."""
+        mesh = ambient_mesh()
+        if (self.param.subsample >= 1.0 or mesh is None
+                or mesh.shape.get(hist_cuda.DATA_AXIS, 1) == 1):
+            return 0
+        counts = MeshCollective(mesh, hist_cuda.DATA_AXIS).allgather(
+            torch.tensor([rows], dtype=torch.int64, device=self.device))
+        return int(counts[:mesh.coord(hist_cuda.DATA_AXIS)].sum())
 
     def _bins(self, bins):
         return _widen_bins(as_tensor(bins, self.device)).contiguous()
@@ -510,21 +619,32 @@ class GBDT:
             return torch.ones(n, dtype=torch.float32, device=self.device)
         return as_tensor(v, self.device, torch.float32)
 
-    def _round(self, margin, bins, label, weight, method: str, onehot):
+    def _round(self, margin, bins, label, weight, method: str, onehot,
+               rnd: int, offset: int = 0):
+        """Round ``rnd``: its draws, then its tree (K trees for softmax).
+        ``offset`` is this rank's first global row (:meth:`_row_offset`)."""
         p = self.param
+        level_mask_fn = _level_mask_fn(p, rnd, bins.shape[1], self.device)
 
-        def grow(bins_, g, h):
+        def grow(bins_, g, h, fmask):
             return _build_tree(
                 bins_, g, h, p.max_depth, p.num_bins, p.reg_lambda,
                 p.min_child_weight, p.learning_rate, self.model_axis,
                 method=method, onehot=onehot, min_split_loss=p.min_split_loss,
-                missing=p.handle_missing, reg_alpha=p.reg_alpha,
-                monotone=self._monotone, max_delta_step=p.max_delta_step)
+                feat_mask=fmask, missing=p.handle_missing,
+                reg_alpha=p.reg_alpha, monotone=self._monotone,
+                level_mask_fn=level_mask_fn, max_delta_step=p.max_delta_step)
 
         if p.objective == "softmax":
-            return _softmax_round(p, bins, margin, label, weight, grow)
+            return _softmax_round(p, bins, margin, label, weight, rnd, grow,
+                                  offset)
+        row_w, fmask = _tree_sampling(p, rnd, bins.shape[0], bins.shape[1],
+                                      device=self.device, offset=offset)
+        if row_w is not None:
+            weight = weight * row_w
         g, h = _grad_hess(margin, label, p.objective)
-        sf, sb, lv, dl, sg, sc, delta = grow(bins, g * weight, h * weight)
+        sf, sb, lv, dl, sg, sc, delta = grow(bins, g * weight, h * weight,
+                                             fmask)
         return margin + delta, (sf, sb, lv, dl, sg, sc)
 
     def _k(self) -> int:
@@ -534,7 +654,6 @@ class GBDT:
     def _fit_inputs(self, bins, label, weight):
         """The tensors, method and bin one-hot every fit starts from."""
         p = self.param
-        self._check_sampling()
         if p.objective == "softmax":
             _check_softmax_labels(label, p.num_class)
         bins = self._bins(bins)
@@ -544,7 +663,8 @@ class GBDT:
         method = self._method(bins)
         # the bin one-hot is invariant across rounds and levels
         onehot = bin_onehot(bins, p.num_bins) if method == "onehot" else None
-        return bins, label, weight, method, onehot
+        return (bins, label, weight, method, onehot,
+                self._row_offset(bins.shape[0]))
 
     def _base_margin(self, rows: int):
         K = self._k()
@@ -556,22 +676,31 @@ class GBDT:
     def fit_binned(self, bins, label, weight=None
                    ) -> Tuple[TreeEnsemble, Any]:
         """Train on pre-binned features; returns (ensemble, final margin)."""
-        bins, label, weight, method, onehot = self._fit_inputs(bins, label,
-                                                               weight)
+        bins, label, weight, method, onehot, offset = self._fit_inputs(
+            bins, label, weight)
         margin = self._base_margin(bins.shape[0])
         trees = []
-        for _ in range(self.param.num_boost_round):
+        for r in range(self.param.num_boost_round):
             margin, tree = self._round(margin, bins, label, weight, method,
-                                       onehot)
+                                       onehot, r, offset)
             trees.append(tree)
         return _stack_trees(trees), margin
 
     def boost_round(self, margin, bins, label, weight,
                     round_index: Optional[int] = None):
         """One boosting round; returns (margin, tree arrays).
-        ``round_index`` seeds sampling in the reference, which is not
-        ported, so it is accepted and unused."""
-        self._check_sampling()
+
+        ``round_index`` keys the round's subsample/colsample draws.  It is
+        required when sampling is on: otherwise every streamed round would
+        draw the same rows and columns."""
+        if round_index is None:
+            p = self.param
+            CHECK(min(p.subsample, p.colsample_bytree, p.colsample_bylevel,
+                      p.colsample_bynode) >= 1.0,
+                  "boost_round needs round_index= when subsample/"
+                  "colsample_by* are enabled (each tree must draw fresh "
+                  "subsets)")
+            round_index = 0
         bins = self._bins(bins)
         label = as_tensor(label, self.device, torch.float32)
         weight = _apply_pos_weight(self._rows(weight, bins.shape[0]), label,
@@ -580,7 +709,8 @@ class GBDT:
         method = self._method(bins)
         onehot = (bin_onehot(bins, self.param.num_bins)
                   if method == "onehot" else None)
-        return self._round(margin, bins, label, weight, method, onehot)
+        return self._round(margin, bins, label, weight, method, onehot,
+                           round_index, self._row_offset(bins.shape[0]))
 
     def append_rounds(self, ensemble: Optional[TreeEnsemble], bins, label,
                       weight=None, *, num_rounds: int = 1, margin=None,
@@ -588,15 +718,21 @@ class GBDT:
                       ) -> Tuple[TreeEnsemble, Any]:
         """Append ``num_rounds`` rounds trained on fresh binned data (the
         warm start); returns (extended ensemble, final margin).  The margin
-        is seeded from the ensemble's own predictions unless given."""
+        is seeded from the ensemble's own predictions unless given.
+        ``start_round`` keys the sampling draws of the first new round and
+        defaults to ``ensemble.num_trees`` (0 for ``ensemble=None``), so
+        appended trees continue a fresh fit's draw sequence."""
         CHECK(num_rounds >= 1, "append_rounds needs num_rounds >= 1")
         bins = self._bins(bins)
         if margin is None:
             margin = (self._base_margin(bins.shape[0]) if ensemble is None
                       else self.predict_margin(ensemble, bins))
+        if start_round is None:
+            start_round = 0 if ensemble is None else ensemble.num_trees
         new = []
         for r in range(num_rounds):
-            margin, tree = self.boost_round(margin, bins, label, weight)
+            margin, tree = self.boost_round(margin, bins, label, weight,
+                                            round_index=start_round + r)
             new.append(tree)
 
         def cat(old, i):
@@ -694,8 +830,8 @@ class GBDT:
         K = self._k()
         if K > 1 and eval_label is not None:
             _check_softmax_labels(eval_label, K, what="eval labels")
-        bins, label, weight, method, onehot = self._fit_inputs(bins, label,
-                                                               weight)
+        bins, label, weight, method, onehot, offset = self._fit_inputs(
+            bins, label, weight)
         metric_fn = _eval_metric_fn(eval_metric, p.objective)
         margin = self._base_margin(bins.shape[0])
         eval_margin = None
@@ -709,7 +845,7 @@ class GBDT:
         tree_margin = self._tree_margin_fn()
         for r in range(p.num_boost_round):
             margin, tree = self._round(margin, bins, label, weight, method,
-                                       onehot)
+                                       onehot, r, offset)
             trees.append(tree)
             entry = {"round": r,
                      "train_loss": float(_logloss(margin, label,

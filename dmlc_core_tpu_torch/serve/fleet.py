@@ -5,8 +5,9 @@ Counterpart of ``dmlc_core_tpu/serve/fleet.py``.
 it launches N ``python -m dmlc_core_tpu_torch.serve`` replicas, each on
 ``device`` (``cuda`` unless the caller passes ``device="cpu"``; on one
 card every replica holds its own CUDA context), on **fixed ports**
-(allocated once, reused across restarts — the router's replica URLs stay
-stable while processes come and go), waits for ``/healthz`` readiness,
+(allocated once, below the kernel's ephemeral range, reused across
+restarts — the router's replica URLs stay stable while processes come and
+go), waits for ``/healthz`` readiness,
 and optionally supervises them: a replica that exits (the SIGKILL chaos
 drill) is relaunched on its own port and re-enters rotation through the
 router's half-open recovery.
@@ -27,6 +28,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -44,8 +46,52 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+# the lowest port a fleet takes when it picks its own
+_FIXED_PORT_FLOOR = 10000
+_handed_out: set = set()        # ports this process has handed to fleets
+_handed_out_lock = threading.Lock()
+
+
+def _ephemeral_floor() -> Optional[int]:
+    """The first port of the kernel's ephemeral range, where it knows."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def _bindable(host: str, port: int) -> bool:
+    sock = socket.socket()
+    try:
+        sock.bind((host, port))
+        return True
+    except OSError:
+        return False
+    finally:
+        sock.close()
+
+
 def _free_port(host: str) -> int:
-    """One ephemeral port the kernel considers free right now."""
+    """A port free right now, below the kernel's ephemeral range.
+
+    A replica's port stays fixed across restarts, so it lies unbound
+    between a replica's exit and its relaunch.  Inside the ephemeral
+    range, an outgoing connection made in that gap (the router's probes
+    and forwards to the dead port, on a busy host) can take it as its
+    local port, or connect to itself there, and the relaunched replica
+    then fails to bind.  Below the range no outgoing connection is given
+    it.  Where the range is unknown, the kernel picks."""
+    floor = _ephemeral_floor()
+    if floor is not None and floor > _FIXED_PORT_FLOOR + 1000:
+        rng = random.SystemRandom()
+        for _ in range(200):
+            port = rng.randrange(_FIXED_PORT_FLOOR, floor)
+            with _handed_out_lock:
+                if port in _handed_out or not _bindable(host, port):
+                    continue
+                _handed_out.add(port)
+            return port
     sock = socket.socket()
     try:
         sock.bind((host, 0))

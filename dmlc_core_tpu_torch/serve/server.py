@@ -380,8 +380,12 @@ class _Server(ThreadingHTTPServer):
     # client is a fresh connection) overflows it and the kernel RSTs the
     # excess — which a client can only read as a crash.  Deep backlog +
     # admission control is the correct order: shed with a structured 503,
-    # never with a refused connection.
-    request_queue_size = 128
+    # never with a refused connection.  1024, as the event loop's: the
+    # router runs on this class, and when its GIL-bound accept loop falls
+    # behind an open-loop storm (hundreds of fresh connections in flight),
+    # a full queue drops SYNs and a client's connect retries outlast its
+    # deadline, a timeout no shed can answer (capped by somaxconn)
+    request_queue_size = 1024
 
     def handle_error(self, request, client_address) -> None:
         # default prints a traceback to stderr per dropped connection —

@@ -251,11 +251,26 @@ def test_cli_needs_a_card_unless_cpu_is_asked(tmp_path):
                                   ["--checkpoint", "x"],
                                   ["--checkpoint-dir", "x"]])
 def test_cli_refuses_unported_flows(tmp_path, capsys, flag):
-    data = _libsvm(tmp_path, n=50)
-    with pytest.raises(SystemExit):
-        train_gbdt.main(["--data", data, "--num-feature", "4",
-                         "--device", "cpu"] + flag)
-    assert "ROADMAP" in capsys.readouterr().err
+    """Named when these flags were refused; now each flow runs: ``x``
+    stands for the data file (``--eval-data``) or a path under
+    ``tmp_path``."""
+    data = _libsvm(tmp_path, n=200)
+    value = flag[1]
+    if value == "x":
+        value = data if flag[0] == "--eval-data" else str(tmp_path / "x")
+    ens, margin = train_gbdt.main(["--data", data, "--num-feature", "4",
+                                   "--rounds", "3", "--max-depth", "2",
+                                   "--checkpoint-every", "1",
+                                   "--device", "cpu", flag[0], value])
+    out = capsys.readouterr().out
+    assert "trained " in out and torch.isfinite(margin).all()
+    assert "ROADMAP" not in out
+    if flag[0] == "--eval-data":
+        assert "eval: first" in out
+    elif flag[0] == "--checkpoint":
+        assert os.path.isfile(value)
+    elif flag[0] == "--checkpoint-dir":
+        assert {"ckpt-00000001", "ckpt-00000002"} <= set(os.listdir(value))
 
 
 def test_cli_refuses_a_multi_worker_launch(tmp_path, monkeypatch, capsys):

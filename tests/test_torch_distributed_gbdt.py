@@ -10,7 +10,11 @@ takes its rows of one seeded dataset and fits under a mesh:
 - ``empty_shard``: the same mesh and boundaries with every row on data
   shard 0, so the ranks of data shard 1 join every collective with none;
 - ``data``: pure data parallelism, a 4-rank ``data`` mesh and
-  ``"scatter"``.
+  ``"scatter"``;
+- ``model_sampled`` and ``data_sampled``: the ``model`` and ``data`` fits
+  with row and column sampling on (``SAMPLED``); the data shards are
+  uneven (``DATA_SPLIT``), so each rank's row draw must be its slice of
+  one draw over the global rows.
 
 On each, ``append_rounds`` (``boost_round`` round by round) must grow the
 ensemble ``fit_binned`` grew, bitwise.
@@ -32,6 +36,9 @@ from dmlc_core_tpu.ops import hist_pallas
 
 B, F = 1024, 8
 PARAM = dict(num_boost_round=3, max_depth=3, num_bins=16)
+SAMPLED = dict(subsample=0.7, colsample_bytree=0.8, colsample_bylevel=0.8,
+               colsample_bynode=0.8, seed=5)
+DATA_SPLIT = (0, 100, 400, 700, 1024)
 FIELDS = ("split_feat", "split_bin", "leaf_value", "default_left",
           "split_gain", "split_cover")
 
@@ -55,6 +62,8 @@ from dmlc_core_tpu_torch.parallel.mesh import make_mesh, row_range
 
 B, F = %(B)d, %(F)d
 PARAM = %(PARAM)r
+SAMPLED = %(SAMPLED)r
+DATA_SPLIT = %(DATA_SPLIT)r
 FIELDS = %(FIELDS)r
 rng = np.random.RandomState(0)
 x = rng.randn(B, F).astype(np.float32)
@@ -79,8 +88,8 @@ hist_cuda.grad_hist_sharded_ref = counting
 out = {}
 
 
-def fit(tag, mesh, lo, hi, model_axis, method, boundaries=None):
-    model = GBDT(GBDTParam(hist_method=method, **PARAM), F,
+def fit(tag, mesh, lo, hi, model_axis, method, boundaries=None, extra={}):
+    model = GBDT(GBDTParam(hist_method=method, **dict(PARAM, **extra)), F,
                  model_axis=model_axis, device="cpu")
     if boundaries is None:
         model.make_bins(x[lo:hi], comm=collective)
@@ -111,13 +120,18 @@ lo, hi = row_range(grid, B)
 bounds = fit("model", grid, lo, hi, "model", "pallas")
 d = grid.coord("data")
 fit("empty_shard", grid, 0, B if d == 0 else 0, "model", "pallas", bounds)
+fit("model_sampled", grid, lo, hi, "model", "pallas", bounds, SAMPLED)
 line = make_mesh()
 lo, hi = row_range(line, B)
 fit("data", line, lo, hi, None, "scatter")
+i = line.coord("data")
+fit("data_sampled", line, DATA_SPLIT[i], DATA_SPLIT[i + 1], None, "scatter",
+    bounds, SAMPLED)
 assert set(hist_cuda.LAUNCHES.values()) == {0}, hist_cuda.LAUNCHES
 np.savez(os.path.join(os.environ["RESULT_DIR"], "rank%%d.npz" %% rank), **out)
 collective.finalize()
-""" % dict(B=B, F=F, PARAM=PARAM, FIELDS=FIELDS)
+""" % dict(B=B, F=F, PARAM=PARAM, FIELDS=FIELDS, SAMPLED=SAMPLED,
+           DATA_SPLIT=DATA_SPLIT)
 
 
 @pytest.fixture(scope="module")
@@ -133,9 +147,10 @@ def ranks(tmp_path_factory):
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(4)]
 
 
-def _jax_fit(method, boundaries, model_axis=None):
+def _jax_fit(method, boundaries, model_axis=None, extra=None):
     x, y = _data()
-    model = JaxGBDT(JaxParam(hist_method=method, **PARAM), F,
+    model = JaxGBDT(JaxParam(hist_method=method,
+                             **dict(PARAM, **(extra or {}))), F,
                     model_axis=model_axis)
     model.set_boundaries(boundaries)
     bins = np.asarray(model.bin_features(x))
@@ -168,16 +183,18 @@ def _jax_fit(method, boundaries, model_axis=None):
 
 
 CASES = {
-    # tag: (JAX method, JAX model_axis, K4 calls per rank)
-    "model": ("pallas", "model", 9),
-    "empty_shard": ("pallas", "model", 9),
-    "data": ("scatter", None, 0),
+    # tag: (JAX method, JAX model_axis, K4 calls per rank, extra params)
+    "model": ("pallas", "model", 9, None),
+    "empty_shard": ("pallas", "model", 9, None),
+    "data": ("scatter", None, 0, None),
+    "model_sampled": ("pallas", "model", 9, SAMPLED),
+    "data_sampled": ("scatter", None, 0, SAMPLED),
 }
 
 
 @pytest.mark.parametrize("tag", sorted(CASES))
 def test_distributed_fit_matches_jax(ranks, tag):
-    method, model_axis, k4_calls = CASES[tag]
+    method, model_axis, k4_calls, extra = CASES[tag]
     r0 = ranks[0]
     for r in ranks:
         # one ensemble and one set of boundaries on every rank, bitwise
@@ -188,7 +205,8 @@ def test_distributed_fit_matches_jax(ranks, tag):
                                           r0[tag + "_" + name], err_msg=name)
         # every level of every tree went through K4's plain version
         assert int(r[tag + "_k4_calls"]) == k4_calls
-    want, want_margin = _jax_fit(method, r0[tag + "_boundaries"], model_axis)
+    want, want_margin = _jax_fit(method, r0[tag + "_boundaries"], model_axis,
+                                 extra)
     np.testing.assert_array_equal(r0[tag + "_split_feat"],
                                   want["split_feat"])
     split = want["split_feat"] >= 0

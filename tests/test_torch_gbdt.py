@@ -94,7 +94,24 @@ CONFIGS = {
     "monotone": dict(monotone_constraints="(1,0,-1,0)"),
     "reg_alpha": dict(reg_alpha=0.5, min_split_loss=0.01),
     "max_delta_step": dict(max_delta_step=0.2, scale_pos_weight=2.0),
+    # row and column sampling, on 500 rows: the JAX fit pads its rows to
+    # the kernel tile, and a draw over the padded count would show
+    "subsample": dict(subsample=0.7, seed=3),
+    "colsample_bytree": dict(colsample_bytree=0.5, seed=4),
+    "colsample_bylevel": dict(colsample_bylevel=0.5, seed=5),
+    "colsample_bynode": dict(colsample_bynode=0.5, seed=6),
+    "sampled_all": dict(subsample=0.8, colsample_bytree=0.8,
+                        colsample_bylevel=0.8, colsample_bynode=0.8),
+    "softmax_sampled": dict(objective="softmax", num_class=3, subsample=0.7,
+                            colsample_bytree=0.8, colsample_bynode=0.6,
+                            seed=2 ** 33 + 5),
 }
+SAMPLED_ROWS = 500
+
+
+def _sampled(kw):
+    return any(k in kw for k in ("subsample", "colsample_bytree",
+                                 "colsample_bylevel", "colsample_bynode"))
 
 
 @pytest.mark.parametrize("method", ["scatter", "pallas"])
@@ -103,7 +120,8 @@ def test_fit_binned_matches_jax(interpret_mode, config, method):
     kw = dict(num_boost_round=2, max_depth=3, num_bins=16,
               hist_method=method, **CONFIGS[config])
     objective = kw.get("objective", "logistic")
-    x, y = _data(objective=objective, nan=kw.get("handle_missing", False))
+    x, y = _data(n=SAMPLED_ROWS if _sampled(kw) else 600,
+                 objective=objective, nan=kw.get("handle_missing", False))
     jm, pm = _pair(**kw)
     jm.make_bins(x)
     pm.set_boundaries(jm.boundaries)
@@ -172,14 +190,28 @@ def test_uint8_wire_gives_same_trees(method):
 @pytest.mark.parametrize("name", ["subsample", "colsample_bytree",
                                   "colsample_bylevel", "colsample_bynode"])
 def test_sampling_not_ported(name):
+    """Named when these rates raised in the port; now each rate's
+    ``fit_binned`` and ``boost_round`` grow the JAX package's trees."""
     x, y = _data(n=64)
-    pm = GBDT(GBDTParam(**{name: 0.5}), N_FEATURE, device="cpu")
-    pm.make_bins(x)
-    bins = pm.bin_features(x)
-    with pytest.raises(NotImplementedError, match=name):
-        pm.fit_binned(bins, y)
-    with pytest.raises(NotImplementedError, match=name):
-        pm.boost_round(torch.zeros(len(y)), bins, y, torch.ones(len(y)))
+    kw = dict(num_boost_round=3, max_depth=3, num_bins=16, seed=1,
+              hist_method="scatter", **{name: 0.5})
+    jm, pm = _pair(**kw)
+    jm.make_bins(x)
+    pm.set_boundaries(jm.boundaries)
+    bins = np.asarray(jm.bin_features(x))
+    _assert_same_trees(pm.fit_binned(bins, y)[0], jm.fit_binned(bins, y)[0],
+                       1e-5)
+    margin = np.full(len(y), 0.25, np.float32)
+    weight = np.ones(len(y), np.float32)
+    p_margin, p_tree = pm.boost_round(torch.from_numpy(margin), bins, y,
+                                      weight, round_index=7)
+    j_margin, j_tree = jm.boost_round(margin, bins, y, weight,
+                                      round_index=7)
+    _assert_same_trees(JaxEnsemble(*(t[None] for t in p_tree)),
+                       JaxEnsemble(*(np.asarray(t)[None] for t in j_tree)),
+                       1e-5)
+    np.testing.assert_allclose(p_margin.numpy(), np.asarray(j_margin),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_append_rounds_matches_jax():

@@ -535,6 +535,68 @@ def test_fleet_rolling_restart_under_load_zero_crashed(tmp_path):
     assert report["accounting"]["ok"]
 
 
+@pytest.mark.parametrize("floor", [None, 32768])
+def test_fleet_ports_lie_below_the_ephemeral_range(monkeypatch, floor):
+    # a replica's fixed port lies unbound between its exit and its
+    # relaunch: inside the ephemeral range an outgoing connection can take
+    # it in that gap, so a fleet picks ports below the range where the
+    # kernel says where the range starts (and lets the kernel pick where
+    # it does not)
+    from dmlc_core_tpu_torch.serve import fleet as fleet_mod
+
+    if floor is not None:
+        monkeypatch.setattr(fleet_mod, "_ephemeral_floor", lambda: floor)
+    else:
+        monkeypatch.setattr(fleet_mod, "_ephemeral_floor", lambda: None)
+    fleets = [fleet_mod.ReplicaFleet(3, num_feature=4, device="cpu")
+              for _ in range(4)]
+    ports = [p for f in fleets for p in f.ports]
+    assert len(set(ports)) == len(ports)
+    for p in ports:
+        if floor is not None:
+            assert fleet_mod._FIXED_PORT_FLOOR <= p < floor
+        else:
+            assert 0 < p < 65536
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", p))   # still free: nothing holds it
+
+
+def test_threaded_listener_holds_a_connection_storm():
+    # the router (and a threaded replica) listen on _Server: 300 fresh
+    # connections arriving while nothing accepts must all complete their
+    # handshake in the kernel's queue.  A shallow queue drops the excess
+    # SYNs, and a client's connect retries then outlast its deadline
+    import select
+
+    from dmlc_core_tpu_torch.serve.server import _Handler, _Server
+
+    router = RouterServer(["http://127.0.0.1:9"])
+    try:
+        assert isinstance(router._httpd, _Server)
+    finally:
+        router._httpd.server_close()
+    srv = _Server(("127.0.0.1", 0), _Handler)
+    socks = []
+    try:
+        for _ in range(300):
+            s = socket.socket()
+            s.setblocking(False)
+            s.connect_ex(srv.server_address)
+            socks.append(s)
+        pending = set(socks)
+        deadline = time.monotonic() + 5.0
+        while pending and time.monotonic() < deadline:
+            _, ready, _ = select.select([], list(pending), [], 0.5)
+            for s in ready:
+                assert s.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR) == 0
+                pending.discard(s)
+        assert not pending, f"{len(pending)} of 300 connects never completed"
+    finally:
+        for s in socks:
+            s.close()
+        srv.server_close()
+
+
 # -- across the packages, and the CLI ----------------------------------------
 
 def test_port_router_fronts_a_jax_replica_and_a_port_replica():

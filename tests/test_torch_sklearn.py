@@ -173,11 +173,17 @@ def test_default_device_needs_a_card():
 @pytest.mark.parametrize("name", ["subsample", "colsample_bytree",
                                   "colsample_bylevel", "colsample_bynode"])
 def test_sampling_raises_naming_the_roadmap_item(name):
+    """Named when these rates raised in the port; now the estimator passes
+    each rate through and predicts what the JAX estimator predicts."""
     x, y = _binary(n=200, seed=21)
-    clf = GBDTClassifier(num_boost_round=2, max_depth=2, num_bins=8,
-                         device="cpu", **{name: 0.5})
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
-        clf.fit(x, y)
+    kw = dict(num_boost_round=2, max_depth=2, num_bins=8, seed=5,
+              **{name: 0.5})
+    clf = GBDTClassifier(device="cpu", **kw).fit(x, y)
+    ref = JaxClassifier(**kw).fit(x, y)
+    assert clf.model_.param.to_dict()[name] == "0.5"
+    np.testing.assert_allclose(clf.predict_proba(x), ref.predict_proba(x),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(clf.predict(x), ref.predict(x))
 
 
 def test_save_model_interops_with_low_level(tmp_path):
