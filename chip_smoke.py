@@ -179,7 +179,33 @@ Phases (any failure exits non-zero and prints no result line):
    ``train_logreg`` (sparse, ``--checkpoint``) and ``train_mlp``
    (``--checkpoint-dir``) as subprocesses, each exiting 0, then their
    reruns, which must resume from the latest step; and
-   ``graft_entry.entry()`` on the card within 1e-6 of its CPU run.
+   ``graft_entry.entry()`` on the card within 1e-6 of its CPU run;
+11. multi-worker training: the first 500,000 of phase 4's training rows as
+   libsvm (``%.9g``), then ``python -m dmlc_core_tpu_torch.tracker.submit
+   --cluster local --num-workers 2`` over this script as ``--worker cli
+   DIR`` (the two ranks share the card over gloo; outputs in
+   ``build/chip_smoke_multiworker/``): each rank runs the CLIs'
+   ``main(argv)`` in turn, each on a store port of its own, and saves its
+   model, launch counts, printed lines and the seconds of every histogram
+   all-reduce.  (11a) ``train_gbdt`` at full width (28 features, 256
+   bins, depth 6, 10 rounds, ``"auto"``, 250,000 rows a rank): ensembles
+   bitwise equal on both ranks, the same ``over 2 workers`` line on both,
+   120 K3 launches (warm-up plus fit) and 0 K1 a rank, train accuracy >=
+   0.8 and within 0.005 of an in-process world-1 fit of the same rows
+   from memory; the warm-up fit's first tree, level by level (1-32
+   nodes), its all-reduced (G, H) within rtol 1e-4, atol 1e-3 of
+   ``grad_hist_ref`` of both ranks' rows; a world-1 fit of both ranks'
+   padded rows and merged bins with every tree's splits equal and leaf
+   values within 1e-4; the world-2 fit's seconds and rows/s beside the
+   world-1 fit's, and the all-reduce's seconds and share.  (11b)
+   ``train_logreg --form sparse`` and ``train_mlp``, 2 epochs: params
+   bitwise equal on both ranks, rank 0's loss falling, and rank 0's first
+   two steps against world-1 steps over both ranks' batches (logreg: new
+   params and loss within 1e-5 relative; MLP: the all-reduced gradients
+   within 2e-2 of the largest, the bf16 bound, and the loss within
+   1e-5).  Last, ``python -m
+   dmlc_core_tpu_torch.examples.train_gbdt`` itself in 2 workers on the
+   first 100,000 rows: exit 0 and the same line from both ranks.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -188,7 +214,8 @@ counts set to 0 just before it: K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
 those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
-phase 10 those of the sampled fits).
+phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
+count of phase 11, the multi-worker path's run.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -266,6 +293,19 @@ SAMPLE_SEED = 7
 N_SOFTMAX = 200_000           # 10a's 3-class relabel
 N_ENTRY = 200_000             # 10b's libsvm rows (phase 6's first 200,000)
 N_ENTRY_EVAL = 50_000         # 10b's held-out libsvm rows
+N_MULTI = 500_000             # phase 11's libsvm rows, 250,000 a rank
+N_MULTI_CLI = 100_000         # its plain `python -m` launch
+MW_TIMEOUT_S = 240            # wall clock of each phase-11 launch
+MW_COLLECTIVE_TIMEOUT_S = 60  # a dead peer fails phase 11 after this
+MW_LEAF_TOL = 1e-4            # 11a: leaf values against the world-1 fit of
+                              # the ranks' rows and bins (f32 sums in
+                              # another order)
+MW_STEP_TOL = 1e-5            # 11b: logreg params and both models' losses
+                              # against world-1 steps, relative (atol 1e-6)
+MW_GRAD_TOL = 2e-2            # 11b: bf16 MLP gradients, relative and of
+                              # each one's largest magnitude (the bf16
+                              # bound of tests/test_torch_linear_mlp.py;
+                              # a dropped rank moves them 0.26-0.37)
 MLP_TOL = 1e-5                # 9c: the card's bf16 MLP against the CPU's
                               # bf16 MLP (the same code); 9c's f32 control
                               # must read above it
@@ -2786,6 +2826,466 @@ def phase_sampling(card, ref):
           flush=True)
     return launches
 
+# -- phase 11: multi-worker training through the port's launcher ------------
+def _tee_lines():
+    """Copy everything written to stdout and stderr into a list of lines
+    as well (the CLIs print their figures; ``tracker_print`` writes to
+    stderr)."""
+    import io
+
+    lines = []
+
+    class Tee(io.TextIOBase):
+        def __init__(self, inner):
+            self.inner = inner
+
+        def write(self, text):
+            self.inner.write(text)
+            lines.extend(t for t in text.splitlines() if t.strip())
+            return len(text)
+
+        def flush(self):
+            self.inner.flush()
+
+    sys.stdout, sys.stderr = Tee(sys.stdout), Tee(sys.stderr)
+    return lines
+
+
+def _to_cpu(tree):
+    """``tree`` (tensors in dicts, lists and tuples) with every tensor
+    detached and on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_to_cpu(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def cli_worker_main(outdir):
+    """One rank of phase 11 (``--worker cli OUTDIR``): the CLIs named in
+    ``OUTDIR/cli.json``, each through its ``main(argv)`` on a store port of
+    its own; saves each run's model, launch counts, printed lines and the
+    seconds of every data all-reduce of the histograms, and what the
+    parent replays at world 1: the GBDT's merged boundaries, padded rows
+    and the warm-up fit's first tree level by level (inputs and the
+    all-reduced (G, H)); the first two logreg steps (params, batch and
+    result); the first two MLP steps' params, batch and all-reduced
+    (loss, gradients)."""
+    from dmlc_core_tpu_torch.examples import (train_gbdt, train_logreg,
+                                              train_mlp)
+    from dmlc_core_tpu_torch.models import gbdt as gbdt_mod
+    from dmlc_core_tpu_torch.models import linear as linear_mod
+    from dmlc_core_tpu_torch.models import mlp as mlp_mod
+    from dmlc_core_tpu_torch.ops import hist_cuda, histogram
+
+    with open(os.path.join(outdir, "cli.json")) as f:
+        runs = json.load(f)
+    rank = int(os.environ["DMLC_TASK_ID"])
+    # this rank's output in files of its own, printed on a failure
+    for fd, ext in ((1, "out"), (2, "err")):
+        with open(os.path.join(outdir, f"cli{rank}.{ext}"), "w") as f:
+            os.dup2(f.fileno(), fd)
+    # the probe's launches check the kernels; they are not the path's
+    hist_cuda.kernels_available()
+    allreduce_s, fit_s = [], []
+    plain = histogram.data_allreduce
+    fit_distributed = train_gbdt._fit_distributed
+    captured = {}              # what the parent replays at world 1
+
+    def timed_fit(model, bins, label, collective):
+        captured.update(param=model.param, boundaries=model.boundaries,
+                        label=label.cpu(), n_local=bins.shape[0])
+        out = fit_distributed(model, bins, label, collective)
+        fit_s.append(out[3])           # the slower rank's fit seconds
+        return out
+
+    def timed(*tensors):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = plain(*tensors)
+        torch.cuda.synchronize()
+        allreduce_s.append(time.perf_counter() - start)
+        return out
+
+    # the fit reaches the all-reduce through both modules' names
+    histogram.data_allreduce = gbdt_mod.data_allreduce = timed
+    train_gbdt._fit_distributed = timed_fit
+    grad_histogram = gbdt_mod.grad_histogram
+
+    def recorded_hist(bins, node, g, h, n_nodes, num_bins, **kw):
+        out = grad_histogram(bins, node, g, h, n_nodes, num_bins, **kw)
+        levels = captured.setdefault("levels", [])
+        if len(levels) < MAX_DEPTH:        # the warm-up fit's first tree
+            if not levels:
+                captured["bins"] = bins.cpu()         # padded to n_max
+            levels.append(_to_cpu(dict(node=node, g=g, h=h, n=n_nodes,
+                                       G=out[0], H=out[1])))
+        return out
+
+    def recorded_step(step):
+        def wrapped(model, *args):
+            out = step(model, *args)
+            steps = captured.setdefault("steps", [])
+            if len(steps) < 2:
+                steps.append(_to_cpu(dict(param=model.param, args=args,
+                                          out=out)))
+            return out
+        return wrapped
+
+    gbdt_mod.grad_histogram = recorded_hist
+    linear_mod.LinearModel.train_step = recorded_step(
+        linear_mod.LinearModel.train_step)
+    mlp_mod.MLP._data_parallel_grads = recorded_step(
+        mlp_mod.MLP._data_parallel_grads)
+    mains = {"train_gbdt": train_gbdt.main, "train_logreg": train_logreg.main,
+             "train_mlp": train_mlp.main}
+    result = {}
+    for run in runs:
+        lines = _tee_lines()
+        os.environ["DMLC_COORDINATOR_PORT"] = str(run["port"])
+        del allreduce_s[:]
+        captured.clear()
+        hist_cuda.reset_launches()
+        start = time.perf_counter()
+        out = mains[run["module"]](run["argv"])
+        wall = time.perf_counter() - start
+        sys.stdout, sys.stderr = sys.stdout.inner, sys.stderr.inner
+        if run["module"] == "train_gbdt":
+            model = _ensemble_arrays(out[0])
+        elif run["module"] == "train_logreg":
+            model = {k: v.cpu() for k, v in out[0].items()}
+        else:
+            model = {f"{i}_{k}": layer[k].cpu()
+                     for i, layer in enumerate(out[0]["layers"]) for k in "wb"}
+        result[run["tag"]] = dict(model=model, launches=dict(
+            hist_cuda.LAUNCHES), lines=list(lines), wall=wall,
+            allreduce_s=list(allreduce_s), fit_s=list(fit_s),
+            captured=dict(captured))
+    torch.save(result, os.path.join(outdir, f"cli{rank}.pt"))
+
+
+def _submit(args, cmd, outdir, name, timeout_s):
+    """``cmd`` in 2 workers through the port's launcher (gloo on the one
+    card, a store port of its own); fail with the launch's stderr tail and
+    each rank's own log on any failure.  Returns (stdout, seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=here,
+               DMLC_COLLECTIVE_TIMEOUT=str(MW_COLLECTIVE_TIMEOUT_S))
+    full = [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
+            "--cluster", "local", "--num-workers", "2", "--env",
+            f"DMLC_COORDINATOR_PORT={_free_port()}", *args, "--", *cmd]
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run(full, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=timeout_s)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as exc:
+        rc, out, err = "timeout", str(exc.stdout or ""), str(exc.stderr or "")
+    secs = time.perf_counter() - start
+    if rc != 0:
+        print(f"--- {name} launch ({rc}) stderr tail:\n{err[-4000:]}",
+              file=sys.stderr, flush=True)
+        for rank in range(2):
+            log = os.path.join(outdir, f"cli{rank}.err")
+            if os.path.exists(log):
+                with open(log) as f:
+                    tail = f.read()[-3000:]
+                print(f"--- {name} rank {rank} stderr tail:\n{tail}",
+                      file=sys.stderr, flush=True)
+        fail(f"phase 11 {name}: the 2-worker launch exited {rc}")
+    return out, secs
+
+
+def _over_two(lines):
+    """The ``trained ... over 2 workers ...`` summaries in printed lines
+    (two ranks printing at once may run their lines together)."""
+    import re
+
+    return re.findall(r"trained \d+ rounds on \d+ rows over 2 workers in "
+                      r"[^\n]*?train acc \d+\.\d{4}", "\n".join(lines))
+
+
+def _global_batch(b0, b1):
+    """Two ranks' step batches as the one global batch of a world-1 step:
+    rank 0's rows, then rank 1's (sparse row ids shifted, both padding
+    sentinels moved to the global row count)."""
+    cat = torch.cat
+    rows = (None if b0.num_rows is None or b1.num_rows is None
+            else b0.num_rows + b1.num_rows)
+    if hasattr(b0, "x"):
+        return type(b0)(cat([b0.x, b1.x]), cat([b0.label, b1.label]),
+                        cat([b0.weight, b1.weight]), rows)
+    n0, n1 = b0.label.shape[0], b1.label.shape[0]
+    row0 = torch.where(b0.row_id == n0, n0 + n1, b0.row_id)
+    field = None if b0.field is None else cat([b0.field, b1.field])
+    return type(b0)(cat([b0.value, b1.value]), cat([b0.index, b1.index]),
+                    cat([row0, b1.row_id + n0]), cat([b0.label, b1.label]),
+                    cat([b0.weight, b1.weight]), field, rows)
+
+
+def _close(got, want, rtol, atol):
+    """(whether ``got`` is within tolerance of ``want``, max abs err)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return (torch.allclose(got, want, rtol=rtol, atol=atol),
+            (got - want).abs().max().item())
+
+
+def _gbdt_against_world_one(card, caps, ens2):
+    """11a: the ranks' GBDT against the plain histogram and a world-1 fit.
+
+    The warm-up fit's first tree, level by level: the all-reduced (G, H)
+    against ``grad_hist_ref`` of both ranks' rows (RTOL, ATOL).  Then one
+    in-process fit of both ranks' padded rows in rank order (the global
+    array) and the ranks' merged bins: every tree's splits equal, leaf
+    values within MW_LEAF_TOL."""
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, TreeEnsemble
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    dev = torch.device("cuda")
+    if not np.array_equal(np.asarray(caps[0]["boundaries"]),
+                          np.asarray(caps[1]["boundaries"])):
+        fail("11a: the ranks' merged bin boundaries differ")
+    bins = torch.cat([c["bins"] for c in caps]).to(dev)
+    levels = [c["levels"] for c in caps]
+    if [len(lv) for lv in levels] != [MAX_DEPTH, MAX_DEPTH]:
+        fail(f"11a: {[len(lv) for lv in levels]} levels recorded, want "
+             f"{MAX_DEPTH} a rank")
+    hist_err = 0.0
+    for d, (a, b) in enumerate(zip(*levels)):
+        if not (torch.equal(a["G"], b["G"]) and torch.equal(a["H"], b["H"])):
+            fail(f"11a: level {d}'s all-reduced histograms differ between "
+                 f"the ranks")
+        want = hist_cuda.grad_hist_ref(
+            bins, *(torch.cat([a[k], b[k]]).to(dev)
+                    for k in ("node", "g", "h")), a["n"], NUM_BINS)
+        for got, w, name in zip((a["G"], a["H"]), want, "GH"):
+            ok, err = _close(got, w, RTOL, ATOL)
+            hist_err = max(hist_err, err)
+            if not ok:
+                fail(f"11a: level {d}'s all-reduced {name} ({a['n']} nodes) "
+                     f"disagrees with grad_hist_ref of both ranks' rows: "
+                     f"max abs err {err:.3g}")
+    print(f"11a the first tree's {MAX_DEPTH} levels (1-{2 ** (MAX_DEPTH - 1)}"
+          f" nodes): the all-reduced (G, H) on both ranks bitwise equal, "
+          f"within rtol {RTOL}, atol {ATOL} of grad_hist_ref of both ranks' "
+          f"{bins.shape[0]:,} padded rows: max abs err {hist_err:.3g}",
+          flush=True)
+
+    n_max = caps[0]["bins"].shape[0]
+    label = torch.zeros(2 * n_max, dtype=caps[0]["label"].dtype)
+    weight = torch.zeros(2 * n_max, dtype=torch.float32)
+    for r, c in enumerate(caps):
+        label[r * n_max:r * n_max + c["n_local"]] = c["label"]
+        weight[r * n_max:r * n_max + c["n_local"]] = 1.0
+    label, weight = label.to(dev), weight.to(dev)
+    model = GBDT(caps[0]["param"], num_feature=N_FEATURES, device=dev)
+    model.set_boundaries(caps[0]["boundaries"])
+    (ens, margin), sec = device_time(model.fit_binned, bins, label,
+                                     weight=weight)
+    one = TreeEnsemble(*(None if a is None else a.cpu() for a in ens))
+    two = TreeEnsemble(**ens2)
+    same = all(_same_tree(two, one, t) for t in range(ROUNDS))
+    ok, leaf_err = _close(two.leaf_value, one.leaf_value, MW_LEAF_TOL,
+                          MW_LEAF_TOL)
+    hit = ((margin > 0).float() == label).float()
+    acc = ((hit * weight).sum() / weight.sum()).item()
+    print(f"11a world-1 fit of the ranks' rows and bins: {sec:.3f} s, train "
+          f"acc {acc:.4f}; split agreement {_split_agreement(two, one):.4f}, "
+          f"every tree identical {same}; leaf values max abs err "
+          f"{leaf_err:.3g} (tol {MW_LEAF_TOL}) [{card}]", flush=True)
+    if not same:
+        fail("11a: the 2-worker ensemble's splits differ from the world-1 "
+             "fit of the same rows and bins")
+    if not ok:
+        fail(f"11a: the 2-worker leaf values differ from the world-1 fit's "
+             f"by {leaf_err:.3g}")
+
+
+def _steps_against_world_one(card, tag, caps):
+    """11b: the first two steps of rank 0 against world-1 steps over the
+    same global batches (both ranks' batches).  logreg: the new params and
+    the loss.  MLP: the all-reduced loss and gradients against the world-1
+    step's autograd of the global batch (Adam's first steps move each
+    weight by about the rate whatever its gradient, so the gradient is the
+    comparable figure)."""
+    from dmlc_core_tpu_torch.models import mlp as mlp_mod
+    from dmlc_core_tpu_torch.models.linear import LinearModel
+
+    dev = torch.device("cuda")
+    steps = [c["steps"] for c in caps]
+    if [len(st) for st in steps] != [2, 2]:
+        fail(f"11b {tag}: {[len(st) for st in steps]} steps recorded, want 2")
+    errs = []
+    for k, (s0, s1) in enumerate(zip(*steps)):
+        gb = _global_batch(s0["args"][-1], s1["args"][-1])
+        if tag == "logreg":
+            model = LinearModel(s0["param"], device=dev)
+            params = {n: t.to(dev) for n, t in s0["args"][0].items()}
+            new, loss = model.train_step(params, gb)
+            pairs = [(s0["out"][0][n], new[n], MW_STEP_TOL, 1e-6)
+                     for n in new]
+            got_loss = s0["out"][1]
+        else:
+            model = mlp_mod.MLP(s0["param"], device=dev)
+            leaves = [t.to(dev).requires_grad_(True) for t in s0["args"][0]]
+            with torch.enable_grad():
+                loss = model._loss(mlp_mod._rebuild(leaves),
+                                   mlp_mod.batch_to(gb, dev))
+                grads = torch.autograd.grad(loss, leaves)
+            pairs = [(a, b, MW_GRAD_TOL,
+                      MW_GRAD_TOL * b.abs().max().item())
+                     for a, b in zip(s0["out"][1], grads)]
+            got_loss = s0["out"][0]
+        pairs.append((got_loss, loss.detach(), MW_STEP_TOL, 1e-6))
+        for got, want, rtol, atol in pairs:
+            ok, err = _close(got, want, rtol, atol)
+            errs.append(err / max(want.abs().max().item(), 1e-30))
+            if not ok:
+                fail(f"11b {tag}: step {k + 1} on rank 0 differs from the "
+                     f"world-1 step over both ranks' batches: max abs err "
+                     f"{err:.3g} (rtol {rtol}, atol {atol:.3g})")
+    what = "params and loss" if tag == "logreg" else "gradients and loss"
+    print(f"11b {tag}: rank 0's first 2 steps' {what} within tolerance of "
+          f"world-1 steps over both ranks' batches: max abs err "
+          f"{max(errs):.3g} of the largest magnitude [{card}]", flush=True)
+
+
+def phase_multiworker(card, ref):
+    """Phase 11: the CLIs in 2 workers on the card through the port's
+    launcher, against an in-process world-1 fit of the same rows."""
+    import tempfile
+
+    from dmlc_core_tpu_torch.bridge.binning import HostBinner
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    print(f"== phase 11: multi-worker training, 2 workers on one card "
+          f"through python -m dmlc_core_tpu_torch.tracker.submit (gloo), "
+          f"{N_MULTI:,} libsvm rows", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(here, "build", "chip_smoke_multiworker")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    x, y = ref["x"][:N_MULTI], ref["y"][:N_MULTI]
+    with tempfile.TemporaryDirectory() as tmp:
+        svm = os.path.join(tmp, "train.libsvm")
+        small = os.path.join(tmp, "small.libsvm")
+        _write_text(svm, x, y, " ", " ", "{}:%.9g")
+        _write_text(small, x[:N_MULTI_CLI], y[:N_MULTI_CLI], " ", " ",
+                    "{}:%.9g")
+        common = ["--data", svm, "--num-feature", str(N_FEATURES)]
+        gbdt = common + ["--rounds", str(ROUNDS), "--max-depth",
+                         str(MAX_DEPTH), "--num-bins", str(NUM_BINS)]
+        runs = [
+            dict(tag="gbdt", module="train_gbdt", argv=gbdt + [
+                "--checkpoint", os.path.join(outdir, "gbdt.bin")]),
+            dict(tag="logreg", module="train_logreg",
+                 argv=common + ["--form", "sparse", "--epochs", "2"]),
+            dict(tag="mlp", module="train_mlp",
+                 argv=common + ["--epochs", "2"]),
+        ]
+        for run in runs:
+            run["port"] = _free_port()
+        with open(os.path.join(outdir, "cli.json"), "w") as f:
+            json.dump(runs, f)
+        _, wall = _submit([], [sys.executable, os.path.abspath(__file__),
+                               "--worker", "cli", outdir], outdir, "CLIs",
+                          MW_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(outdir, f"cli{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        # the command as a user types it: exit 0 and the same line twice
+        out, cli_wall = _submit([], [
+            sys.executable, "-m", "dmlc_core_tpu_torch.examples.train_gbdt",
+            "--data", small, "--num-feature", str(N_FEATURES), "--rounds",
+            str(ROUNDS), "--max-depth", str(MAX_DEPTH)], outdir,
+            "python -m train_gbdt", MW_TIMEOUT_S)
+    cli_lines = _over_two(out.splitlines())
+    if len(cli_lines) != 2 or cli_lines[0] != cli_lines[1]:
+        fail(f"11 python -m train_gbdt: not one line twice: {cli_lines}")
+    print(f"11 python -m dmlc_core_tpu_torch.examples.train_gbdt on "
+          f"{N_MULTI_CLI:,} rows in 2 workers: exit 0 in {cli_wall:.1f} s; "
+          f"{cli_lines[0]} [{card}]", flush=True)
+
+    # 11a: one global GBDT on both ranks
+    g = [r["gbdt"] for r in ranks]
+    for k, a in g[0]["model"].items():
+        b = g[1]["model"][k]
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            fail(f"11a: rank 1's {k} differs from rank 0's")
+    lines = [_over_two(r["lines"]) for r in g]
+    if any(len(ln) != 1 for ln in lines) or lines[0] != lines[1]:
+        fail(f"11a: the ranks' summary lines differ: {lines}")
+    _gbdt_against_world_one(card, [r["captured"] for r in g],
+                            g[0]["model"])
+    k3_need = 2 * ROUNDS * MAX_DEPTH
+    for r, run in enumerate(g):
+        k1 = run["launches"]["hist_matmul_cuda"]
+        k3 = run["launches"]["grad_hist_fused_cuda"]
+        if k3 != k3_need or k1 != 0:
+            fail(f"11a: rank {r} launched K3 {k3} times (want {k3_need}) "
+                 f"and K1 {k1} times (want 0)")
+    line = lines[0][0]
+    acc = float(line.rsplit(" ", 1)[1])
+    fit_sec = g[0]["fit_s"][0]
+    # the in-process world-1 fit of the same rows from memory, binned as
+    # the single-worker CLI bins them
+    model = GBDT(GBDTParam(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                           num_bins=NUM_BINS, learning_rate=0.3),
+                 num_feature=N_FEATURES)
+    model.make_bins(x[:100_000], count=N_MULTI)
+    dev = torch.device("cuda")
+    bins = torch.from_numpy(HostBinner(model.boundaries,
+                                       NUM_BINS).transform(x)).to(dev)
+    y_t = torch.from_numpy(y).to(dev)
+    model.fit_binned(bins, y_t)
+    (_, margin), one_sec = device_time(model.fit_binned, bins, y_t)
+    one_acc = ((margin > 0).float() == y_t).float().mean().item()
+    del bins, y_t, margin
+    # the warm-up fit and the timed fit make the same all-reduces
+    ar = g[0]["allreduce_s"]
+    ar_fit = sum(ar[len(ar) // 2:])
+    print(f"11a GBDT: {line}", flush=True)
+    print(f"11a world 2: fit {fit_sec:.4f} s (the slower rank), "
+          f"{N_MULTI * ROUNDS / fit_sec:,.0f} rows/s; data all-reduce "
+          f"{len(ar) // 2} calls, {ar_fit:.3f} s on rank 0 "
+          f"({100 * ar_fit / fit_sec:.1f}% of the fit); world 1 in "
+          f"process: fit {one_sec:.3f} s, {N_MULTI * ROUNDS / one_sec:,.0f} "
+          f"rows/s, train acc {one_acc:.4f}; launch of the three CLIs "
+          f"{wall:.1f} s, gbdt main() {g[0]['wall']:.1f} s [{card}]",
+          flush=True)
+    print(f"11a launches a rank: K3 {[r['launches']['grad_hist_fused_cuda'] for r in g]}, "
+          f"K1 {[r['launches']['hist_matmul_cuda'] for r in g]} (warm-up "
+          f"plus fit); ensembles bitwise equal on both ranks", flush=True)
+    if acc < 0.8 or abs(acc - one_acc) > 0.005:
+        fail(f"11a: world-2 accuracy {acc:.4f} (world 1 {one_acc:.4f}): "
+             f"below 0.8 or more than 0.005 apart")
+
+    # 11b: logreg (sparse) and MLP (dense)
+    for tag in ("logreg", "mlp"):
+        runs = [r[tag] for r in ranks]
+        for k, a in runs[0]["model"].items():
+            if not torch.equal(a, runs[1]["model"][k]):
+                fail(f"11b {tag}: rank 1's {k} differs from rank 0's")
+        _steps_against_world_one(card, tag, [r["captured"] for r in runs])
+        losses = [float(ln.split("loss=")[1].split()[0])
+                  for ln in runs[0]["lines"] if "loss=" in ln]
+        if len(losses) != 2 or not losses[1] < losses[0] \
+                or not all(np.isfinite(losses)):
+            fail(f"11b {tag}: rank 0's losses {losses} do not fall")
+        print(f"11b {tag}: params bitwise equal on both ranks; rank 0's "
+              f"epoch losses {losses}; main() {runs[0]['wall']:.1f} s "
+              f"[{card}]", flush=True)
+    print(f"phase 11: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return g[0]["launches"]["grad_hist_fused_cuda"]
+
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2793,7 +3293,10 @@ def main():
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False")
         sys.path.insert(0, here)
-        worker_main(sys.argv[2], sys.argv[3])
+        if sys.argv[2] == "cli":
+            cli_worker_main(sys.argv[3])
+        else:
+            worker_main(sys.argv[2], sys.argv[3])
         return
     start = time.perf_counter()
     card = phase_device()
@@ -2811,8 +3314,10 @@ def main():
     phase_train(card, ref)
     phase_tier(card, ref, serve_rate)
     phase_sampling(card, ref)
+    # the slice's path: K3's launches of a phase-11 rank count too
+    k3["launches"] += phase_multiworker(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-10 passed in "
+    print(f"chip_smoke: phases 1-11 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

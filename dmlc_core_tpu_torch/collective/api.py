@@ -34,6 +34,13 @@ else every worker is taken to run on this host (the tracker's local
 backend).  Collectives time out after ``DMLC_COLLECTIVE_TIMEOUT`` seconds
 (default 300, or ``init({"timeout": s})``), so a dead peer fails the run
 instead of hanging it.
+
+With telemetry on (:mod:`dmlc_core_tpu_torch.telemetry`), every
+``allreduce``, ``broadcast`` round and ``allgather`` records the
+reference's ``collective.<op>`` span and its ``dmlc_collective_op_seconds``
+/ ``dmlc_collective_ops_total`` / ``dmlc_collective_payload_bytes_total``
+series, labelled ``op`` = the reduce op, ``broadcast`` or ``gather``; with
+it off they cost one branch.
 """
 
 from __future__ import annotations
@@ -49,7 +56,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.param import get_env
+from dmlc_core_tpu_torch.telemetry import clock
 from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK, Error, log_info
 
@@ -209,17 +218,38 @@ def _to_wire(value: np.ndarray) -> torch.Tensor:
         _state["wire"])
 
 
+def _traced(opname: str, value: np.ndarray, run) -> np.ndarray:
+    """``run()`` with the reference's per-op telemetry (``_global_op``):
+    latency histogram, op and payload-byte counters and a trace span, all
+    labelled ``op=opname``; just ``run()`` while telemetry is off."""
+    if not telemetry.enabled():
+        return run()
+    nbytes = int(value.nbytes)
+    start = clock.monotonic()
+    with telemetry.span(f"collective.{opname}", payload_bytes=nbytes):
+        out = run()
+    telemetry.observe("dmlc_collective_op_seconds", clock.elapsed(start),
+                      op=opname)
+    telemetry.count("dmlc_collective_ops_total", op=opname)
+    telemetry.count("dmlc_collective_payload_bytes_total", nbytes, op=opname)
+    return out
+
+
 def allreduce(value: Any, op: str = "sum") -> np.ndarray:
     """Elementwise reduce across all ranks; result identical on every rank
     (rabit::Allreduce).  ``op`` in {sum, max, min, prod}."""
-    _require_init()
-    CHECK(op in _OPS, f"unknown reduce op {op!r}")
     value = np.asarray(value)
-    if get_world_size() == 1:
-        return value
-    t = _to_wire(value)
-    dist.all_reduce(t, op=_OPS[op])
-    return t.cpu().numpy()
+
+    def run() -> np.ndarray:
+        _require_init()
+        CHECK(op in _OPS, f"unknown reduce op {op!r}")
+        if get_world_size() == 1:
+            return value
+        t = _to_wire(value)
+        dist.all_reduce(t, op=_OPS[op])
+        return t.cpu().numpy()
+
+    return _traced(op, value, run)
 
 
 # dtype codes for the broadcast shape/dtype header (fixed order, part of
@@ -234,9 +264,12 @@ _BCAST_ERR = -1   # header[0] sentinel: root-side validation failed
 
 
 def _bcast(value: np.ndarray, root: int) -> np.ndarray:
-    t = _to_wire(value)
-    dist.broadcast(t, src=root)
-    return t.cpu().numpy()
+    def run() -> np.ndarray:
+        t = _to_wire(value)
+        dist.broadcast(t, src=root)
+        return t.cpu().numpy()
+
+    return _traced("broadcast", value, run)
 
 
 def broadcast(value: Any = None, root: int = 0) -> np.ndarray:
@@ -291,14 +324,18 @@ def broadcast(value: Any = None, root: int = 0) -> np.ndarray:
 def allgather(value: Any) -> np.ndarray:
     """Gather each rank's array (same shape everywhere); returns
     ``[world, ...]`` in rank order on every rank."""
-    _require_init()
     value = np.asarray(value)
-    if get_world_size() == 1:
-        return value[None]
-    t = _to_wire(value)
-    parts = [torch.empty_like(t) for _ in range(get_world_size())]
-    dist.all_gather(parts, t)
-    return torch.stack(parts).cpu().numpy()
+
+    def run() -> np.ndarray:
+        _require_init()
+        if get_world_size() == 1:
+            return value[None]
+        t = _to_wire(value)
+        parts = [torch.empty_like(t) for _ in range(get_world_size())]
+        dist.all_gather(parts, t)
+        return torch.stack(parts).cpu().numpy()
+
+    return _traced("gather", value, run)
 
 
 def tracker_print(msg: str) -> None:

@@ -20,9 +20,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
-__all__ = ["MeshCollective"]
+__all__ = ["MeshCollective", "DATA_AXIS", "data_parallel", "data_allreduce"]
+
+# the mesh axis rows are sharded over
+DATA_AXIS = "data"
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
@@ -97,3 +101,19 @@ class MeshCollective:
         if self._group is not None:
             dist.broadcast(t, src=self._ranks[root], group=self._group)
         return t.to(x.device)
+
+
+def data_parallel() -> bool:
+    """Whether the ambient mesh's ``data`` axis spans more than one rank."""
+    mesh = ambient_mesh()
+    return mesh is not None and mesh.shape.get(DATA_AXIS, 1) > 1
+
+
+def data_allreduce(*tensors):
+    """The tensors (of one shape) summed over the ambient mesh's ``data``
+    group when that axis spans more than one rank, as one collective (the
+    reference gets these sums from GSPMD); else the tensors unchanged."""
+    if not data_parallel():
+        return tensors
+    return tuple(MeshCollective(ambient_mesh(), DATA_AXIS).psum(
+        torch.stack(tensors)))

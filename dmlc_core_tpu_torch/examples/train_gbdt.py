@@ -16,6 +16,19 @@ binned as they are (what ``binned_batches`` does), so the file is parsed
 once.  ``--device`` defaults to ``cuda`` and there is no quiet CPU
 fallback: pass ``--device cpu`` to run the plain versions on the CPU.
 
+Under a launch of several workers (``python -m
+dmlc_core_tpu_torch.tracker.submit --cluster local --num-workers N --
+python -m dmlc_core_tpu_torch.examples.train_gbdt ...``) every rank reads
+its byte-range shard, the quantile sketch is merged over the ranks, and
+the ranks fit ONE global model, data-parallel (``_fit_distributed``, after
+the reference's): every rank pads to the largest shard with weight-0 rows,
+fits under a ``data`` mesh over all ranks (the histograms all-reduced on
+every level), and prints the same ``trained ... over N workers`` line with
+the global accuracy; rank 0 writes ``--checkpoint``.  The collective runs
+over gloo, so ranks may share one card; each rank takes card ``(LOCAL_RANK
+or task id) % device_count``.  ``--eval-data`` and ``--checkpoint-dir``
+are single-host flows and refuse such a launch, as in the reference.
+
 The reference's single-host flows are all here:
 
 - ``--eval-data URI [--early-stopping-rounds N]``: ``fit_with_eval`` on
@@ -146,6 +159,47 @@ def _fit_resumable(model, bins, label, args):
     return ensemble, margin, secs, args.rounds - start
 
 
+def _fit_distributed(model, bins, label, collective):
+    """One global data-parallel fit across the worker world (the
+    reference's ``_fit_distributed``): every rank holds the same ensemble.
+
+    Shards cut by bytes differ in rows, so every rank pads to the largest
+    row count with weight-0 rows, inert in the histograms.  The padded
+    layout (rank r's rows at ``r * n_max``) is the reference's global
+    array, so a sampled fit draws the reference's bits; the reference
+    rounds ``n_max`` up to its local device count, which is 1 for a
+    process with one device, as every rank here is.  Returns (ensemble,
+    margin of this rank's rows, acc, secs, global rows); acc and global
+    rows come from all-reduced hit and weight sums, secs is the slowest
+    rank's."""
+    from dmlc_core_tpu_torch.parallel.mesh import make_mesh
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    n_local, nf = bins.shape
+    n_max = int(collective.allreduce(np.asarray([n_local]), op="max")[0])
+    pad = n_max - n_local
+    dev = bins.device
+    weight = torch.ones(n_max, dtype=torch.float32, device=dev)
+    if pad:
+        bins = torch.cat([bins, bins.new_zeros((pad, nf))])
+        label = torch.cat([label, label.new_zeros(pad)])
+        weight[n_local:] = 0.0
+    with make_mesh():
+        model.fit_binned(bins, label, weight=weight)   # warm-up
+        (ensemble, margin), secs = device_time(model.fit_binned, bins, label,
+                                               weight=weight)
+    if model.param.objective == "softmax":
+        hit = (margin.argmax(1) == label).float()
+    else:
+        hit = ((margin > 0).float() == label).float()
+    sums = collective.allreduce(np.asarray(
+        [(hit * weight).sum().item(), weight.sum().item()], np.float64))
+    secs = float(collective.allreduce(np.asarray([secs]), op="max")[0])
+    # the weight sum is the global real row count (the pads weigh 0)
+    return (ensemble, margin[:n_local], float(sums[0] / sums[1]), secs,
+            int(round(sums[1])))
+
+
 def _load_rows(uri: str, part: int, nparts: int, num_feature: int,
                fill: float, meter=None):
     """Parse ``uri``'s share into dense batches, metering the bytes read;
@@ -197,18 +251,22 @@ def main(argv: Optional[List[str]] = None):
     from dmlc_core_tpu_torch.bridge.checkpoint import save_checkpoint
     from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
     from dmlc_core_tpu_torch.parallel.mesh import local_shard_info
+    from dmlc_core_tpu_torch.utils.device import worker_device
     from dmlc_core_tpu_torch.utils.profiler import ThroughputMeter
     from dmlc_core_tpu_torch.utils.timer import device_time
 
     # under a tracker launch the worker world shows only after init; gloo,
-    # since the collective serves only to find that world here
+    # so that ranks may share one card (NCCL refuses two ranks on one)
     collective.init({"backend": "gloo"})
     part, nparts = local_shard_info()
-    if nparts > 1:
+    if nparts > 1 and (args.eval_data or args.checkpoint_dir):
+        # one GLOBAL model across the worker world; eval/resume flows are
+        # single-host features: error, never silently train per-shard
+        # models
         collective.finalize()
-        ap.error(f"a launch of {nparts} workers is not yet in the PyTorch "
-                 f"port (ROADMAP §1: the CLI's multi-worker path); it "
-                 f"trains one model on one host and never per-shard models")
+        ap.error("--eval-data/--checkpoint-dir are single-host flows; "
+                 "under a multi-worker launch the fit is one global "
+                 "data-parallel program")
     param = GBDTParam(num_boost_round=args.rounds, max_depth=args.max_depth,
                       num_bins=args.num_bins, learning_rate=args.learning_rate,
                       hist_method=args.hist_method,
@@ -225,7 +283,8 @@ def main(argv: Optional[List[str]] = None):
                       handle_missing=args.handle_missing)
     # resolves the device first: no card and no --device cpu raises here,
     # before any file is read
-    model = GBDT(param, num_feature=args.num_feature, device=args.device)
+    model = GBDT(param, num_feature=args.num_feature,
+                 device=worker_device(args.device))
 
     fill = np.nan if args.handle_missing else 0.0
     meter = ThroughputMeter("ingest")
@@ -241,7 +300,10 @@ def main(argv: Optional[List[str]] = None):
             break
         sample.append(b.x[:b.num_rows].numpy())
         have += b.num_rows
-    model.make_bins(np.concatenate(sample)[:SAMPLE_ROWS], count=n)
+    # under a multi-worker launch the shards' quantile summaries merge, so
+    # all ranks bin identically; count=n weights this shard by its size
+    model.make_bins(np.concatenate(sample)[:SAMPLE_ROWS],
+                    comm=collective if nparts > 1 else None, count=n)
     binner = HostBinner(model.boundaries, args.num_bins,
                         handle_missing=args.handle_missing)
     bins, label = _to_device(batches, n, binner, args.num_feature,
@@ -249,6 +311,18 @@ def main(argv: Optional[List[str]] = None):
     del batches
 
     rounds_run = args.rounds
+    if nparts > 1:
+        ensemble, margin, acc, secs, global_rows = _fit_distributed(
+            model, bins, label, collective)
+        rows_per_sec = global_rows * rounds_run / secs
+        print(f"trained {rounds_run} rounds on {global_rows} rows over "
+              f"{nparts} workers in {secs:.2f}s ({rows_per_sec:,.0f} "
+              f"rows/sec), train acc {acc:.4f}")
+        if args.checkpoint and part == 0:
+            save_checkpoint(args.checkpoint, ensemble._asdict())
+            print(f"checkpoint written to {args.checkpoint}")
+        collective.finalize()
+        return ensemble, margin
     if args.checkpoint_dir:
         if args.eval_data or args.early_stopping_rounds:
             ap.error("--checkpoint-dir cannot be combined with --eval-data/"

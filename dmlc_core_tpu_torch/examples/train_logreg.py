@@ -14,8 +14,18 @@ SGD steps of ``LinearModel.train_step``, with the same flags plus
 discovers the latest version with ``collective.load_checkpoint`` and
 resumes after it.  The files are the JAX example's, so either package
 resumes the other's.  ``--device`` defaults to ``cuda``; pass ``--device
-cpu`` to run the plain versions on the CPU.  One worker: a launch of more
-raises (ROADMAP §1: the CLI's multi-worker path).
+cpu`` to run the plain versions on the CPU.
+
+Under a launch of several workers (``python -m
+dmlc_core_tpu_torch.tracker.submit --cluster local --num-workers N --
+python -m dmlc_core_tpu_torch.examples.train_logreg ...``) every rank
+reads its byte-range shard and stages ``batch_size / N`` rows a step; the
+steps run under a ``data`` mesh over all ranks, so each one all-reduces
+the gradient sums and every rank holds the same params and prints the
+global loss.  Shards cut by bytes may yield different batch counts under
+``drop_remainder``; the ranks then fall out of step, and the run fails
+when the collective times out (``DMLC_COLLECTIVE_TIMEOUT``), as the
+reference's does (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -53,23 +63,21 @@ def main(argv: Optional[List[str]] = None):
     from dmlc_core_tpu_torch.data.factory import create_parser
     from dmlc_core_tpu_torch.models.linear import LinearModel, LinearParam
     from dmlc_core_tpu_torch.parallel.mesh import local_shard_info, make_mesh
+    from dmlc_core_tpu_torch.utils.device import worker_device
     from dmlc_core_tpu_torch.utils.profiler import ThroughputMeter
 
+    # gloo, so that ranks may share one card (NCCL refuses two on one)
     collective.init({"backend": "gloo"})
     part, nparts = local_shard_info()
-    if nparts > 1:
-        collective.finalize()
-        ap.error(f"a launch of {nparts} workers is not yet in the PyTorch "
-                 f"port (ROADMAP §1: the CLI's multi-worker path); it "
-                 f"trains one model on one host and never per-shard models")
     collective.tracker_print(f"starting logreg: {nparts} process(es)")
     # resolves the device first: no card and no --device cpu raises here
     model = LinearModel(LinearParam(num_feature=args.num_feature,
                                     learning_rate=args.learning_rate),
-                        device=args.device)
+                        device=worker_device(args.device))
     parser = create_parser(args.data, part, nparts, type="auto")
+    mesh = make_mesh()
     loader = MeshBatchLoader(
-        parser, make_mesh(), form=args.form,
+        parser, mesh, form=args.form,
         global_batch_size=args.batch_size, num_feature=args.num_feature,
         nnz_bucket=None if args.form == "dense" else args.batch_size * 64,
         device=model.device)
@@ -90,9 +98,11 @@ def main(argv: Optional[List[str]] = None):
     for epoch in range(start_epoch, args.epochs):
         if epoch:
             loader.before_first()
-        for batch in loader:
-            params, loss = model.train_step(params, batch)
-            meter.add(0, nrows=batch.label.shape[0])
+        # under the mesh each step is data-parallel over the ranks
+        with mesh:
+            for batch in loader:
+                params, loss = model.train_step(params, batch)
+                meter.add(0, nrows=batch.label.shape[0])
         losses.append(float(loss))
         collective.tracker_print(f"epoch {epoch}: loss={losses[-1]:.5f} "
                                  f"({meter.rows_per_sec:.0f} rows/s)")

@@ -16,6 +16,13 @@ either package resumes the other's checkpoints.  ``--model-parallel`` > 1
 raises: sharding the hidden layers needs more than one card (ROADMAP §1
 item 9a).  ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run
 the plain versions on the CPU.
+
+Under a launch of several workers every rank reads its byte-range shard
+and stages ``batch_size / N`` rows a step; the steps run under a ``data``
+mesh over all ranks (the gradients all-reduced before Adam), so every
+rank holds the same params.  Rank 0 writes ``--checkpoint-dir``, and every
+rank checks that its view of the directory's latest step is rank 0's
+(shared storage), exiting otherwise, as the reference does.
 """
 
 from __future__ import annotations
@@ -70,19 +77,16 @@ def main(argv: Optional[List[str]] = None):
     from dmlc_core_tpu_torch.data.factory import create_parser
     from dmlc_core_tpu_torch.models.mlp import MLP, MLPParam
     from dmlc_core_tpu_torch.parallel.mesh import local_shard_info, make_mesh
+    from dmlc_core_tpu_torch.utils.device import worker_device
     from dmlc_core_tpu_torch.utils.profiler import ThroughputMeter
 
+    # gloo, so that ranks may share one card (NCCL refuses two on one)
     collective.init({"backend": "gloo"})
     part, nparts = local_shard_info()
-    if nparts > 1:
-        collective.finalize()
-        ap.error(f"a launch of {nparts} workers is not yet in the PyTorch "
-                 f"port (ROADMAP §1: the CLI's multi-worker path); it "
-                 f"trains one model on one host and never per-shard models")
     param = MLPParam(num_feature=args.num_feature, hidden=args.hidden,
                      learning_rate=args.learning_rate)
     # resolves the device first: no card and no --device cpu raises here
-    model = MLP(param, device=args.device)
+    model = MLP(param, device=worker_device(args.device))
     params = model.init_params()
     opt_state = model.init_optimizer(params)
 
@@ -93,6 +97,17 @@ def main(argv: Optional[List[str]] = None):
 
         mgr = CheckpointManager(args.checkpoint_dir, keep=3)
         latest = mgr.latest_step()
+        if nparts > 1:
+            # rank 0 is the writer: every rank must see ITS view of the
+            # store agree with rank 0's, otherwise --checkpoint-dir is not
+            # shared storage and ranks would resume at different epochs
+            # (desynchronized collectives deadlock). Fail loudly instead.
+            mine = -1 if latest is None else latest
+            agreed = int(collective.broadcast(np.int64(mine), root=0))
+            if agreed != mine:
+                raise SystemExit(
+                    f"--checkpoint-dir must be shared storage: rank "
+                    f"{part} sees step {mine} but rank 0 sees {agreed}")
         if latest is not None:
             # template restore into the reference's optimizer layout
             params, (opt_state, _) = _on_device(mgr.restore(
@@ -103,22 +118,25 @@ def main(argv: Optional[List[str]] = None):
 
     parser = create_parser(args.data, part, nparts, type="auto")
     meter = ThroughputMeter("train")
-    loader = MeshBatchLoader(parser, make_mesh(), form="dense",
+    mesh = make_mesh()
+    loader = MeshBatchLoader(parser, mesh, form="dense",
                              global_batch_size=args.batch_size,
                              num_feature=args.num_feature,
                              device=model.device)
     losses = []
     for epoch in range(start_epoch, args.epochs):
         loss = None
-        for batch in loader:
-            params, opt_state, loss = model.train_step(params, opt_state,
-                                                       batch)
-            meter.add(0, nrows=batch.label.shape[0])
+        # under the mesh each step is data-parallel over the ranks
+        with mesh:
+            for batch in loader:
+                params, opt_state, loss = model.train_step(params, opt_state,
+                                                           batch)
+                meter.add(0, nrows=batch.label.shape[0])
         loader.before_first()
         if loss is not None:
             losses.append(float(loss))
             collective.tracker_print(f"epoch {epoch}: loss={losses[-1]:.5f}")
-        if mgr is not None and (epoch + 1) < args.epochs:
+        if mgr is not None and (epoch + 1) < args.epochs and part == 0:
             mgr.save(epoch + 1, (params, (opt_state, ())))
     if mgr is not None:
         mgr.wait_until_finished()

@@ -15,8 +15,9 @@ Injection sites (see :data:`SITES`):
   call and hot-swap stages;
 - ``serve.router.forward`` — the multi-replica router's forward path, per
   attempt (replica-death, slow-link, and injected-response chaos);
-- ``tracker.framed.recv`` / ``tracker.framed.send`` — the lease
-  protocol's framing;
+- ``tracker.framed.recv`` / ``tracker.framed.send`` — the rendezvous
+  and lease protocols' framing;
+- ``tracker.accept`` — the rendezvous accept loop, per connection;
 - ``io.fleet.lease`` — the fleet-ingest lease client, per wire op;
 - ``train.ingest`` / ``train.round`` / ``train.publish`` — the continuous
   trainer's batch fetch, boosting round and checkpoint publish.
@@ -61,6 +62,9 @@ SITES: Dict[str, str] = {
         "FramedSocket receive path; 'truncate' simulates a peer closing "
         "mid-frame, act kinds fire before the read"),
     "tracker.framed.send": "FramedSocket send path",
+    "tracker.accept": (
+        "tracker accept loop, once per accepted connection (before the "
+        "handshake)"),
     "io.stream.open": "URI stream factory open (create_stream[_for_read])",
     "io.stream.read": (
         "Stream.read_exact; 'truncate' cuts the stream short, modeling a "

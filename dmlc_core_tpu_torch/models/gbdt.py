@@ -48,11 +48,12 @@ import torch
 from dmlc_core_tpu_torch.bridge.checkpoint import (host_array,
                                                    load_checkpoint,
                                                    save_checkpoint)
-from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
+from dmlc_core_tpu_torch.collective.mesh_collectives import (MeshCollective,
+                                                         data_allreduce)
 from dmlc_core_tpu_torch.ops import hist_cuda
 from dmlc_core_tpu_torch.ops.histogram import (
-    apply_bins, as_tensor, bin_onehot, data_allreduce,
-    distributed_quantile_boundaries, grad_histogram, resolve_hist_method)
+    apply_bins, as_tensor, bin_onehot, distributed_quantile_boundaries,
+    grad_histogram, resolve_hist_method)
 from dmlc_core_tpu_torch.param import Parameter, field
 from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils import threefry

@@ -7,6 +7,15 @@ the port's :class:`~dmlc_core_tpu_torch.bridge.batching.DenseBatch` and
 :class:`~dmlc_core_tpu_torch.bridge.batching.SparseBatch`.  The model
 lives on ``device`` (``cuda`` unless the caller passes ``device="cpu"``);
 a batch is moved there by the step that takes it.
+
+A step forms the weighted gradient sums, the weight sum and the loss sum,
+and divides them by ``max(Σ w, 1)``.  Under an ambient mesh whose
+``data`` axis spans more than one rank (``with make_mesh():`` in a launch
+of several workers) each rank's batch is its slice of the global batch,
+and the sums are all-reduced over the data group in one collective
+first, so the denominator is the global one, as in the reference's step
+over its global arrays: every rank holds the same params and the global
+loss.  Without such a mesh the collective is the identity.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import numpy as np
 import torch
 
 from dmlc_core_tpu_torch.bridge.batching import DenseBatch
+from dmlc_core_tpu_torch.collective.mesh_collectives import data_allreduce
 from dmlc_core_tpu_torch.ops.sparse import (segment_matvec,
                                             segment_transpose_matvec)
 from dmlc_core_tpu_torch.param import Parameter, field
@@ -48,14 +58,14 @@ def _loss_grad(margin: torch.Tensor, label: torch.Tensor,
     return margin - label
 
 
-def _loss_value(margin: torch.Tensor, label: torch.Tensor,
-                weight: torch.Tensor, loss: str) -> torch.Tensor:
-    denom = torch.clamp(weight.sum(), min=1.0)
+def _loss_sum(margin: torch.Tensor, label: torch.Tensor,
+              weight: torch.Tensor, loss: str) -> torch.Tensor:
+    """The weighted loss summed over the rows (the numerator)."""
     if loss == "logistic":
         # numerically-stable weighted logloss
         ls = torch.logaddexp(torch.zeros_like(margin), margin) - label * margin
-        return (ls * weight).sum() / denom
-    return (weight * (margin - label) ** 2).sum() / denom
+        return (ls * weight).sum()
+    return (weight * (margin - label) ** 2).sum()
 
 
 class LinearModel:
@@ -86,20 +96,25 @@ class LinearModel:
         lr, lam = p.learning_rate, p.reg_lambda
         batch = batch_to(batch, self.device)
         w, b = params["w"], params["b"]
+        nf = p.num_feature
         margin = self._margin(params, batch)
         g = _loss_grad(margin, batch.label, p.loss) * batch.weight
-        denom = torch.clamp(batch.weight.sum(), min=1.0)
         if isinstance(batch, DenseBatch):
-            grad_w = batch.x.T @ g / denom + lam * w
+            xtg = batch.x.T @ g
         else:
             # sentinel slot for padding rows
             g_ext = torch.cat([g, g.new_zeros(1)])
-            grad_w = segment_transpose_matvec(
-                g_ext, batch.value, batch.index, batch.row_id,
-                p.num_feature) / denom + lam * w
-        grad_b = g.sum() / denom
+            xtg = segment_transpose_matvec(g_ext, batch.value, batch.index,
+                                           batch.row_id, nf)
+        # X^T g, Σ g, Σ w and the loss sum in one all-reduce
+        sums, = data_allreduce(torch.cat([xtg, torch.stack([
+            g.sum(), batch.weight.sum(),
+            _loss_sum(margin, batch.label, batch.weight, p.loss)])]))
+        denom = torch.clamp(sums[nf + 1], min=1.0)
+        grad_w = sums[:nf] / denom + lam * w
+        grad_b = sums[nf] / denom
         new = {"w": w - lr * grad_w, "b": b - lr * grad_b}
-        return new, _loss_value(margin, batch.label, batch.weight, p.loss)
+        return new, sums[nf + 2] / denom
 
     @torch.no_grad()
     def predict(self, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:

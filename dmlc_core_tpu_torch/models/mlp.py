@@ -8,6 +8,14 @@ otherwise).  ``jax.nn.gelu`` defaults to the tanh approximation, so the
 port's gelu is ``F.gelu(x, approximate="tanh")``.  The model lives on
 ``device`` (``cuda`` unless the caller passes ``device="cpu"``).
 
+Under an ambient mesh whose ``data`` axis spans more than one rank, a
+step is data-parallel: each rank takes the autograd gradients of its
+batch slice's loss *sum*, and those, the loss sum and the weight sum go
+out in one all-reduce over the data group; dividing by the global
+``max(Σ w, 1)`` gives the gradient of the reference's global-batch loss,
+and every rank applies the same Adam update.  Without such a mesh the step
+is the single-process one.
+
 A column-sharded hidden layer (the reference's ``model_axis``) needs more
 than one card and is not ported (ROADMAP.md §1 item 9a).
 """
@@ -21,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from dmlc_core_tpu_torch.bridge.batching import DenseBatch
+from dmlc_core_tpu_torch.collective.mesh_collectives import (data_allreduce,
+                                                         data_parallel)
 from dmlc_core_tpu_torch.models.linear import batch_to
 from dmlc_core_tpu_torch.param import Parameter, field
 from dmlc_core_tpu_torch.utils.device import resolve_device
@@ -113,17 +123,22 @@ class MLP:
                 h = act(h)
         return h.to(torch.float32)
 
-    def _loss(self, params: Dict[str, Any], batch: DenseBatch) -> torch.Tensor:
+    def _loss_sum(self, params: Dict[str, Any], batch: DenseBatch
+                  ) -> torch.Tensor:
+        """The weighted loss summed over the batch's rows."""
         logits = self._apply(params, batch.x)
         w = batch.weight
-        denom = torch.clamp(w.sum(), min=1.0)
         if self.param.num_class == 1:
             err = (logits[:, 0] - batch.label) ** 2
-            return (err * w).sum() / denom
+            return (err * w).sum()
         labels = batch.label.to(torch.int64)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
-        return (nll * w).sum() / denom
+        return (nll * w).sum()
+
+    def _loss(self, params: Dict[str, Any], batch: DenseBatch) -> torch.Tensor:
+        denom = torch.clamp(batch.weight.sum(), min=1.0)
+        return self._loss_sum(params, batch) / denom
 
     def init_optimizer(self, params: Dict[str, Any]) -> AdamState:
         zeros = _rebuild([torch.zeros_like(t) for t in _leaves(params)])
@@ -139,9 +154,12 @@ class MLP:
         ``(params, opt_state, loss)``."""
         batch = batch_to(batch, self.device)
         leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
-        with torch.enable_grad():
-            loss = self._loss(_rebuild(leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
+        if data_parallel():
+            loss, grads = self._data_parallel_grads(leaves, batch)
+        else:
+            with torch.enable_grad():
+                loss = self._loss(_rebuild(leaves), batch)
+                grads = torch.autograd.grad(loss, leaves)
         lr = self.param.learning_rate
         with torch.no_grad():
             count = opt_state.count + 1
@@ -163,6 +181,25 @@ class MLP:
                 AdamState(count=count, mu=_rebuild(new_mu),
                           nu=_rebuild(new_nu)),
                 loss.detach())
+
+    def _data_parallel_grads(self, leaves: List[torch.Tensor],
+                             batch: DenseBatch):
+        """(global loss, gradients of it) over the data group: the local
+        loss sum's gradients, the loss sum and the weight sum in one
+        all-reduce, divided by the global ``max(Σ w, 1)``."""
+        with torch.enable_grad():
+            num = self._loss_sum(_rebuild(leaves), batch)
+            grads = torch.autograd.grad(num, leaves)
+        local = torch.cat([g.reshape(-1) for g in grads]
+                          + [torch.stack([num.detach(),
+                                          batch.weight.sum()])])
+        sums, = data_allreduce(local)
+        denom = torch.clamp(sums[-1], min=1.0)
+        out, at = [], 0
+        for g in grads:
+            out.append(sums[at:at + g.numel()].reshape(g.shape) / denom)
+            at += g.numel()
+        return sums[-2] / denom, out
 
     @torch.no_grad()
     def predict(self, params: Dict[str, Any], x) -> torch.Tensor:

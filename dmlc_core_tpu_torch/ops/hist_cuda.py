@@ -55,7 +55,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
+from dmlc_core_tpu_torch.collective.mesh_collectives import (DATA_AXIS,
+                                                         MeshCollective)
 from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
@@ -75,9 +76,6 @@ LAUNCHES: Dict[str, int] = {"hist_matmul_cuda": 0, "grad_hist_fused_cuda": 0,
 # "all_reduce", "all_gather"), summed while this is a dict; None, the
 # default, times nothing.  Timing synchronises the card around each stage.
 STAGE_SECONDS: Optional[Dict[str, float]] = None
-
-# the mesh axis rows are sharded over; K4 sums its histograms over it
-DATA_AXIS = "data"
 
 TILE = 256               # rows a CTA stages per step (kTile in hist.cu)
 _SMEM_BYTES = 232448     # dynamic shared memory one block may use on sm_90

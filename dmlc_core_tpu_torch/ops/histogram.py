@@ -29,9 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
+from dmlc_core_tpu_torch.collective.mesh_collectives import data_allreduce
 from dmlc_core_tpu_torch.ops import hist_cuda
-from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
@@ -213,17 +212,6 @@ def _kernel_bins(bins):
     if bins.dtype in (torch.uint8, torch.int32):
         return bins.contiguous()
     return bins.to(torch.int32).contiguous()
-
-
-def data_allreduce(*tensors):
-    """The tensors (of one shape) summed over the ambient mesh's ``data``
-    group when that axis spans more than one rank, as one collective (the
-    reference gets these sums from GSPMD); else the tensors unchanged."""
-    mesh = ambient_mesh()
-    if mesh is None or mesh.shape.get(hist_cuda.DATA_AXIS, 1) == 1:
-        return tensors
-    return tuple(MeshCollective(mesh, hist_cuda.DATA_AXIS).psum(
-        torch.stack(tensors)))
 
 
 def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,

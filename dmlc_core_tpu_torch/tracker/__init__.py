@@ -1,6 +1,29 @@
-"""Tracker pieces of the PyTorch port: the shard-lease control plane.
+"""Distributed job layer of the PyTorch port: launch and rendezvous.
 
-Counterpart of ``dmlc_core_tpu/tracker/``, cut to
-:mod:`.rendezvous`'s lease plane (the rabit rendezvous and the launchers
-are not ported).
+Counterpart of ``dmlc_core_tpu/tracker/``:
+
+- :mod:`.rendezvous` — the Rabit tracker (wire-compatible with Rabit
+  clients: magic 0xff99, framed int/str protocol, tree + ring topology,
+  jobid-based rank recovery), the PS bootstrap, and the fleet-ingest
+  shard-lease coordinator;
+- :mod:`.submit` / :mod:`.opts` — the launcher CLI (``python -m
+  dmlc_core_tpu_torch.tracker.submit``) and its option schema;
+- :mod:`.local` — one process per worker on this host, with retry;
+- :mod:`.filecache` / :mod:`.launcher` — job file shipping and the
+  container-side bootstrap.
+
+The other backends (ssh, mpi, sge, tpu-vm, yarn, mesos) are not ported
+(ROADMAP.md §1 [12]); the launcher refuses them.
 """
+
+from dmlc_core_tpu_torch.tracker.rendezvous import PSTracker, RabitTracker  # noqa: F401
+
+
+def __getattr__(name):
+    # imported on first use, so that ``python -m
+    # dmlc_core_tpu_torch.tracker.submit`` runs a module not yet imported
+    if name == "submit_job":
+        from dmlc_core_tpu_torch.tracker.submit import submit_job
+
+        return submit_job
+    raise AttributeError(name)

@@ -8,11 +8,12 @@ asked for with ``device="cpu"``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "worker_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -24,4 +25,22 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "dmlc_core_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev
+
+
+def worker_device(device: Optional[Union[str, torch.device]] = None
+                  ) -> torch.device:
+    """This worker's device in a launch of several workers: a bare
+    ``cuda`` becomes card ``(LOCAL_RANK or DMLC_TASK_ID) % device_count``
+    and is made current, as a JAX process takes its own local devices, so
+    ranks spread over a host's cards and share one where there is one.
+    Anything else, and any single-worker run, is :func:`resolve_device`'s
+    answer unchanged."""
+    dev = resolve_device(device)
+    if (dev.type != "cuda" or dev.index is not None
+            or int(os.environ.get("DMLC_NUM_WORKER", "1")) <= 1):
+        return dev
+    local = os.environ.get("LOCAL_RANK") or os.environ.get("DMLC_TASK_ID")
+    dev = torch.device("cuda", int(local or 0) % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
     return dev

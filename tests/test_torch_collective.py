@@ -269,12 +269,18 @@ def store_port() -> int:
         return s.getsockname()[1]
 
 
-def test_four_workers_through_the_tracker(tmp_path):
+@pytest.mark.parametrize("launcher", ["jax", "port"])
+def test_four_workers_through_the_tracker(tmp_path, launcher):
+    """The port's workers under either package's launcher (``python -m
+    dmlc_core_tpu.tracker.submit`` or ``dmlc_core_tpu_torch.tracker.
+    submit``): the env contract is the same."""
     from tests.conftest import run_tracker_workers
+    from tests.test_torch_tracker import run_port_workers
 
-    proc = run_tracker_workers(tmp_path, WORKER, 4, timeout=120,
-                               env_extra={"STORE_PORT": str(store_port()),
-                                          "STORE_PORT2": str(store_port())})
+    run = run_tracker_workers if launcher == "jax" else run_port_workers
+    proc = run(tmp_path, WORKER, 4, timeout=120,
+               env_extra={"STORE_PORT": str(store_port()),
+                          "STORE_PORT2": str(store_port())})
     assert proc.returncode == 0, proc.stderr[-4000:]
     for rank in range(4):
         assert (tmp_path / f"ok-{rank}").exists(), rank

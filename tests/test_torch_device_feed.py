@@ -274,11 +274,20 @@ def test_cli_refuses_unported_flows(tmp_path, capsys, flag):
 
 
 def test_cli_refuses_a_multi_worker_launch(tmp_path, monkeypatch, capsys):
+    """A launch of more than one worker trains one global
+    model (``tests/test_torch_multiworker.py`` runs it in 2 real workers);
+    what it still refuses, with the reference's message, are the
+    single-host flows ``--eval-data`` and ``--checkpoint-dir``."""
     from dmlc_core_tpu_torch.parallel import mesh
 
     data = _libsvm(tmp_path, n=50)
     monkeypatch.setattr(mesh, "local_shard_info", lambda: (0, 2))
-    with pytest.raises(SystemExit):
-        train_gbdt.main(["--data", data, "--num-feature", "4",
-                         "--device", "cpu"])
-    assert "never per-shard models" in capsys.readouterr().err
+    argv = ["--data", data, "--num-feature", "4", "--device", "cpu",
+            "--rounds", "2", "--max-depth", "2"]
+    for flag, value in (("--eval-data", data),
+                        ("--checkpoint-dir", str(tmp_path / "ckpt"))):
+        with pytest.raises(SystemExit):
+            train_gbdt.main(argv + [flag, value])
+        assert "are single-host flows" in capsys.readouterr().err
+    train_gbdt.main(argv)
+    assert "over 2 workers" in capsys.readouterr().out

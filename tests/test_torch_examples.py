@@ -274,13 +274,31 @@ def test_clis_need_a_card_unless_cpu_is_asked(tmp_path, cli):
 @pytest.mark.parametrize("cli", [train_logreg, train_mlp])
 def test_clis_refuse_a_multi_worker_launch(tmp_path, monkeypatch, capsys,
                                            cli):
+    """A launch of more than one worker is not refused: the
+    CLI reads its own byte-range shard and steps under the data mesh
+    (``tests/test_torch_multiworker.py`` runs it in 2 real workers).  What
+    such a launch still refuses is the tensor-parallel MLP ([9a])."""
+    from dmlc_core_tpu_torch.data import factory
     from dmlc_core_tpu_torch.parallel import mesh
 
     data = _linear_file(tmp_path, n=64)
     monkeypatch.setattr(mesh, "local_shard_info", lambda: (0, 2))
-    with pytest.raises(SystemExit):
-        cli.main(["--data", data, "--num-feature", "8", "--device", "cpu"])
-    assert "never per-shard models" in capsys.readouterr().err
+    shards = []
+    plain = factory.create_parser
+
+    def recording(uri, part, nparts, **kw):
+        shards.append((part, nparts))
+        return plain(uri, part, nparts, **kw)
+
+    monkeypatch.setattr(factory, "create_parser", recording)
+    argv = ["--data", data, "--num-feature", "8", "--device", "cpu",
+            "--batch-size", "8", "--epochs", "1"]
+    losses = cli.main(argv)[-1]
+    assert shards == [(0, 2)] and len(losses) == 1
+    assert "never per-shard models" not in capsys.readouterr().err
+    if cli is train_mlp:
+        with pytest.raises(NotImplementedError, match="9a"):
+            cli.main(argv + ["--model-parallel", "2"])
 
 
 # -- graft entry, loader, serving ---------------------------------------------
