@@ -10,9 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: compiles ``dmlc_core_tpu_torch/csrc/hist.cu`` with nvcc and
-   prints the build seconds and the ptxas report; the probe
-   (``kernels_available``) checks K1, K2 and K3 on a small case;
+2. build: compiles the native ingest engine
+   (``dmlc_core_tpu_torch/csrc/native/*.cc``) with g++ into
+   ``build/native/`` before any worker process starts, then
+   ``dmlc_core_tpu_torch/csrc/hist.cu`` with nvcc, and prints both builds'
+   seconds and the ptxas report; the probe (``kernels_available``) checks
+   K1, K2 and K3 on a small case;
 3. kernels: at 2,000,000 rows x 28 features x 256 bins and 1, 32 and 256
    nodes, K2 (``grad_hist_cuda``, which launches K3's kernel: one K3
    launch and no K1 launch a call) and K3 (``grad_hist_fused_cuda``)
@@ -59,22 +62,26 @@ Phases (any failure exits non-zero and prints no result line):
    collectives.  Then one worker with world size 1 over NCCL fits 200,000
    rows with ``model_axis`` and must match the plain card fit bitwise;
 6. ingest: the first 500,000 of phase 4's training rows are written as
-   libsvm text (``%.9g``, so every float32 survives) and the first
-   200,000 as CSV with the label column, then parsed with the port's
-   threaded ``create_parser`` (default thread count) and
-   ``dense_batches(8192)``: the parsed features and labels must be
-   bitwise the written arrays.  Edges on the first 50,000 parsed rows,
+   libsvm text (``%.9g``, so every float32 survives) and the first 200,000
+   as CSV with the label column, then parsed with the port's threaded
+   ``create_parser`` (default thread count; the native engine) and
+   ``dense_batches(8192)``: the parsed features and labels must be bitwise
+   the written arrays and the native parse calls (read from
+   ``native_bridge.ENGINE_CALLS``) more than 0; both files are parsed again
+   with the numpy engine (``DMLC_TPU_DISABLE_NATIVE``), whose merged
+   columns must be bitwise the native engine's, and both engines' seconds,
+   MB/s and rows/s are printed.  Edges on the first 50,000 parsed rows,
    ``binned_batches`` (the wire must be bitwise phase 4's
-   ``binner.transform`` of the same rows), ``DeviceFeedLoader`` through
-   its pinned ring into one preallocated tensor on the card (bitwise
+   ``binner.transform`` of the same rows), ``DeviceFeedLoader`` through its
+   pinned ring into one preallocated tensor on the card (bitwise
    ``torch.from_numpy(wire).to(card)``), timed beside a synchronous
-   pageable ``.to(card)``, then ``fit_binned`` with labels only, as
-   phase 4 fits: its ensemble and margin must be bitwise the phase-4
-   model's fit of the same rows from memory, with K3's kernel on every
-   level and K1 never (counts set to 0 before the parse, read after the
-   fit, printed on a line of their own).  Last, ``python -m
-   dmlc_core_tpu_torch.examples.train_gbdt`` on the libsvm file must exit
-   0 with train accuracy >= 0.8.  Writing and parsing all 2,000,000 rows,
+   pageable ``.to(card)``, then ``fit_binned`` with labels only, as phase 4
+   fits: its ensemble and margin must be bitwise the phase-4 model's fit of
+   the same rows from memory, with K3's kernel on every level and K1 never
+   (counts set to 0 before the parse, read after the fit, printed on a line
+   of their own).  Last, ``python -m
+   dmlc_core_tpu_torch.examples.train_gbdt`` on the libsvm file must exit 0
+   with train accuracy >= 0.8.  Writing and parsing all 2,000,000 rows,
    twice with the CLI, would not fit phase 6's ~120 s;
 7. serve: phase 4's warm ``"auto"`` model is saved with ``serving_state``
    through ``CheckpointManager.save(1)`` (manifest published) under
@@ -205,7 +212,29 @@ Phases (any failure exits non-zero and prints no result line):
    within 2e-2 of the largest, the bf16 bound, and the loss within
    1e-5).  Last, ``python -m
    dmlc_core_tpu_torch.examples.train_gbdt`` itself in 2 workers on the
-   first 100,000 rows: exit 0 and the same line from both ranks.
+   first 100,000 rows: exit 0 and the same line from both ranks;
+12. recordio and the split engines: phase 4's 2,000,000 training rows as
+   one record each (28 uint8 bins, then the float32 label) written with
+   ``IndexedRecordIOWriter.write_records`` (the batched native framing)
+   with its index.  (12a) ``create_input_split(type="recordio")`` in 4
+   parts through the native engine and the Python engine: each part's
+   records equal between them, and the parts, decoded in order, bitwise
+   phase 4's wire and labels (disjoint and exhaustive); the wire fed to the
+   card and ``fit_binned``: ensemble and margin bitwise phase 4's
+   ``"auto"`` fit, K3's kernel on every level, K1 never.  (12b)
+   ``indexed_recordio`` with ``shuffle=True``, ``batch_size=8192`` and a
+   fixed seed through the native span reader: the seed's shuffle of every
+   record once (the order of ``random.Random(111 + seed)``), then the
+   second epoch's first 200,000 records, planned over all 2,000,000, in
+   the seed's second shuffle; on a file of the first 200,000 records, two
+   epochs through each engine: the same orders from both, each the seed's
+   shuffle, the second unlike the first.  (12c) a
+   ``#cachefile`` recordio split: epoch 2, the replay, bitwise epoch 1,
+   both engines.  (12d) ``InputSplitShuffle`` with 4 shuffle parts: every
+   record once, not in file order, both engines in the same order.  (12e)
+   200,000 rows as libfm with fields (7 columns a field) through both
+   parsers: columns bitwise equal, and to the written rows.  Each read's
+   seconds and MB/s are printed.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -215,10 +244,12 @@ counts set to 0 just before it: K1 is on no main path, so its count is 0
 those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
 phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
-count of phase 11, the multi-worker path's run.
+count of phase 11, the multi-worker path's run, and phase 12's fit from
+recordio.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -306,6 +337,14 @@ MW_GRAD_TOL = 2e-2            # 11b: bf16 MLP gradients, relative and of
                               # each one's largest magnitude (the bf16
                               # bound of tests/test_torch_linear_mlp.py;
                               # a dropped rank moves them 0.26-0.37)
+N_REC_PY = 200_000            # 12b: the Python engine's shuffled reads
+                              # (one span a record) of the first 200,000
+N_REC_PARTS = 4               # 12a's parts; 12d's shuffle parts
+REC_BATCH = 8192              # 12b's batch of records
+REC_SEED = 11                 # 12b's shuffle seed and 12d's (at 13, 12d's 4
+                              # shuffle parts keep their file order)
+N_LIBFM = 200_000             # 12e's libfm rows
+LIBFM_FIELD_WIDTH = 7         # 12e: columns 7f..7f+6 form field f
 MLP_TOL = 1e-5                # 9c: the card's bf16 MLP against the CPU's
                               # bf16 MLP (the same code); 9c's f32 control
                               # must read above it
@@ -354,12 +393,37 @@ def phase_device():
     return card
 
 
-def phase_build():
+def phase_build(card):
+    from dmlc_core_tpu_torch import native_bridge
     from dmlc_core_tpu_torch.ops import _build, hist_cuda
 
     print("== phase 2: build", flush=True)
+    # the native ingest engine (g++) builds beside the kernels (nvcc), here
+    # rather than in later phases' worker processes, which would wait on
+    # its build lock
+    native = {}
+
+    def build_native():
+        start = time.perf_counter()
+        try:
+            native_bridge.load_library()
+        except BaseException as exc:  # noqa: BLE001 - failed below
+            native["error"] = exc
+        native["sec"] = time.perf_counter() - start
+
+    thread = threading.Thread(target=build_native, name="native-build")
+    thread.start()
     start = time.perf_counter()
-    _build.load_library()
+    try:
+        _build.load_library()
+    finally:
+        thread.join()
+    if "error" in native:
+        fail(f"the native ingest engine did not build: {native['error']}")
+    info = native_bridge.BUILD_INFO
+    print(f"native build: {native['sec']:.1f} s (g++ "
+          f"{info.get('seconds', 0.0):.1f} s, cached={info.get('cached')}) "
+          f"[{card}]", flush=True)
     info = _build.BUILD_INFO
     print(f"built {_build.LIBRARY} in {time.perf_counter() - start:.2f} s "
           f"(nvcc {info.get('seconds', 0.0):.2f} s, cached="
@@ -726,6 +790,7 @@ def phase_gbdt(card):
     if abs(accs["cuda"] - accs["cpu"]) > 0.005:
         fail("card and CPU accuracies differ by more than 0.005")
     ref = dict(x=x, y=y, wire=wire, model=model, bins=bins, y_tr=y_tr,
+               margin=fits[1][1],
                ens=fits[1][0], fit_sec=fits[1][2])
     return launches, ref
 
@@ -1080,9 +1145,11 @@ def worker_main(mode, outdir):
 # -- phase 6: ingest ----------------------------------------------------------
 def _write_text(path, x, y, head, sep, cell):
     """``label<head>v<sep>v...`` lines, every value with %.9g (every
-    float32 survives the round trip), written 50,000 rows at a time."""
-    fmt = "%.9g" + head + sep.join(cell.format(j) for j in
-                                   range(x.shape[1])) + "\n"
+    float32 survives the round trip), written 50,000 rows at a time.
+    ``cell`` is formatted with the column and its libfm field
+    (``LIBFM_FIELD_WIDTH`` columns a field)."""
+    fmt = "%.9g" + head + sep.join(cell.format(j, j // LIBFM_FIELD_WIDTH)
+                                   for j in range(x.shape[1])) + "\n"
     with open(path, "w") as f:
         for s in range(0, len(x), 50_000):
             rows = np.concatenate([y[s:s + 50_000, None], x[s:s + 50_000]],
@@ -1103,6 +1170,39 @@ def _parse_blocks(uri):
     finally:
         parser.close()
     return blocks, time.perf_counter() - start
+
+
+class _numpy_engine:
+    """``DMLC_TPU_DISABLE_NATIVE`` set inside the block: the port's numpy
+    parse engine and Python split engine."""
+
+    def __enter__(self):
+        self._was = os.environ.get("DMLC_TPU_DISABLE_NATIVE")
+        os.environ["DMLC_TPU_DISABLE_NATIVE"] = "1"
+
+    def __exit__(self, *exc):
+        if self._was is None:
+            os.environ.pop("DMLC_TPU_DISABLE_NATIVE")
+        else:
+            os.environ["DMLC_TPU_DISABLE_NATIVE"] = self._was
+
+
+def _same_columns(got, want):
+    """Whether two parses' merged RowBlock columns are bitwise equal (an
+    absent weight or value column means all ones)."""
+    from dmlc_core_tpu_torch.data.row_block import concat_blocks
+
+    a, b = concat_blocks(got), concat_blocks(want)
+    for name in ("offset", "label", "weight", "index", "value", "field"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None and y is None:
+            continue
+        n = a.size if name == "weight" else a.num_nonzero
+        x = np.ones(n, np.float32) if x is None else x
+        y = np.ones(n, np.float32) if y is None else y
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            return False
+    return True
 
 
 def _dense_rows(blocks, n_feature):
@@ -1172,6 +1272,7 @@ def _feed(card, binned, n, dev):
 def phase_ingest(card, ref):
     import tempfile
 
+    from dmlc_core_tpu_torch import native_bridge
     from dmlc_core_tpu_torch.bridge.binning import HostBinner, binned_batches
     from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
     from dmlc_core_tpu_torch.ops import hist_cuda
@@ -1195,16 +1296,16 @@ def phase_ingest(card, ref):
 
         # the ingest path: counts set to 0 just before, read just after
         hist_cuda.reset_launches()
+        native_bridge.reset_engine_calls()
+        files = (("libsvm", svm, svm_bytes, N_INGEST),
+                 ("csv", csv + "?format=csv&label_column=0", csv_bytes, N_CSV))
         parsed = {}
-        for name, uri, nbytes, rows in (
-                ("libsvm", svm, svm_bytes, N_INGEST),
-                ("csv", csv + "?format=csv&label_column=0", csv_bytes,
-                 N_CSV)):
+        for name, uri, nbytes, rows in files:
             blocks, sec = _parse_blocks(uri)
             px, py, dense_sec = _dense_rows(blocks, N_FEATURES)
-            print(f"parse {name}: {sec:.3f} s, {nbytes / sec / 1e6:.2f} MB/s, "
-                  f"{rows / sec:,.0f} rows/s; dense_batches {dense_sec:.3f} s "
-                  f"[{card}]", flush=True)
+            print(f"parse {name}, native engine: {sec:.3f} s, "
+                  f"{nbytes / sec / 1e6:.2f} MB/s, {rows / sec:,.0f} rows/s; "
+                  f"dense_batches {dense_sec:.3f} s [{card}]", flush=True)
             if not (np.array_equal(px.view(np.uint32),
                                    x[:rows].view(np.uint32))
                     and np.array_equal(py.view(np.uint32),
@@ -1212,8 +1313,27 @@ def phase_ingest(card, ref):
                 fail(f"the parsed {name} features or labels are not bitwise "
                      f"the float32 arrays that were written")
             parsed[name] = blocks, px
+        calls = dict(native_bridge.ENGINE_CALLS)
+        print(f"native engine calls: {calls}", flush=True)
+        if calls["parse_libsvm"] == 0 or calls["parse_csv"] == 0:
+            fail("phase 6 parsed without the native engine")
         print("parsed features and labels bitwise equal to the written "
               "float32 arrays (libsvm and CSV)", flush=True)
+        # the same files through the numpy engine, asked for explicitly
+        with _numpy_engine():
+            for name, uri, nbytes, rows in files:
+                blocks, sec = _parse_blocks(uri)
+                print(f"parse {name}, numpy engine: {sec:.3f} s, "
+                      f"{nbytes / sec / 1e6:.2f} MB/s, {rows / sec:,.0f} "
+                      f"rows/s [{card}]", flush=True)
+                if not _same_columns(blocks, parsed[name][0]):
+                    fail(f"the numpy engine's {name} columns differ from "
+                         f"the native engine's")
+                del blocks
+        if native_bridge.ENGINE_CALLS != calls:
+            fail("the numpy engine called into the native library")
+        print("numpy engine's merged columns bitwise the native engine's "
+              "(libsvm and CSV)", flush=True)
         blocks, px = parsed.pop("libsvm")
         del parsed
 
@@ -3287,6 +3407,336 @@ def phase_multiworker(card, ref):
     return g[0]["launches"]["grad_hist_fused_cuda"]
 
 
+# -- phase 12: recordio and the split engines ----------------------------------
+def _read_chunks(split, close=True):
+    """Every chunk of an InputSplit, in order; (chunks, seconds)."""
+    start = time.perf_counter()
+    try:
+        chunks = list(iter(split.next_chunk, None))
+    finally:
+        if close:
+            split.close()
+    return chunks, time.perf_counter() - start
+
+
+def _decode(chunks):
+    """Phase 12's records in chunk order through the native scan: an
+    [n, 32] uint8 array (28 bins, then the float32 label's bytes)."""
+    from dmlc_core_tpu_torch import native_bridge
+
+    out = []
+    for chunk in chunks:
+        head, plen, escaped, _, _ = native_bridge.recordio_scan(
+            chunk, 0, len(chunk))
+        if len(head) and (plen != 32).any():
+            fail("a phase-12 record is not 32 bytes long")
+        buf = np.frombuffer(chunk, np.uint8)
+        if len(head) * 40 == len(buf) and not escaped.any():
+            out.append(buf.reshape(-1, 40)[:, 8:])  # frames back to back
+            continue
+        rows = buf[(head + 8)[:, None] + np.arange(32)]
+        for i in np.nonzero(escaped)[0]:   # a payload holding the magic word
+            rows[i] = np.frombuffer(native_bridge.recordio_extract(
+                chunk, int(head[i]), 32), np.uint8)
+        out.append(rows)
+    return np.concatenate(out) if out else np.empty((0, 32), np.uint8)
+
+
+def _sorted_rows(rows):
+    """Rows in lexicographic order of their four 8-byte words."""
+    words = np.ascontiguousarray(rows).view(np.uint64)
+    return rows[np.lexsort(words.T[::-1])]
+
+
+def _read_line(label, sec, nbytes, card):
+    print(f"{label}: {sec:.3f} s, {nbytes / sec / 1e6:.1f} MB/s [{card}]",
+          flush=True)
+
+
+def _write_records(path, payload):
+    """``IndexedRecordIOWriter.write_records`` (the batched native framing)
+    into ``path``, its index into ``path + ".idx"``; returns the bytes."""
+    from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_core_tpu_torch.io.stream import create_stream
+
+    with create_stream(path, "w") as stream:
+        writer = IndexedRecordIOWriter(stream)
+        for s in range(0, len(payload), 250_000):
+            writer.write_records([r.tobytes() for r in payload[s:s + 250_000]])
+    with create_stream(path + ".idx", "w") as stream:
+        writer.save_index(stream)
+    return os.path.getsize(path)
+
+
+def phase_recordio(card, ref):
+    """Phase 12: phase 4's training rows as recordio through the split
+    engines at full width, then a libfm file through both parsers.  Every
+    native read covers all 2,000,000 records, and so do the Python engine's
+    reads of 12a, 12c and 12d.  12b reads the 2,000,000 shuffled records
+    natively in a whole first epoch and the first 200,000 records of the
+    second (its plan covers all 2,000,000); its comparison of the engines,
+    and of two epochs, reads a file of the first 200,000 records
+    (``N_REC_PY``: both engines read one span a record there, ~13-18 us a
+    span on the card machine's host).  Returns the K3 launches of 12a's
+    fit."""
+    import random
+    import tempfile
+
+    from dmlc_core_tpu_torch import native_bridge
+    from dmlc_core_tpu_torch.io.input_split import (InputSplitShuffle,
+                                                    NativeCachedSplitter,
+                                                    NativeLineSplitter,
+                                                    create_input_split)
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    print(f"== phase 12: {N_ROWS:,} of phase 4's rows as recordio (28 bins + "
+          f"the float32 label a record) through the split engines, then "
+          f"{N_LIBFM:,} as libfm", flush=True)
+    phase_start = time.perf_counter()
+    dev = torch.device("cuda")
+    wire, y = ref["wire"][:N_ROWS], ref["y"][:N_ROWS]
+    payload = np.concatenate(
+        [wire, y.astype(np.float32).view(np.uint8).reshape(-1, 4)], axis=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "train.rec")
+        start = time.perf_counter()
+        nbytes = _write_records(rec, payload)
+        _read_line(f"write {nbytes:,} bytes with IndexedRecordIOWriter",
+                   time.perf_counter() - start, nbytes, card)
+        small = os.path.join(tmp, "first.rec")
+        _write_records(small, payload[:N_REC_PY])
+
+        # (12a) 4 parts through each engine; the native one is the default
+        native_bridge.reset_engine_calls()
+        parts = {}
+        for engine in ("native", "python"):
+            sec, chunks = 0.0, []
+            for part in range(N_REC_PARTS):
+                if engine == "native":
+                    split = create_input_split(rec, part, N_REC_PARTS,
+                                               "recordio")
+                    if not isinstance(split, NativeLineSplitter):
+                        fail(f"the recordio split is a {type(split)}")
+                else:
+                    with _numpy_engine():
+                        split = create_input_split(rec, part, N_REC_PARTS,
+                                                   "recordio")
+                got, s = _read_chunks(split)
+                sec += s
+                chunks.append(got)
+            parts[engine] = chunks
+            _read_line(f"12a: recordio in {N_REC_PARTS} parts, {engine} "
+                       f"engine", sec, nbytes, card)
+        calls = native_bridge.ENGINE_CALLS["lsplit_next_chunk"]
+        if calls == 0:
+            fail("12a read without the native split engine")
+        for part in range(N_REC_PARTS):
+            if (b"".join(parts["native"][part])
+                    != b"".join(parts["python"][part])):
+                fail(f"12a: part {part}'s records differ between engines")
+        start = time.perf_counter()
+        rows = _decode([c for p in parts.pop("native") for c in p])
+        del parts
+        got_wire = np.ascontiguousarray(rows[:, :28])
+        got_y = np.ascontiguousarray(rows[:, 28:]).view(np.float32).ravel()
+        print(f"12a: decoded {len(rows):,} records in "
+              f"{time.perf_counter() - start:.3f} s; {calls} native chunks",
+              flush=True)
+        if not (np.array_equal(got_wire, wire)
+                and np.array_equal(got_y.view(np.uint32),
+                                   y.view(np.uint32))):
+            fail("12a: the parts' records are not phase 4's wire and labels "
+                 "in order (not disjoint and exhaustive, or altered)")
+        print(f"12a: parts equal between engines; disjoint and exhaustive; "
+              f"wire and labels bitwise phase 4's", flush=True)
+        hist_cuda.reset_launches()
+        bins = torch.from_numpy(got_wire).to(dev)
+        y_dev = torch.from_numpy(got_y).to(dev)
+        (ens, margin), fit_sec = device_time(ref["model"].fit_binned, bins,
+                                             y_dev)
+        torch.cuda.synchronize()
+        launches = dict(hist_cuda.LAUNCHES)
+        same = (all(torch.equal(a, b) for a, b in zip(ens, ref["ens"]))
+                and torch.equal(margin, ref["margin"]))
+        print(f"12a: fit from recordio {fit_sec:.3f} s, launches {launches}; "
+              f"ensemble and margin bitwise phase 4's auto fit: {same} "
+              f"[{card}]", flush=True)
+        if not same:
+            fail("12a: the fit from recordio differs from phase 4's")
+        if launches["grad_hist_fused_cuda"] < ROUNDS * MAX_DEPTH:
+            fail("12a: K3's kernel did not run on every level")
+        if launches["hist_matmul_cuda"] != 0:
+            fail("12a: the fit launched K1")
+        del bins, y_dev, ens, margin, rows, got_wire, got_y
+
+        # (12b) shuffled indexed reads: the reference's order for the seed
+        kw = dict(shuffle=True, seed=REC_SEED, batch_size=REC_BATCH)
+        start = time.perf_counter()
+        split = create_input_split(rec, 0, 1, "indexed_recordio",
+                                   index_uri=rec + ".idx", **kw)
+        print(f"12b: index of {N_ROWS:,} records read in "
+              f"{time.perf_counter() - start:.3f} s", flush=True)
+        chunks, sec = _read_chunks(split, close=False)
+        _read_line("12b: shuffled indexed recordio, native engine", sec,
+                   nbytes, card)
+        if native_bridge.ENGINE_CALLS["span_next_chunk"] == 0:
+            fail("12b read without the native span reader")
+        # the second epoch's plan over every record; its first batches read
+        split.before_first()
+        start = time.perf_counter()
+        second = []
+        try:
+            while sum(len(c) for c in second) < N_REC_PY * 40:
+                chunk = split.next_chunk()
+                if chunk is None:
+                    fail("12b: the second epoch ended early")
+                second.append(chunk)
+        finally:
+            split.close()
+        _read_line(f"12b: second epoch, first {len(second)} batches, native "
+                   f"engine", time.perf_counter() - start,
+                   sum(map(len, second)), card)
+
+        def shuffles(n):
+            """The splitter's first two epochs' orders of n records: its
+            random.Random(KRAND_MAGIC + seed), KRAND_MAGIC = 111."""
+            rng = random.Random(111 + REC_SEED)
+            out = []
+            for _ in range(2):
+                perm = list(range(n))
+                rng.shuffle(perm)
+                out.append(np.asarray(perm))
+            return out
+
+        perms = shuffles(N_ROWS)
+        if not np.array_equal(_decode(chunks), payload[perms[0]]):
+            fail("12b: the read is not the seed's shuffle of every record "
+                 "once")
+        rows = _decode(second)
+        if not np.array_equal(rows, payload[perms[1][:len(rows)]]):
+            fail(f"12b: the second epoch's first {len(rows):,} records are "
+                 f"not the seed's second shuffle")
+        print(f"12b: the second epoch's first {len(rows):,} records in the "
+              f"seed's second shuffle", flush=True)
+        del chunks, second, rows, perms
+        orders = {}
+        for engine in ("native", "python"):
+            with (_numpy_engine() if engine == "python"
+                  else contextlib.nullcontext()):
+                split = create_input_split(small, 0, 1, "indexed_recordio",
+                                           index_uri=small + ".idx", **kw)
+                first, sec = _read_chunks(split, close=False)
+                split.before_first()
+                second, sec2 = _read_chunks(split)
+            orders[engine] = (first, second)
+            _read_line(f"12b: first {N_REC_PY:,} records, two epochs, "
+                       f"{engine} engine", sec + sec2,
+                       2 * sum(map(len, first)), card)
+        if [b"".join(e) for e in orders["native"]] != \
+                [b"".join(e) for e in orders["python"]]:
+            fail("12b: the engines' shuffled orders differ")
+        for epoch, perm in enumerate(shuffles(N_REC_PY)):
+            if not np.array_equal(_decode(orders["native"][epoch]),
+                                  payload[perm]):
+                fail(f"12b: epoch {epoch + 1} of the first {N_REC_PY:,} "
+                     f"records is not the seed's shuffle")
+        if b"".join(orders["native"][0]) == b"".join(orders["native"][1]):
+            fail("12b: two epochs read the records in the same order")
+        print("12b: every record once in the seed's order, both engines' "
+              "orders equal, the second epoch in another order", flush=True)
+        del orders
+
+        # (12c) the #cachefile split: epoch 2 replays epoch 1
+        replays = {}
+        for engine in ("native", "python"):
+            cache = os.path.join(tmp, f"{engine}.cache")
+            with (_numpy_engine() if engine == "python"
+                  else contextlib.nullcontext()):
+                split = create_input_split(f"{rec}#{cache}", 0, 1,
+                                           "recordio")
+                if (engine == "native") != isinstance(split,
+                                                      NativeCachedSplitter):
+                    fail(f"12c: {engine} engine gave a {type(split)}")
+                first, sec1 = _read_chunks(split, close=False)
+                split.before_first()
+                second, sec2 = _read_chunks(split)
+            _read_line(f"12c: #cachefile recordio, epoch 1 (teeing the "
+                       f"cache), {engine} engine", sec1, nbytes, card)
+            _read_line(f"12c: #cachefile recordio, epoch 2 (replay), "
+                       f"{engine} engine", sec2, nbytes, card)
+            if first != second:
+                fail(f"12c: the {engine} engine's replay is not epoch 1")
+            replays[engine] = first
+        if native_bridge.ENGINE_CALLS["creplay_next_chunk"] == 0:
+            fail("12c replayed without the native cache engine")
+        if b"".join(replays["native"]) != b"".join(replays["python"]):
+            fail("12c: the engines' cached epochs differ")
+        if not np.array_equal(_decode(replays.pop("native")), payload):
+            fail("12c: the cached epoch is not the records in order")
+        del replays
+        print("12c: replay bitwise epoch 1, both engines equal, the "
+              "records in order", flush=True)
+
+        # (12d) InputSplitShuffle over 4 shuffle parts covers every record
+        visits = {}
+        for engine in ("native", "python"):
+            with (_numpy_engine() if engine == "python"
+                  else contextlib.nullcontext()):
+                split = InputSplitShuffle(rec, 0, 1, "recordio", N_REC_PARTS,
+                                          shuffle_seed=REC_SEED)
+                chunks, sec = _read_chunks(split)
+            _read_line(f"12d: InputSplitShuffle ({N_REC_PARTS} shuffle "
+                       f"parts), {engine} engine", sec, nbytes, card)
+            visits[engine] = chunks
+        if b"".join(visits["native"]) != b"".join(visits["python"]):
+            fail("12d: the engines visit the records in another order")
+        rows = _decode(visits.pop("native"))
+        del visits
+        if not np.array_equal(_sorted_rows(rows), _sorted_rows(payload)):
+            fail("12d: the shuffle parts do not cover every record once")
+        if np.array_equal(rows, payload):
+            fail("12d: the shuffle parts were visited in file order")
+        print("12d: every record once, both engines' orders equal",
+              flush=True)
+        del rows, payload
+
+        # (12e) libfm with fields through both parsers
+        fm = os.path.join(tmp, "train.libfm")
+        x, y_fm = ref["x"][:N_LIBFM], ref["y"][:N_LIBFM]
+        fm_bytes = _write_text(fm, x, y_fm, " ", " ", "{1}:{0}:%.9g")
+        native_bridge.reset_engine_calls()
+        blocks, sec = _parse_blocks(fm + "?format=libfm")
+        print(f"12e: parse libfm, native engine: {sec:.3f} s, "
+              f"{fm_bytes / sec / 1e6:.2f} MB/s, {N_LIBFM / sec:,.0f} rows/s "
+              f"[{card}]", flush=True)
+        if native_bridge.ENGINE_CALLS["parse_libfm"] == 0:
+            fail("12e parsed without the native libfm parser")
+        with _numpy_engine():
+            numpy_blocks, sec = _parse_blocks(fm + "?format=libfm")
+        print(f"12e: parse libfm, numpy engine: {sec:.3f} s, "
+              f"{fm_bytes / sec / 1e6:.2f} MB/s, {N_LIBFM / sec:,.0f} rows/s "
+              f"[{card}]", flush=True)
+        if not _same_columns(numpy_blocks, blocks):
+            fail("12e: the libfm engines' columns differ")
+        from dmlc_core_tpu_torch.data.row_block import concat_blocks
+
+        block = concat_blocks(blocks)
+        cols = np.tile(np.arange(N_FEATURES, dtype=np.uint32), N_LIBFM)
+        if not (np.array_equal(block.index, cols)
+                and np.array_equal(block.field, cols // LIBFM_FIELD_WIDTH)
+                and np.array_equal(block.value.view(np.uint32),
+                                   x.ravel().view(np.uint32))
+                and np.array_equal(block.label.view(np.uint32),
+                                   y_fm.view(np.uint32))):
+            fail("12e: the parsed libfm columns are not the written rows")
+        print("12e: libfm columns bitwise equal between engines and to the "
+              "written rows, fields included", flush=True)
+    print(f"phase 12: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return launches["grad_hist_fused_cuda"]
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -3303,7 +3753,7 @@ def main():
     if not os.path.isdir(os.path.join(here, "dmlc_core_tpu_torch")):
         fail(f"no dmlc_core_tpu_torch package beside {__file__}")
     sys.path.insert(0, here)
-    phase_build()
+    phase_build(card)
     k1, k3 = phase_kernels()
     launches, ref = phase_gbdt(card)
     k1["launches"] = launches["hist_matmul_cuda"]     # 0: K1 is off the path
@@ -3316,8 +3766,10 @@ def main():
     phase_sampling(card, ref)
     # the slice's path: K3's launches of a phase-11 rank count too
     k3["launches"] += phase_multiworker(card, ref)
+    # and those of phase 12's fit from recordio
+    k3["launches"] += phase_recordio(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-11 passed in "
+    print(f"chip_smoke: phases 1-12 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

@@ -7,13 +7,16 @@ Capability parity with the reference (src/data/csv_parser.h:22-102):
   selects the label; default -1 means label 0.0 for every row;
 - empty lines are skipped.
 
-Counterpart of ``dmlc_core_tpu/data/csv_parser.py``, numpy path only.
+Counterpart of ``dmlc_core_tpu/data/csv_parser.py``: the native engine
+parses a whole chunk in C++ and splits the label column off in the same
+pass (``parse_chunk_native``); the numpy engine parses per sub-range.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from dmlc_core_tpu_torch import native_bridge
 from dmlc_core_tpu_torch.data.parser import TextParserBase
 from dmlc_core_tpu_torch.data.row_block import RowBlock, RowBlockContainer
 from dmlc_core_tpu_torch.param import Parameter, field
@@ -43,6 +46,18 @@ class CSVParser(TextParserBase):
         self.param = CSVParserParam(**{k: v for k, v in (args or {}).items()
                                        if k in CSVParserParam.__fields__})
         CHECK_EQ(self.param.format, "csv")
+
+    def parse_chunk_native(self, data):
+        parsed = native_bridge.parse_csv(data, nthread=max(self._nthread, 2),
+                                         missing=self.param.missing,
+                                         label_column=self.param.label_column)
+        if isinstance(parsed, tuple):
+            # the native one-pass label split: no np.delete copy here
+            labels, feats = parsed
+        else:
+            feats = parsed          # no label column: labels are 0.0
+            labels = np.zeros(len(feats), dtype=np.float32)
+        return self._assemble(labels, feats)
 
     def _assemble(self, labels: np.ndarray,
                   feats: np.ndarray) -> RowBlockContainer:

@@ -1,11 +1,12 @@
 """Parser factory with format auto-detection from URI args.
 
 Counterpart of ``dmlc_core_tpu/data/factory.py`` for the text formats the
-port has (``libsvm``, ``csv``): registry-driven parser construction
-(reference DMLC_REGISTER_DATA_PARSER, data.h:330-333) and ``format=``
-auto-detection from the URI query string (data.cc:70-76, default libsvm).
-``libfm``, the columnar formats and ``create_row_block_iter`` are not
-ported yet and raise.
+port has (``libsvm``, ``libfm``, ``csv``): registry-driven parser
+construction (reference DMLC_REGISTER_DATA_PARSER, data.h:330-333) and
+``format=`` auto-detection from the URI query string (data.cc:70-76,
+default libsvm).  A ``#cachefile`` URI reads through the cached split.  The
+columnar formats and ``create_row_block_iter`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from dmlc_core_tpu_torch.data.csv_parser import CSVParser
+from dmlc_core_tpu_torch.data.libfm_parser import LibFMParser
 from dmlc_core_tpu_torch.data.libsvm_parser import LibSVMParser
 from dmlc_core_tpu_torch.data.parser import Parser, ThreadedParser
 from dmlc_core_tpu_torch.io.input_split import create_input_split
@@ -30,13 +32,18 @@ def _make_libsvm(source, args, nthread, index_dtype):
     return LibSVMParser(source, nthread=nthread, index_dtype=index_dtype)
 
 
+@parser_registry.register("libfm", description="label field:idx:val... lines")
+def _make_libfm(source, args, nthread, index_dtype):
+    return LibFMParser(source, nthread=nthread, index_dtype=index_dtype)
+
+
 @parser_registry.register("csv", description="dense csv rows")
 def _make_csv(source, args, nthread, index_dtype):
     return CSVParser(source, args=args, nthread=nthread, index_dtype=index_dtype)
 
 
 # formats of the JAX package still to port -> the ROADMAP item naming them
-_NOT_PORTED = {"libfm": "the libfm parser", "parquet": "columnar ingest",
+_NOT_PORTED = {"parquet": "columnar ingest",
                "arrow": "columnar ingest", "feather": "columnar ingest",
                "ipc": "columnar ingest"}
 

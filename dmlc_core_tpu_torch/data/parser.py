@@ -1,9 +1,9 @@
 """Parser iteration protocol + threaded decorator + text-chunk parallelism.
 
-Counterpart of ``dmlc_core_tpu/data/parser.py`` on the thread pool only: no
-process pool (``DMLC_PARSE_PROC`` is not read) and no native C++ parser.
-Parity with the reference's parser core (src/data/parser.h:23-126) and
-``TextParserBase`` (src/data/text_parser.h:24-118):
+Counterpart of ``dmlc_core_tpu/data/parser.py`` without the process pool
+(``DMLC_PARSE_PROC`` is not read; ROADMAP §1, [1e]).  Parity with the
+reference's parser core (src/data/parser.h:23-126) and ``TextParserBase``
+(src/data/text_parser.h:24-118):
 
 - :class:`Parser` — the ``DataIter<RowBlock>`` protocol (data.h:52-63):
   ``before_first`` / ``next`` / ``bytes_read``;
@@ -12,7 +12,11 @@ Parity with the reference's parser core (src/data/parser.h:23-126) and
 - :class:`TextParserBase` — one InputSplit chunk is cut into per-worker
   sub-ranges realigned at newlines and parsed in parallel (FillData,
   text_parser.h:89-118); workers run in a thread pool (the reference's OpenMP
-  team) and the heavy lifting is vectorized numpy, which releases the GIL;
+  team) and the heavy lifting is vectorized numpy, which releases the GIL.
+  That is the numpy engine.  By default a whole chunk goes to the native
+  C++ parser instead (:mod:`dmlc_core_tpu_torch.native_bridge`), which
+  threads internally, and a native split hands it the chunk in place;
+  ``DMLC_TPU_DISABLE_NATIVE`` asks for the numpy engine;
 - :class:`ThreadedParser` — prefetch decorator running the whole parse on a
   producer thread with a bounded queue (parser.h:70-126, capacity 8); the
   queue is additionally bounded by decoded-block *bytes*
@@ -22,11 +26,12 @@ Parity with the reference's parser core (src/data/parser.h:23-126) and
 
 from __future__ import annotations
 
+import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
-from dmlc_core_tpu_torch import telemetry
+from dmlc_core_tpu_torch import native_bridge, telemetry
 from dmlc_core_tpu_torch.data.row_block import RowBlock, RowBlockContainer, concat_blocks
 from dmlc_core_tpu_torch.io.input_split import InputSplit
 from dmlc_core_tpu_torch.io.threadediter import ThreadedIter
@@ -122,6 +127,13 @@ class TextParserBase(ParserImpl):
         """Parse one newline-delimited byte range (per-format)."""
         raise NotImplementedError
 
+    def parse_chunk_native(self, data) -> Optional[RowBlockContainer]:
+        """Whole-chunk parse through the native engine (bytes or a
+        zero-copy ``(addr, len)`` view); None for a format without a native
+        parser.  The native parser threads internally (the reference's
+        OpenMP team, text_parser.h:100-115)."""
+        return None
+
     def parse_next_blocks(self) -> Optional[List[RowBlockContainer]]:
         """One source chunk -> containers, with per-chunk telemetry (span +
         ``dmlc_parser_{rows,bytes}_total``, labeled by parser class)."""
@@ -140,10 +152,30 @@ class TextParserBase(ParserImpl):
         return out
 
     def _parse_next_blocks_impl(self) -> Optional[List[RowBlockContainer]]:
-        chunk = self._source.next_chunk()
-        if chunk is None:
-            return None
-        self._bytes_read += len(chunk)
+        native = native_bridge.enabled()
+        # zero-copy path: a native split hands an (addr, len) view over its
+        # resident chunk buffer and the native parser reads it in place, with
+        # no Python bytes between the two C++ stages
+        view_fn = getattr(self._source, "next_chunk_view", None)
+        if native and view_fn is not None:
+            view = view_fn()
+            if view is None:
+                return None
+            self._bytes_read += view[1]
+            block = self.parse_chunk_native(view)
+            if block is not None:
+                return [block]
+            # a format without a native parser: materialize, fall through
+            chunk = ctypes.string_at(*view)
+        else:
+            chunk = self._source.next_chunk()
+            if chunk is None:
+                return None
+            self._bytes_read += len(chunk)
+            if native:
+                block = self.parse_chunk_native(chunk)
+                if block is not None:
+                    return [block]
         ranges = self._split_ranges(chunk, self._nthread)
         if self._pool is None or len(ranges) <= 1:
             return [self.parse_block(r) for r in ranges]

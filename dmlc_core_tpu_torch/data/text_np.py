@@ -13,7 +13,9 @@ chunk level with **whole-chunk byte arrays** — no per-line Python loop:
 - per-line token counts come from counting newline bytes before each token
   start — empty lines drop out for free (no token starts inside them).
 
-The port has no native core: this is its only parse engine.
+This is the port's numpy engine; the native C++ parsers
+(:mod:`dmlc_core_tpu_torch.native_bridge`) replace it wholesale unless
+``DMLC_TPU_DISABLE_NATIVE`` asks for it.
 
 Counterpart of ``dmlc_core_tpu/data/text_np.py`` (a copy).
 """

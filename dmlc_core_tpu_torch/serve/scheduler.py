@@ -155,6 +155,9 @@ class MicroBatcher:
         # submit()'s stop-check/enqueue critical section
         self._thread_lock = threading.RLock()
         self._crash: Optional[BaseException] = None
+        # requests popped by an assembly that then crashed, answered by the
+        # crash handler once the thread is deregistered
+        self._popped: List[_Pending] = []
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -284,11 +287,22 @@ class MicroBatcher:
             # deregister + drain under the lock: a racing submit() either
             # lands before the drain (failed structurally here) or after
             # it, when _ensure_thread sees no thread and starts a fresh
-            # batcher to consume it — nothing can strand in between
+            # batcher to consume it — nothing can strand in between.  The
+            # popped requests are answered only after the deregistration,
+            # so a client retrying on that answer starts a fresh batcher
             with self._thread_lock:
                 self._crash = exc
                 if self._thread is threading.current_thread():
                     self._thread = None
+                popped, self._popped = self._popped, []
+                if popped:
+                    failure = PredictFailed(f"batch assembly failed: {exc}",
+                                            retry_after=2.0)
+                    telemetry.count("dmlc_serve_shed_total", len(popped),
+                                    model=self.name, reason="predict_failed")
+                    self.admission.release(sum(i.nbytes for i in popped))
+                    for item in popped:
+                        _fail_future(item.future, failure)
                 self._drain_failed(PredictFailed(
                     f"scoring backend crashed: {exc}", retry_after=2.0),
                     reason="predict_failed")
@@ -329,9 +343,9 @@ class MicroBatcher:
         batch must resolve, not sit behind a poll timeout.
 
         Crash-safe: requests already popped when an assembly fault fires
-        are failed structurally before the crash ferries out — a popped
-        item whose future never resolves would hang its client until the
-        request timeout for no reason.
+        ferry out with the crash (``_popped``) and are failed structurally
+        by its handler — a popped item whose future never resolves would
+        hang its client until the request timeout for no reason.
         """
         batch: List[_Pending] = []
         try:
@@ -364,15 +378,8 @@ class MicroBatcher:
                     break
                 batch.append(item)
                 rows += item.rows.shape[0]
-        except BaseException as exc:
-            failure = PredictFailed(f"batch assembly failed: {exc}",
-                                    retry_after=2.0)
-            telemetry.count("dmlc_serve_shed_total", len(batch),
-                            model=self.name, reason="predict_failed")
-            if batch:
-                self.admission.release(sum(i.nbytes for i in batch))
-            for item in batch:
-                _fail_future(item.future, failure)
+        except BaseException:
+            self._popped = batch
             raise
         telemetry.gauge_set("dmlc_serve_queue_depth", self._queue.qsize(),
                             model=self.name)

@@ -2,11 +2,11 @@
 
 The same seeded text files go through both packages' URI streams,
 InputSplits, text parsers, batching and binning.  RowBlocks are compared
-column by column, bitwise, after merging a parse's blocks (the JAX
-package's native C++ parser, when it is built, cuts chunks into other
-blocks, and an absent weight or value column means all ones in either
-form).  With the JAX package held to its Python engine, the blocks must
-match one for one, absent columns included.  Partitions, batches, wire
+column by column, bitwise, after merging a parse's blocks (each package's
+native C++ parser makes one block of a chunk, the numpy engines one a
+thread, and an absent weight or value column means all ones in either
+form).  With the JAX package held to its Python engine and the port to its
+numpy engine, the blocks must match one for one, absent columns included.  Partitions, batches, wire
 bytes and bin edges are bitwise equal; thread, fault and counter behaviour
 is the same in both.
 """
@@ -96,10 +96,12 @@ CASES.update({f"csv-messy{s}": (_messy_csv(s), f"m{s}.csv",
 
 @pytest.fixture
 def python_engine(monkeypatch):
-    """The JAX package without its native library: the engine the port
-    copies."""
+    """The JAX package without its native library, and the port asked for
+    its numpy engine: both cut a chunk into per-thread blocks alike (the
+    native parsers make one block of a chunk)."""
     monkeypatch.setattr(native_bridge, "available", lambda: False)
     monkeypatch.setattr(native_bridge, "lsplit_available", lambda: False)
+    monkeypatch.setenv("DMLC_TPU_DISABLE_NATIVE", "1")
 
 
 def _write(tmp_path, case):
@@ -467,11 +469,7 @@ def test_remote_filesystems_not_ported(uri):
 
 def test_unported_formats_and_splits_raise(tmp_path):
     uri = _write(tmp_path, "libsvm")
-    with pytest.raises(Error, match="ROADMAP"):
-        psplit.create_input_split(uri, 0, 1, "recordio")
-    with pytest.raises(Error, match="ROADMAP"):
-        psplit.create_input_split(uri + "#cache", 0, 1, "text")
-    for fmt in ("libfm", "parquet", "arrow"):
+    for fmt in ("parquet", "arrow"):
         with pytest.raises(Error, match="ROADMAP"):
             pfactory.create_parser(uri, type=fmt)
     with pytest.raises(Error, match="ROADMAP"):

@@ -46,6 +46,59 @@ def test_port_imports_no_jax(path):
             f"{os.path.relpath(path, REPO)} imports {name}"
 
 
+def _names_repo_native(node):
+    """Whether an AST node names the repository's ``native/`` directory: a
+    path string through it, or ``os.path.join(..., "native")`` not under
+    the port's own ``csrc/`` or ``build/``."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        if any(c.isspace() for c in node.value):
+            return False                # prose, not a path
+        parts = node.value.split("/")
+        return "native" in parts[:-1] and not {"csrc", "build"} & set(parts)
+    if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "join"):
+        args = node.args
+        for i, arg in enumerate(args):
+            if isinstance(arg, ast.Constant) and arg.value == "native":
+                prev = args[i - 1] if i else None
+                if not (isinstance(prev, ast.Constant)
+                        and prev.value in ("csrc", "build")):
+                    return True
+    return False
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_never_loads_or_builds_the_jax_native_library(path):
+    """The port builds its own native library from its own copies of the
+    sources: it neither opens ``native/libdmlc_tpu_native.so`` nor runs
+    ``make`` on the repository's ``native/``."""
+    text = open(path, encoding="utf-8").read()
+    rel = os.path.relpath(path, REPO)
+    assert "libdmlc_tpu_native" not in text, rel
+    for node in ast.walk(ast.parse(text, path)):
+        assert not (isinstance(node, ast.Constant) and node.value == "make"), \
+            f"{rel} runs make"
+        assert not _names_repo_native(node), \
+            f"{rel} names the repository's native/: {ast.unparse(node)}"
+
+
+def test_port_rule_catches_the_jax_native_build():
+    """The rule above fails on the JAX package's own build and load."""
+    with open(os.path.join(REPO, "dmlc_core_tpu", "native_bridge.py"),
+              encoding="utf-8") as f:
+        jax_bridge = ast.parse(f.read())
+    assert any(_names_repo_native(n) for n in ast.walk(jax_bridge))
+    assert any(isinstance(n, ast.Constant) and n.value == "make"
+               for n in ast.walk(jax_bridge))
+    for code, names in (('os.path.join(_PKG, "csrc", "native")', False),
+                        ('os.path.join(ROOT, "build", "native")', False),
+                        ('os.path.join(ROOT, "native", "Makefile")', True),
+                        ('"native/libx.so"', True)):
+        assert any(_names_repo_native(n)
+                   for n in ast.walk(ast.parse(code))) == names, code
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked():
     x = np.zeros((4, 2), np.float32)
     bounds = np.zeros((2, 3), np.float32)
