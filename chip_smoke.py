@@ -234,7 +234,40 @@ Phases (any failure exits non-zero and prints no result line):
    record once, not in file order, both engines in the same order.  (12e)
    200,000 rows as libfm with fields (7 columns a field) through both
    parsers: columns bitwise equal, and to the written rows.  Each read's
-   seconds and MB/s are printed.
+   seconds and MB/s are printed;
+13. training from object storage: a strict SigV4 mock store
+   (``tests/mock_s3.py``) on loopback in this process is the bucket, the
+   environment carries the credential contract (``AWS_*``,
+   ``S3_ENDPOINT``) and the port's telemetry is on for the phase.  The
+   data is phase 6's 500,000-row libsvm file (kept under
+   ``build/chip_smoke_ingest/``, or written again the same way; the cut
+   from 2,000,000 rows is phase 6's own).  (13a) ``create_stream(s3://...,
+   "w")`` uploads it at ``DMLC_S3_WRITE_BUFFER_MB=64``, a multipart upload
+   of 4 parts; stat and list agree with its size, and
+   ``create_stream_for_read`` reads it back byte-equal.  (13b)
+   ``create_parser`` over the object twice: by default (the Python split
+   engine, ``native_bridge.ENGINE_CALLS`` split count 0) and with
+   ``DMLC_TPU_NATIVE_REMOTE=1`` (the native engine through the read-at
+   callback, ring 8, batched pop; count above 0); both merged columns
+   bitwise phase 6's local parse, each run's seconds, MB/s, rows/s, GETs
+   and read bytes (the ``dmlc_filesystem_*`` series) printed.  (13c) the
+   parse binned and fed as in phase 6, then ``fit_binned``: ensemble and
+   margin bitwise phase 6's ingest-path fit, K3's kernel on every level,
+   K1 never (counts set to 0 before 13b, read after the fit); the port's
+   ``train_gbdt`` CLI on a 100,000-row object with ``--checkpoint-dir
+   s3://...`` and ``--checkpoint-every 5``, then again: the rerun resumes
+   from the bucket's step 5, its final ensemble read back from the bucket
+   is bitwise the first run's, and the bucket's step is bitwise its first
+   5 trees.  (13d) ``create_row_block_iter("s3://...#s3://.../train.cache")``
+   with ``DMLC_CACHE_REMOTE=1`` and a fresh ``DMLC_CACHE_LOCAL_DIR``:
+   epoch 1 parses, builds the v2 cache and publishes it (one publish
+   counted), epoch 2 replays it from mmap bitwise epoch 1 and 13b's
+   columns; an iterator with another fresh directory (another host)
+   fetches the published cache with no parse (one remote hit) and its
+   blocks are bitwise epoch 1's.  (13e) a second store that cuts every 7th
+   GET off mid-body: a 16 MiB object read whole twice comes back
+   byte-equal, with at least one retry counted.  No ``hdfs://``: the
+   card machine has no ``pyarrow``.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -244,8 +277,8 @@ counts set to 0 just before it: K1 is on no main path, so its count is 0
 those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
 phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
-count of phase 11, the multi-worker path's run, and phase 12's fit from
-recordio.
+count of phase 11, the multi-worker path's run, phase 12's fit from
+recordio and phase 13's parse and fit from the bucket.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -346,6 +379,11 @@ REC_SEED = 11                 # 12b's shuffle seed and 12d's (at 13, 12d's 4
 N_LIBFM = 200_000             # 12e's libfm rows
 LIBFM_FIELD_WIDTH = 7         # 12e: columns 7f..7f+6 form field f
 MLP_TOL = 1e-5                # 9c: the card's bf16 MLP against the CPU's
+REMOTE_WRITE_MB = 64          # 13a: DMLC_S3_WRITE_BUFFER_MB of the upload
+N_REMOTE_CLI = 100_000        # 13c: rows of the CLI's object
+REMOTE_CKPT_EVERY = 5         # 13c: the CLI's --checkpoint-every
+RETRY_OBJECT = 16 << 20       # 13e: bytes read from the flaky store
+RETRY_FAIL_EVERY = 7          # 13e: every 7th GET cut off mid-body
                               # bf16 MLP (the same code); 9c's f32 control
                               # must read above it
 K3_RAGGED = [
@@ -1158,6 +1196,12 @@ def _write_text(path, x, y, head, sep, cell):
     return os.path.getsize(path)
 
 
+def _ingest_path():
+    """Phase 6's libsvm file, kept for phase 13 under ``build/``."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ingest", "train.libsvm")
+
+
 def _parse_blocks(uri):
     """Every RowBlock of ``uri`` through the port's threaded parser with
     the default thread count; (blocks, seconds)."""
@@ -1172,19 +1216,28 @@ def _parse_blocks(uri):
     return blocks, time.perf_counter() - start
 
 
-class _numpy_engine:
-    """``DMLC_TPU_DISABLE_NATIVE`` set inside the block: the port's numpy
-    parse engine and Python split engine."""
+class _env:
+    """Environment variables set inside the block (None unsets), e.g.
+    ``DMLC_TPU_DISABLE_NATIVE="1"``: the port's numpy parse engine and
+    Python split engine."""
+
+    def __init__(self, **values):
+        self._values = values
 
     def __enter__(self):
-        self._was = os.environ.get("DMLC_TPU_DISABLE_NATIVE")
-        os.environ["DMLC_TPU_DISABLE_NATIVE"] = "1"
+        self._was = {k: os.environ.get(k) for k in self._values}
+        for k, v in self._values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
     def __exit__(self, *exc):
-        if self._was is None:
-            os.environ.pop("DMLC_TPU_DISABLE_NATIVE")
-        else:
-            os.environ["DMLC_TPU_DISABLE_NATIVE"] = self._was
+        for k, v in self._was.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _same_columns(got, want):
@@ -1284,8 +1337,10 @@ def phase_ingest(card, ref):
     dev = torch.device("cuda")
     x, y = ref["x"][:N_INGEST], ref["y"][:N_INGEST]
     here = os.path.dirname(os.path.abspath(__file__))
+    # the libsvm file outlives the phase: phase 13 uploads it to a bucket
+    svm = _ingest_path()
+    os.makedirs(os.path.dirname(svm), exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
-        svm = os.path.join(tmp, "train.libsvm")
         csv = os.path.join(tmp, "train.csv")
         start = time.perf_counter()
         svm_bytes = _write_text(svm, x, y, " ", " ", "{}:%.9g")
@@ -1320,7 +1375,7 @@ def phase_ingest(card, ref):
         print("parsed features and labels bitwise equal to the written "
               "float32 arrays (libsvm and CSV)", flush=True)
         # the same files through the numpy engine, asked for explicitly
-        with _numpy_engine():
+        with _env(DMLC_TPU_DISABLE_NATIVE="1"):
             for name, uri, nbytes, rows in files:
                 blocks, sec = _parse_blocks(uri)
                 print(f"parse {name}, numpy engine: {sec:.3f} s, "
@@ -1336,6 +1391,10 @@ def phase_ingest(card, ref):
               "(libsvm and CSV)", flush=True)
         blocks, px = parsed.pop("libsvm")
         del parsed
+        from dmlc_core_tpu_torch.data.row_block import concat_blocks
+
+        # phase 13 holds its parses from the bucket against this one
+        ref["ingest_columns"] = concat_blocks(blocks)
 
         param = dict(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
                      num_bins=NUM_BINS, learning_rate=0.3)
@@ -1385,6 +1444,7 @@ def phase_ingest(card, ref):
               f"acc {acc:.4f}", flush=True)
         if not same:
             fail("the ingest-path fit differs from the in-memory fit")
+        ref["ingest_fit"] = ens, margin
         del bins, y_dev, want, binned
 
         cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.examples.train_gbdt",
@@ -3519,7 +3579,7 @@ def phase_recordio(card, ref):
                     if not isinstance(split, NativeLineSplitter):
                         fail(f"the recordio split is a {type(split)}")
                 else:
-                    with _numpy_engine():
+                    with _env(DMLC_TPU_DISABLE_NATIVE="1"):
                         split = create_input_split(rec, part, N_REC_PARTS,
                                                    "recordio")
                 got, s = _read_chunks(split)
@@ -3622,7 +3682,7 @@ def phase_recordio(card, ref):
         del chunks, second, rows, perms
         orders = {}
         for engine in ("native", "python"):
-            with (_numpy_engine() if engine == "python"
+            with (_env(DMLC_TPU_DISABLE_NATIVE="1") if engine == "python"
                   else contextlib.nullcontext()):
                 split = create_input_split(small, 0, 1, "indexed_recordio",
                                            index_uri=small + ".idx", **kw)
@@ -3651,7 +3711,7 @@ def phase_recordio(card, ref):
         replays = {}
         for engine in ("native", "python"):
             cache = os.path.join(tmp, f"{engine}.cache")
-            with (_numpy_engine() if engine == "python"
+            with (_env(DMLC_TPU_DISABLE_NATIVE="1") if engine == "python"
                   else contextlib.nullcontext()):
                 split = create_input_split(f"{rec}#{cache}", 0, 1,
                                            "recordio")
@@ -3681,7 +3741,7 @@ def phase_recordio(card, ref):
         # (12d) InputSplitShuffle over 4 shuffle parts covers every record
         visits = {}
         for engine in ("native", "python"):
-            with (_numpy_engine() if engine == "python"
+            with (_env(DMLC_TPU_DISABLE_NATIVE="1") if engine == "python"
                   else contextlib.nullcontext()):
                 split = InputSplitShuffle(rec, 0, 1, "recordio", N_REC_PARTS,
                                           shuffle_seed=REC_SEED)
@@ -3712,7 +3772,7 @@ def phase_recordio(card, ref):
               f"[{card}]", flush=True)
         if native_bridge.ENGINE_CALLS["parse_libfm"] == 0:
             fail("12e parsed without the native libfm parser")
-        with _numpy_engine():
+        with _env(DMLC_TPU_DISABLE_NATIVE="1"):
             numpy_blocks, sec = _parse_blocks(fm + "?format=libfm")
         print(f"12e: parse libfm, numpy engine: {sec:.3f} s, "
               f"{fm_bytes / sec / 1e6:.2f} MB/s, {N_LIBFM / sec:,.0f} rows/s "
@@ -3733,6 +3793,349 @@ def phase_recordio(card, ref):
         print("12e: libfm columns bitwise equal between engines and to the "
               "written rows, fields included", flush=True)
     print(f"phase 12: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return launches["grad_hist_fused_cuda"]
+
+
+# -- phase 13: training from object storage ------------------------------------
+
+def _mock_s3_class():
+    """``tests/mock_s3.py``'s strict store, loaded from its file (a
+    ``tests`` package installed elsewhere cannot shadow it)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "mock_s3.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_mock_s3", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.MockS3
+
+
+def _s3_series(telemetry):
+    """(GET round trips, read bytes) of the ``dmlc_filesystem_*`` series."""
+    metrics = telemetry.snapshot()["metrics"]
+    gets = sum(smp["count"] for smp in metrics.get(
+        "dmlc_filesystem_request_seconds", {}).get("samples", [])
+        if smp["labels"] == {"fs": "s3", "op": "GET"})
+    nread = sum(smp["value"] for smp in metrics.get(
+        "dmlc_filesystem_read_bytes_total", {}).get("samples", []))
+    return gets, int(nread)
+
+
+def _counter(telemetry, name, **labels):
+    return telemetry.get_registry().counter(name, **labels).value
+
+
+def _same_blocks(got, want):
+    """Whether two lists of RowBlocks hold bitwise equal columns."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        for name in ("offset", "label", "weight", "index", "value", "field"):
+            x, y = getattr(a, name), getattr(b, name)
+            if (x is None) != (y is None):
+                return False
+            if x is not None and (x.dtype != y.dtype
+                                  or x.tobytes() != y.tobytes()):
+                return False
+    return True
+
+
+def _ckpt_field(loaded, name):
+    hits = [v for k, v in loaded.items() if k.endswith(f"'{name}']")]
+    if len(hits) != 1:
+        fail(f"13c: the checkpoint has no single {name!r} leaf: "
+             f"{sorted(loaded)}")
+    return hits[0]
+
+
+def _remote_cli(card, here, store):
+    """13c's CLI: ``train_gbdt`` on a 100,000-row object with
+    ``--checkpoint-dir`` in the bucket, then a rerun that must resume from
+    the latest step there; both final ensembles, read back from the
+    bucket, bitwise equal, and the bucket's step bitwise their first
+    trees."""
+    from dmlc_core_tpu_torch.bridge.checkpoint import (CheckpointManager,
+                                                       load_checkpoint)
+
+    blob = store.objects[("bucket", "train.libsvm")]
+    end = -1
+    for _ in range(N_REMOTE_CLI):
+        end = blob.index(b"\n", end + 1)
+    store.objects[("bucket", "cli.libsvm")] = blob[:end + 1]
+    finals = []
+    for run in range(2):
+        cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.examples.train_gbdt",
+               "--data", "s3://bucket/cli.libsvm", "--num-feature",
+               str(N_FEATURES), "--rounds", str(ROUNDS), "--max-depth",
+               str(MAX_DEPTH), "--checkpoint-dir", "s3://bucket/ckpt",
+               "--checkpoint-every", str(REMOTE_CKPT_EVERY), "--checkpoint",
+               f"s3://bucket/final-{run}.ckpt"]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        sec = time.perf_counter() - start
+        print(proc.stdout.strip())
+        if proc.returncode != 0:
+            fail(f"13c: the train_gbdt CLI (run {run}) exited "
+                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        resumed = f"resuming from checkpoint step {REMOTE_CKPT_EVERY}"
+        if (resumed in proc.stdout) != (run == 1):
+            did = "did not resume" if run else "resumed"
+            fail(f"13c: run {run} of the CLI {did} from the bucket's step "
+                 f"{REMOTE_CKPT_EVERY}")
+        print(f"13c: train_gbdt CLI run {run} from s3://bucket/cli.libsvm "
+              f"with --checkpoint-dir s3://bucket/ckpt: exit 0 in {sec:.1f} "
+              f"s{', resumed' if run else ''} [{card}]", flush=True)
+        finals.append(load_checkpoint(f"s3://bucket/final-{run}.ckpt"))
+    if sorted(finals[0]) != sorted(finals[1]) or not all(
+            np.array_equal(finals[0][k], finals[1][k]) for k in finals[0]):
+        fail("13c: the resumed CLI's final ensemble differs from the first "
+             "run's")
+    mgr = CheckpointManager("s3://bucket/ckpt", keep=3)
+    if mgr.latest_step() != REMOTE_CKPT_EVERY:
+        fail(f"13c: the bucket's latest step is {mgr.latest_step()}")
+    step = {k[2:-2]: v for k, v in mgr.restore(REMOTE_CKPT_EVERY).items()}
+    names = ("split_feat", "split_bin", "leaf_value", "default_left",
+             "split_gain", "split_cover")
+    for j, name in enumerate(names):
+        field = _ckpt_field(finals[1], name)
+        if field.shape[0] != ROUNDS or not all(
+                np.array_equal(field[i], step[f"t{i}_{j}"])
+                for i in range(REMOTE_CKPT_EVERY)):
+            fail(f"13c: the bucket's step {REMOTE_CKPT_EVERY} is not the "
+                 f"final ensemble's first trees ({name})")
+    print(f"13c: the resumed run's ensemble, read back from the bucket, "
+          f"bitwise the first run's; the bucket's step {REMOTE_CKPT_EVERY} "
+          f"bitwise its first {REMOTE_CKPT_EVERY} trees", flush=True)
+
+
+def _remote_cache(card, ref, local_dirs):
+    """13d: the fleet-shared page cache in the reference's form."""
+    from dmlc_core_tpu_torch import native_bridge, telemetry
+    from dmlc_core_tpu_torch.data.factory import create_row_block_iter
+
+    spec = "s3://bucket/train.libsvm#s3://bucket/caches/train.cache"
+    with _env(DMLC_CACHE_REMOTE="1", DMLC_CACHE_LOCAL_DIR=local_dirs[0]):
+        publishes = _counter(telemetry, "dmlc_cache_remote_publishes_total")
+        start = time.perf_counter()
+        it = create_row_block_iter(spec)
+        epoch1 = list(it)
+        build = time.perf_counter() - start
+        if _counter(telemetry, "dmlc_cache_remote_publishes_total") \
+                != publishes + 1:
+            fail("13d: epoch 1 did not publish the cache to the bucket")
+        start = time.perf_counter()
+        it.before_first()
+        epoch2 = list(it)
+        replay = time.perf_counter() - start
+        it.close()
+    if not _same_blocks(epoch2, epoch1):
+        fail("13d: epoch 2 (the mmap replay) is not bitwise epoch 1")
+    if not _same_columns(epoch1, [ref["ingest_columns"]]):
+        fail("13d: the cached blocks are not bitwise 13b's columns")
+    size = len(ref["store"].objects[("bucket", "caches/train.cache")])
+    print(f"13d: epoch 1 (parse from the bucket, build, publish "
+          f"{size:,} bytes): {build:.3f} s; epoch 2 (mmap replay): "
+          f"{replay:.3f} s; bitwise epoch 1 and 13b's columns [{card}]",
+          flush=True)
+    with _env(DMLC_CACHE_REMOTE="1", DMLC_CACHE_LOCAL_DIR=local_dirs[1]):
+        hits = _counter(telemetry, "dmlc_cache_remote_hits_total")
+        calls = dict(native_bridge.ENGINE_CALLS)
+        start = time.perf_counter()
+        it = create_row_block_iter(spec)
+        fetched = list(it)
+        fetch = time.perf_counter() - start
+        it.close()
+        if native_bridge.ENGINE_CALLS != calls:
+            fail("13d: the second host parsed instead of fetching")
+        if _counter(telemetry, "dmlc_cache_remote_hits_total") != hits + 1:
+            fail("13d: the second host's fetch was not a remote hit")
+    if not _same_blocks(fetched, epoch1):
+        fail("13d: the fetched cache's blocks are not bitwise epoch 1")
+    print(f"13d: another host fetched the published cache with no parse: "
+          f"{fetch:.3f} s, {size / fetch / 1e6:.1f} MB/s; bitwise epoch 1 "
+          f"[{card}]", flush=True)
+
+
+def phase_remote(card, ref):
+    """Phase 13: training from a bucket on a loopback store (strict SigV4
+    mock, in this process).  Returns the K3 launches of 13c's fit."""
+    import tempfile
+
+    from dmlc_core_tpu_torch import native_bridge, telemetry
+    from dmlc_core_tpu_torch.bridge.binning import HostBinner, binned_batches
+    from dmlc_core_tpu_torch.bridge.loader import DeviceFeedLoader
+    from dmlc_core_tpu_torch.io.filesys import URI, get_filesystem
+    from dmlc_core_tpu_torch.io.stream import (create_stream,
+                                               create_stream_for_read)
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    print(f"== phase 13: training from object storage, phase 6's "
+          f"{N_INGEST:,} libsvm rows in a strict SigV4 mock bucket on "
+          f"loopback", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device("cuda")
+    svm = _ingest_path()
+    if not os.path.exists(svm):
+        os.makedirs(os.path.dirname(svm), exist_ok=True)
+        _write_text(svm, ref["x"][:N_INGEST], ref["y"][:N_INGEST], " ", " ",
+                    "{}:%.9g")
+    nbytes = os.path.getsize(svm)
+    MockS3 = _mock_s3_class()
+    store = MockS3().start()
+    flaky = MockS3(fail_every=RETRY_FAIL_EVERY).start()
+    ref["store"] = store
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    telemetry.reset()
+    tmp = tempfile.mkdtemp()
+    try:
+        with _env(AWS_ACCESS_KEY_ID="chip-smoke",
+                  AWS_SECRET_ACCESS_KEY="chip-smoke-secret",
+                  AWS_REGION="us-east-1", AWS_SESSION_TOKEN=None,
+                  S3_ENDPOINT=f"http://127.0.0.1:{store.port}",
+                  DMLC_S3_WRITE_BUFFER_MB=str(REMOTE_WRITE_MB),
+                  DMLC_TPU_NATIVE_REMOTE=None, DMLC_CACHE_REMOTE=None,
+                  DMLC_TPU_DISABLE_NATIVE=None):
+            # (13a) multipart upload, stat, list, whole read back
+            uri = "s3://bucket/train.libsvm"
+            start = time.perf_counter()
+            with open(svm, "rb") as fi, create_stream(uri, "w") as fo:
+                for piece in iter(lambda: fi.read(8 << 20), b""):
+                    fo.write(piece)
+            up = time.perf_counter() - start
+            parts = sum(1 for m, p in store.requests
+                        if m == "PUT" and "partNumber" in p)
+            want_parts = -(-nbytes // (REMOTE_WRITE_MB << 20))
+            if parts != want_parts:
+                fail(f"13a: the upload took {parts} parts, expected "
+                     f"{want_parts}")
+            fs = get_filesystem(URI(uri))
+            info = fs.get_path_info(URI(uri))
+            listed = {e.path.name: e.size
+                      for e in fs.list_directory(URI("s3://bucket/"))}
+            if info.size != nbytes or listed.get("/train.libsvm") != nbytes:
+                fail(f"13a: stat {info.size} / list {listed} disagree with "
+                     f"the file's {nbytes} bytes")
+            start = time.perf_counter()
+            with create_stream_for_read(uri) as fi:
+                back = b"".join(iter(lambda: fi.read(8 << 20), b""))
+            down = time.perf_counter() - start
+            with open(svm, "rb") as f:
+                if back != f.read():
+                    fail("13a: the object read back differs from the file")
+            del back
+            print(f"13a: {nbytes:,} bytes up as a multipart upload of "
+                  f"{parts} parts ({REMOTE_WRITE_MB} MB): {up:.3f} s, "
+                  f"{nbytes / up / 1e6:.1f} MB/s; stat and list agree; read "
+                  f"back whole: {down:.3f} s, {nbytes / down / 1e6:.1f} "
+                  f"MB/s, byte-equal [{card}]", flush=True)
+
+            # (13b) the parse from the bucket through both engines; the
+            # path's counts set to 0 just before, read after 13c's fit
+            hist_cuda.reset_launches()
+            parsed = {}
+            for engine in ("python", "native"):
+                native_bridge.reset_engine_calls()
+                telemetry.reset()
+                with _env(DMLC_TPU_NATIVE_REMOTE="1" if engine == "native"
+                          else None):
+                    blocks, sec = _parse_blocks(uri)
+                splits = native_bridge.ENGINE_CALLS["lsplit_next_chunk"]
+                gets, nread = _s3_series(telemetry)
+                print(f"13b: parse from the bucket, {engine} split engine: "
+                      f"{sec:.3f} s, {nbytes / sec / 1e6:.2f} MB/s, "
+                      f"{N_INGEST / sec:,.0f} rows/s; {gets} GETs, "
+                      f"{nread:,} bytes read; native split chunks {splits} "
+                      f"[{card}]", flush=True)
+                if (splits > 0) != (engine == "native"):
+                    fail(f"13b: the {engine} run's native split count is "
+                         f"{splits}")
+                if not _same_columns(blocks, [ref["ingest_columns"]]):
+                    fail(f"13b: the {engine} engine's columns are not "
+                         f"bitwise phase 6's local parse")
+                parsed[engine] = blocks
+            blocks = parsed.pop("native")
+            del parsed
+            print("13b: both engines' merged columns bitwise phase 6's local "
+                  "parse", flush=True)
+
+            # (13c) bin, feed and fit as phase 6 does
+            param = dict(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                         num_bins=NUM_BINS, learning_rate=0.3)
+            model = GBDT(GBDTParam(**param), num_feature=N_FEATURES)
+            px, _, _ = _dense_rows(blocks, N_FEATURES)
+            model.make_bins(px[:50_000])
+            binned = list(binned_batches(
+                blocks, HostBinner(model.boundaries, NUM_BINS), INGEST_BATCH))
+            del blocks, px
+            loader = DeviceFeedLoader(lambda: iter(binned), prefetch=2)
+            bins, y_dev, _ = _fill(loader, N_INGEST, dev)
+            del binned, loader
+            (ens, margin), fit_sec = device_time(model.fit_binned, bins, y_dev)
+            torch.cuda.synchronize()
+            launches = dict(hist_cuda.LAUNCHES)
+            print(f"13c: fit from the bucket: {fit_sec:.3f} s [{card}]; "
+                  f"launches {launches}", flush=True)
+            if launches["grad_hist_fused_cuda"] < ROUNDS * MAX_DEPTH:
+                fail(f"13c: the fit launched K3's kernel "
+                     f"{launches['grad_hist_fused_cuda']} times, expected "
+                     f">= {ROUNDS * MAX_DEPTH}")
+            if launches["hist_matmul_cuda"] != 0:
+                fail("13c: the fit launched K1")
+            ref_ens, ref_margin = ref["ingest_fit"]
+            if not (all(torch.equal(a, b) for a, b in zip(ens, ref_ens))
+                    and torch.equal(margin, ref_margin)):
+                fail("13c: the fit from the bucket differs from phase 6's "
+                     "ingest-path fit")
+            print("13c: ensemble and margin bitwise phase 6's ingest-path "
+                  "fit", flush=True)
+            del bins, y_dev, ens, margin
+            _remote_cli(card, here, store)
+
+            # (13d) the fleet-shared page cache
+            _remote_cache(card, ref, [os.path.join(tmp, "host1"),
+                                      os.path.join(tmp, "host2")])
+
+            # (13e) a store that cuts every 7th GET off mid-body
+            payload = np.random.RandomState(13).bytes(RETRY_OBJECT)
+            flaky.objects[("bucket", "flaky.bin")] = payload
+            retries = _counter(telemetry, "dmlc_net_retry_retries_total",
+                               status_class="transport")
+            # whole reads, each 4 MiB ranged GETs, until a 7th GET comes
+            passes = -(-RETRY_FAIL_EVERY // -(-RETRY_OBJECT // (4 << 20)))
+            with _env(S3_ENDPOINT=f"http://127.0.0.1:{flaky.port}"):
+                start = time.perf_counter()
+                for _ in range(passes):
+                    with create_stream_for_read("s3://bucket/flaky.bin") as fi:
+                        got = b"".join(iter(lambda: fi.read(1 << 20), b""))
+                    if got != payload:
+                        fail("13e: the retried read differs from the object")
+                sec = time.perf_counter() - start
+            retried = _counter(telemetry, "dmlc_net_retry_retries_total",
+                               status_class="transport") - retries
+            if retried < 1 or flaky.injected_failures < 1:
+                fail(f"13e: {flaky.injected_failures} cut GETs, {retried} "
+                     f"retries counted")
+            print(f"13e: {RETRY_OBJECT:,} bytes read {passes} times "
+                  f"through a store that cut {flaky.injected_failures} GETs "
+                  f"mid-body: byte-equal after {retried:.0f} retries, "
+                  f"{sec:.3f} s [{card}]", flush=True)
+    finally:
+        ref.pop("store", None)
+        store.stop()
+        flaky.stop()
+        telemetry.reset()
+        if not was_on:
+            telemetry.disable()
+        shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(svm), ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - phase_start:.1f} s [{card}]",
           flush=True)
     return launches["grad_hist_fused_cuda"]
 
@@ -3768,8 +4171,10 @@ def main():
     k3["launches"] += phase_multiworker(card, ref)
     # and those of phase 12's fit from recordio
     k3["launches"] += phase_recordio(card, ref)
+    # and those of phase 13's fit from the bucket
+    k3["launches"] += phase_remote(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-12 passed in "
+    print(f"chip_smoke: phases 1-13 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

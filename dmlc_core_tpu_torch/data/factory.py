@@ -4,9 +4,10 @@ Counterpart of ``dmlc_core_tpu/data/factory.py`` for the text formats the
 port has (``libsvm``, ``libfm``, ``csv``): registry-driven parser
 construction (reference DMLC_REGISTER_DATA_PARSER, data.h:330-333) and
 ``format=`` auto-detection from the URI query string (data.cc:70-76,
-default libsvm).  A ``#cachefile`` URI reads through the cached split.  The
-columnar formats and ``create_row_block_iter`` are not ported yet and
-raise.
+default libsvm).  A ``#cachefile`` URI reads through the cached split.
+``create_row_block_iter`` chooses in-memory or disk-cached iteration by the
+presence of a ``#cachefile`` (data.cc:87-107).  The columnar formats are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from dmlc_core_tpu_torch.data.csv_parser import CSVParser
+from dmlc_core_tpu_torch.data.iterators import BasicRowIter, DiskRowIter, RowBlockIter
 from dmlc_core_tpu_torch.data.libfm_parser import LibFMParser
 from dmlc_core_tpu_torch.data.libsvm_parser import LibSVMParser
 from dmlc_core_tpu_torch.data.parser import Parser, ThreadedParser
@@ -91,7 +93,28 @@ def create_parser(
     return parser
 
 
-def create_row_block_iter(*args, **kwargs):
-    """Not ported yet: it needs the row iterators and the page cache."""
-    log_fatal("create_row_block_iter is not yet in the PyTorch port "
-              "(ROADMAP §1: row iterators and the page cache)")
+def create_row_block_iter(
+    uri: str,
+    part_index: int = 0,
+    num_parts: int = 1,
+    type: str = "auto",
+    nthread: int = 2,
+    index_dtype=np.uint32,
+) -> RowBlockIter:
+    """Create a RowBlockIter (reference RowBlockIter::Create, src/data.cc:87-129):
+    ``uri#cachefile`` gives a :class:`DiskRowIter`, otherwise everything is
+    loaded in memory (:class:`BasicRowIter`)."""
+    spec = URISpec(uri, part_index, num_parts)
+    parser_uri = spec.uri + ("?" + "&".join(f"{k}={v}" for k, v in spec.args.items())
+                             if spec.args else "")
+    if spec.cache_file:
+        # lazily: a warm cache (local materialization or a fleet-shared
+        # remote fetch) serves without ever constructing the parser or its
+        # input split — no stream opens, no remote stat/list traffic
+        return DiskRowIter(
+            lambda: create_parser(parser_uri, part_index, num_parts, type,
+                                  nthread, index_dtype),
+            spec.cache_file, index_dtype=index_dtype)
+    parser = create_parser(parser_uri, part_index, num_parts, type, nthread,
+                           index_dtype)
+    return BasicRowIter(parser, index_dtype=index_dtype)

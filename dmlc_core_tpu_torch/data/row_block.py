@@ -27,9 +27,20 @@ import numpy as np
 from dmlc_core_tpu_torch.io.stream import Stream
 from dmlc_core_tpu_torch.utils.logging import CHECK, CHECK_EQ, CHECK_LT
 
-__all__ = ["Row", "RowBlock", "RowBlockContainer"]
+__all__ = ["Row", "RowBlock", "RowBlockContainer", "COLUMN_ORDER", "align8"]
 
 real_t = np.float32
+
+# canonical column transport/layout order shared by the shm parse transport
+# (data/parse_proc.py), the columnar page cache (data/page_cache.py), and
+# the Arrow/Parquet ingest (data/arrow_ingest.py), which maps Arrow
+# buffers onto exactly these columns as zero-copy views
+COLUMN_ORDER = ("offset", "label", "weight", "field", "index", "value")
+
+
+def align8(n: int) -> int:
+    """Round a byte count up to 8-byte alignment (column buffer layout)."""
+    return (n + 7) & ~7
 
 
 class Row:

@@ -9,6 +9,9 @@ Injection sites (see :data:`SITES`):
 
 - ``io.stream.open``       — URI stream factory open;
 - ``io.stream.read``       — :meth:`Stream.read_exact` (``truncate`` rules);
+- ``net.request``          — the remote filesystems' HTTP requests
+  (``http_status`` rules replace the request; act rules fire before it);
+- ``io.cache.fetch``       — remote page-cache ranged reads;
 - ``threadediter.produce`` — the producer thread, per item;
 - ``serve.request`` / ``serve.queue`` / ``serve.predict`` /
   ``serve.swap`` — the scoring server's ingress, batch assembly, model
@@ -65,10 +68,18 @@ SITES: Dict[str, str] = {
     "tracker.accept": (
         "tracker accept loop, once per accepted connection (before the "
         "handshake)"),
+    "net.request": (
+        "remote-FS HTTP request; 'http_status' replaces the round-trip "
+        "with an injected response, act kinds fire instead of connecting"),
     "io.stream.open": "URI stream factory open (create_stream[_for_read])",
     "io.stream.read": (
         "Stream.read_exact; 'truncate' cuts the stream short, modeling a "
         "truncated object/dropped connection"),
+    "io.cache.fetch": (
+        "remote page-cache ranged reads (ctx: uri=<uri>, offset=<byte "
+        "offset>), once per header/TOC/page fetch; 'truncate' cuts a page "
+        "short and 'reset'/'error' kill the transfer — every outcome must "
+        "end in a loud stream-parse fallback, never a served bad page"),
     "threadediter.produce": (
         "producer thread, once per produced item (ctx: name=<iterator>)"),
     "io.fleet.lease": (

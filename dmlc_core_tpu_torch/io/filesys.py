@@ -1,10 +1,11 @@
 """URI parsing + virtual filesystem dispatch + local filesystem.
 
-Counterpart of ``dmlc_core_tpu/io/filesys.py`` with the local filesystem
-only.  Filesystems register themselves in the ``"filesystem"`` registry
-keyed by protocol; the remote protocols of the JAX package (``s3``, ``gs``,
-``http(s)``, ``hdfs``, ``azure``) are not in the port yet and fail a
-``CHECK`` that says so, with no fallback.
+Counterpart of ``dmlc_core_tpu/io/filesys.py`` (a copy): ``URI``,
+``FileInfo``, ``FileSystem``, protocol dispatch and the local filesystem.
+Filesystems register themselves in the ``"filesystem"`` registry keyed by
+protocol (``file``, ``s3``, ``gs``, ``http`` ...), so the remote backends
+(:mod:`.s3_filesys`, :mod:`.http_filesys`, :mod:`.hdfs_filesys`,
+:mod:`.azure_filesys`) plug in without touching this module.
 """
 
 from __future__ import annotations
@@ -112,17 +113,12 @@ class FileSystem:
 
 
 _fs_registry = Registry.get("filesystem")
-# the JAX package's remote backends, still to port (ROADMAP §1)
-_NOT_PORTED = ("s3", "gs", "http", "https", "hdfs", "azure")
 
 
 def get_filesystem(uri: URI) -> FileSystem:
     """Protocol dispatch (reference FileSystem::GetInstance, src/io.cc:31-60)."""
     proto = uri.protocol or "file://"
     key = proto[:-3] if proto.endswith("://") else proto
-    CHECK(key not in _NOT_PORTED,
-          f"filesystem protocol {proto!r} is not yet in the PyTorch port "
-          f"(ROADMAP §1: remote filesystems); only local files are")
     entry = _fs_registry.find(key)
     CHECK(entry is not None,
           f"unknown filesystem protocol {proto!r}; known: {_fs_registry.list_names()}. "

@@ -1,7 +1,8 @@
 """Sharded multi-file input: deterministic byte-range partitioning with
 record-boundary realignment, plus threaded/cached/shuffled decorators.
 
-Counterpart of ``dmlc_core_tpu/io/input_split.py`` on local files:
+Counterpart of ``dmlc_core_tpu/io/input_split.py``, over every registered
+filesystem:
 
 - ``InputSplitBase`` engine (src/io/input_split_base.{h,cc}): ';'-separated
   multi-file lists with regex glob expansion (ConvertToURIs .cc:95-146),
@@ -21,10 +22,11 @@ Counterpart of ``dmlc_core_tpu/io/input_split.py`` on local files:
 - the factory (InputSplit::Create, src/io.cc:63-117).
 
 The factory takes the native engine unless ``DMLC_TPU_DISABLE_NATIVE`` is
-set or ``threaded=False`` is asked for; then the Python engine runs.  Both
-engines yield the same bytes for every partition.  Remote filesystems (and
-so the native engine's read-at callback) are not ported yet (ROADMAP §1,
-[1c]).
+set or ``threaded=False`` is asked for; then the Python engine runs.  Local
+files are read with ``FILE*``; remote ones take the Python engine unless
+``DMLC_TPU_NATIVE_REMOTE=1`` asks for the native one, whose byte reads then
+go through a read-at callback (``_ReadAtAdapter``).  Both engines yield the
+same bytes for every partition.
 
 The invariant that makes partitions disjoint and exhaustive: partition k covers
 aligned byte range [k*nstep, (k+1)*nstep) of the *concatenated* file bytes,
@@ -36,6 +38,7 @@ crosses a file boundary).
 from __future__ import annotations
 
 import bisect
+import ctypes
 import os
 import random
 import re
@@ -51,6 +54,7 @@ from dmlc_core_tpu_torch.io import recordio as rio
 from dmlc_core_tpu_torch.io.stream import SeekStream, Stream
 from dmlc_core_tpu_torch.io.threadediter import ThreadedIter
 from dmlc_core_tpu_torch.io.uri_spec import URISpec
+from dmlc_core_tpu_torch.param import get_env
 from dmlc_core_tpu_torch.utils.logging import (CHECK, CHECK_EQ, CHECK_LT,
                                                CHECK_NE, log_fatal)
 
@@ -518,11 +522,13 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         self._n_overflow = 0
         # native span reader: index policy (partitioning, shuffle) stays
         # here; the byte-moving + read-ahead runs in C++ unless
-        # DMLC_TPU_DISABLE_NATIVE is set when the split is built
+        # DMLC_TPU_DISABLE_NATIVE is set when the split is built, or the
+        # filesystem is remote without DMLC_TPU_NATIVE_REMOTE=1
         # (_native_unavailable is then permanent); a mid-epoch plan
         # abandonment just drops the reader, and before_first recreates it
         # with a fresh plan
         self._span_reader = None
+        self._span_adapter = None
         self._native_unavailable = False
         self._plan_batch = batch_size
         self._popped = 0
@@ -590,6 +596,8 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             InputSplitBase.before_first(self)
         reader = self._native_reader()
         if reader is not None:
+            # set_plan's native Invalidate() sentinel drops cached remote
+            # streams + stale errors with the producer joined (race-free)
             offs, szs, counts = self._epoch_plan()
             reader.set_plan(offs, szs, counts)
             self._plan_batch = self._batch_size
@@ -599,16 +607,22 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
     def _native_reader(self):
         """The C++ span reader, created on first use (the library is built
         then, and a failed build raises); None when the Python engine was
-        asked for."""
+        asked for.  Non-local filesystems read through a _ReadAtAdapter
+        callback (opt-in, the same gate as the factory's native_ok)."""
         if self._native_unavailable:
             return None
         if self._span_reader is None:
-            if not native_bridge.enabled():
+            local = isinstance(self._filesys, fsys.LocalFileSystem)
+            if not native_bridge.enabled() or (
+                    not local and not _native_remote_asked()):
                 self._native_unavailable = True
                 return None
+            self._span_adapter = (
+                None if local else _ReadAtAdapter(self._filesys, self._files))
             self._span_reader = native_bridge.NativeSpanReader(
                 [info.path.name for info in self._files],
-                [info.size for info in self._files])
+                [info.size for info in self._files],
+                read_at=self._span_adapter)
         return self._span_reader
 
     def _epoch_plan(self):
@@ -649,6 +663,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         if self._span_reader is not None:
             self._span_reader.close()
             self._span_reader = None
+        if self._span_adapter is not None:
+            self._span_adapter.close()
+            self._span_adapter = None
 
     def _index_offset_end(self, idx: int) -> int:
         if idx < len(self._index):
@@ -676,7 +693,10 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         """Read the next `n_records` batch as one chunk (reference NextBatchEx)."""
         if self._span_reader is not None and not self._native_unavailable:
             if n_records == self._plan_batch and not self._n_overflow:
-                chunk = self._span_reader.next_chunk()
+                try:
+                    chunk = self._span_reader.next_chunk()
+                except OSError as exc:
+                    _raise_native_error(self._span_adapter, exc)
                 if chunk is not None:
                     self._popped += 1
                 return chunk
@@ -725,6 +745,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         if self._span_reader is not None:
             self._span_reader.close()
             self._span_reader = None
+        if self._span_adapter is not None:
+            self._span_adapter.close()
+            self._span_adapter = None
         InputSplitBase.close(self)
 
 
@@ -1047,10 +1070,86 @@ class InputSplitShuffle(InputSplit):
         self._source.close()
 
 
+def _native_remote_asked() -> bool:
+    """Whether remote reads take the native engine: only under
+    ``DMLC_TPU_NATIVE_REMOTE=1``, read on every call."""
+    return os.environ.get("DMLC_TPU_NATIVE_REMOTE", "") == "1"
+
+
+class _ReadAtAdapter:
+    """Python half of the native engine's remote path: a READ_AT_FN-shaped
+    callable serving (file_idx, offset, size) reads from any FileSystem's
+    SeekStreams.  Runs on the native prefetch thread (ctypes takes the GIL
+    per call); the first exception is parked on ``.error`` and surfaces as
+    the stream error when the consumer next pops a chunk.
+
+    Epoch boundaries arrive as an ``idx < 0`` sentinel call: the native
+    engines issue it from ``Invalidate()`` strictly between joining the
+    old producer and starting the new one, so dropping cached streams and
+    forgetting a stale parked error here can never race an in-flight read.
+    A consumer-side reopen flag could clear ``.error`` just before a dying
+    read re-parked its dead-epoch exception."""
+
+    def __init__(self, fs: fsys.FileSystem, files):
+        self._fs = fs
+        self._files = files
+        self._streams: dict = {}
+        self._pos: dict = {}
+        self.error: Optional[BaseException] = None
+
+    def __call__(self, ctx, idx, offset, buf, size) -> int:
+        try:
+            if idx < 0:
+                # invalidate sentinel (new epoch / replaced files): no
+                # producer is alive, so teardown + error clear are race-free
+                self._close_streams()
+                self.error = None
+                return 0
+            stream = self._streams.get(idx)
+            if stream is None:
+                stream = self._fs.open_for_read(self._files[idx].path)
+                self._streams[idx] = stream
+                self._pos[idx] = 0
+            if self._pos[idx] != offset:
+                stream.seek(offset)
+            data = stream.read(size)
+            self._pos[idx] = offset + len(data)
+            if data:
+                ctypes.memmove(buf, data, len(data))
+            return len(data)
+        except BaseException as exc:  # noqa: BLE001 — ferried to the consumer
+            self.error = exc
+            return -1
+
+    def _close_streams(self) -> None:
+        for stream in self._streams.values():
+            try:
+                stream.close()
+            except Exception:
+                pass
+        self._streams.clear()
+
+    def close(self) -> None:
+        """Final teardown — only call once the native producer is stopped
+        (engine closed/drained)."""
+        self._close_streams()
+
+
+def _raise_native_error(adapter: Optional[_ReadAtAdapter],
+                        exc: OSError) -> None:
+    """Surface the Python-side exception that made the native reader fail,
+    falling back to the native error text.  The parked error is consumed so
+    a stale epoch's exception can never mask a later unrelated failure."""
+    if adapter is not None and adapter.error is not None:
+        err, adapter.error = adapter.error, None
+        raise err
+    raise exc
+
+
 def _native_split_setup(fs: fsys.FileSystem, uri: str, format: str):
     """Shared NativeLineSplitter/NativeCachedSplitter construction: expand
-    the file list exactly like the Python engine, check recordio alignment
-    and pick the record extractor."""
+    the file list exactly like the Python engine, check recordio alignment,
+    pick the record extractor, and build the remote read-at adapter."""
     files = _expand_input_files(fs, uri)
     if format == "recordio":
         for info in files:
@@ -1058,7 +1157,19 @@ def _native_split_setup(fs: fsys.FileSystem, uri: str, format: str):
                      f"file {info.path.str()} does not align by 4 bytes")
     extract = (_next_recordio_record if format == "recordio"
                else _next_line_record)
-    return files, extract
+    adapter = (None if isinstance(fs, fsys.LocalFileSystem)
+               else _ReadAtAdapter(fs, files))
+    return files, extract, adapter
+
+
+def _native_ring(adapter) -> int:
+    """Native prefetch-ring depth: the classic double buffer locally, a
+    deeper pre-posted ring on the remote callback path so one batched
+    ``next_chunks`` crossing amortizes the Python-to-C round trip over
+    everything the ring buffered (``DMLC_NATIVE_RING`` overrides either
+    default)."""
+    return max(2, get_env("DMLC_NATIVE_RING", int,
+                          2 if adapter is None else 8))
 
 
 class NativeLineSplitter(InputSplit):
@@ -1068,22 +1179,29 @@ class NativeLineSplitter(InputSplit):
     equivalent, ``format="recordio"``): the chunk sharding/realignment loop
     and the double-buffered read-ahead run natively (reference
     src/io/input_split_base.cc + line_split.cc/recordio_split.cc +
-    threaded_input_split.h in one).  Local files are read with FILE*.
-    Selected by the factory unless the Python engine is asked for.
+    threaded_input_split.h in one).  Local files are read with FILE*
+    directly; any other filesystem routes its byte reads through a
+    :class:`_ReadAtAdapter` callback, so remote URIs ride the same native
+    path.  Selected by the factory unless the Python engine is asked for
+    (and, for remote URIs, only under ``DMLC_TPU_NATIVE_REMOTE=1``).
     """
 
     def __init__(self, fs: fsys.FileSystem, uri: str, part_index: int,
                  num_parts: int, format: str = "line"):
-        files, self._extract = _native_split_setup(fs, uri, format)
+        files, self._extract, self._adapter = _native_split_setup(
+            fs, uri, format)
         self._part, self._nparts = part_index, num_parts
         self._buffer_size = DEFAULT_BUFFER_SIZE
         self._native = native_bridge.NativeLineSplit(
             [info.path.name for info in files],
             [info.size for info in files], part_index, num_parts,
-            buffer_size=self._buffer_size, format=format)
+            buffer_size=self._buffer_size, format=format,
+            read_at=self._adapter, ring=_native_ring(self._adapter))
         self._cursor = ChunkCursor()
 
     def before_first(self) -> None:
+        # reset()'s native Invalidate() sentinel reopens remote streams and
+        # clears stale adapter errors between producer join and restart
         self._native.reset(self._part, self._nparts)
         self._cursor = ChunkCursor()
 
@@ -1099,12 +1217,18 @@ class NativeLineSplitter(InputSplit):
         self.before_first()
 
     def next_chunk(self) -> Optional[bytes]:
-        return self._native.next_chunk()
+        try:
+            return self._native.next_chunk()
+        except OSError as exc:
+            _raise_native_error(self._adapter, exc)
 
     def next_chunk_view(self):
         """Zero-copy ``(addr, len)`` chunk view, valid until the next call
         on this split (consumed in place by the native parsers)."""
-        return self._native.next_chunk_view()
+        try:
+            return self._native.next_chunk_view()
+        except OSError as exc:
+            _raise_native_error(self._adapter, exc)
 
     def next_record(self) -> Optional[memoryview]:
         return _next_record_from_chunks(self, self.next_chunk,
@@ -1115,6 +1239,8 @@ class NativeLineSplitter(InputSplit):
 
     def close(self) -> None:
         self._native.close()
+        if self._adapter is not None:
+            self._adapter.close()
 
 
 class NativeCachedSplitter(InputSplit):
@@ -1123,16 +1249,20 @@ class NativeCachedSplitter(InputSplit):
     file; later epochs replay the cache with native read-ahead (reference
     src/io/cached_input_split.h:28-189, both halves native, unlike the
     Python :class:`CachedInputSplit`, whose cache file has the same
-    frames)."""
+    frames).  Works over local and remote sources (epoch 1 uses the same
+    read-at callback path as :class:`NativeLineSplitter`; the cache itself
+    is always local)."""
 
     def __init__(self, fs: fsys.FileSystem, uri: str, part_index: int,
                  num_parts: int, cache_file: str, format: str = "line"):
-        files, self._extract = _native_split_setup(fs, uri, format)
+        files, self._extract, self._adapter = _native_split_setup(
+            fs, uri, format)
         self._cache_file = cache_file
         self._native = native_bridge.NativeLineSplit(
             [info.path.name for info in files],
             [info.size for info in files], part_index, num_parts,
-            format=format, cache_path=cache_file)
+            format=format, read_at=self._adapter, cache_path=cache_file,
+            ring=_native_ring(self._adapter))
         self._total = self._native.total_size()
         self._replay = None
         self._at_end = False   # replay exhausted (or just swapped in)
@@ -1141,9 +1271,15 @@ class NativeCachedSplitter(InputSplit):
     def _swap_to_replay(self, at_end: bool) -> None:
         """Finish the preproc epoch (drain + close cache) and hand the
         chunk stream to the native replay engine."""
-        self._native.finish_cache()
+        try:
+            self._native.finish_cache()
+        except OSError as exc:
+            _raise_native_error(self._adapter, exc)
         self._native.close()
         self._native = None
+        if self._adapter is not None:
+            self._adapter.close()
+            self._adapter = None
         self._replay = native_bridge.NativeCacheReplay(self._cache_file)
         self._at_end = at_end
 
@@ -1157,7 +1293,10 @@ class NativeCachedSplitter(InputSplit):
 
     def _next_chunk_impl(self, preproc_fetch, replay_fetch):
         if self._replay is None:
-            chunk = preproc_fetch()
+            try:
+                chunk = preproc_fetch()
+            except OSError as exc:
+                _raise_native_error(self._adapter, exc)
             if chunk is None:
                 # first epoch exhausted: finalize the cache; stay at end
                 # until the caller's before_first() rewinds the replay
@@ -1201,6 +1340,9 @@ class NativeCachedSplitter(InputSplit):
         if self._native is not None:
             self._native.close()
             self._native = None
+        if self._adapter is not None:
+            self._adapter.close()
+            self._adapter = None
         if self._replay is not None:
             self._replay.close()
             self._replay = None
@@ -1225,7 +1367,9 @@ def create_input_split(
     the native engine unless ``threaded=False`` or
     ``DMLC_TPU_DISABLE_NATIVE`` asks for the Python one; indexed recordio
     reads its batches through the native span reader unless
-    ``DMLC_TPU_DISABLE_NATIVE`` is set.
+    ``DMLC_TPU_DISABLE_NATIVE`` is set.  Remote URIs take the Python
+    engines unless ``DMLC_TPU_NATIVE_REMOTE=1`` asks for the native one
+    (read on every call).
     """
     spec = URISpec(uri, part_index, num_parts)
     if spec.uri in ("stdin", "-"):
@@ -1233,9 +1377,12 @@ def create_input_split(
     CHECK_LT(part_index, num_parts, "invalid input parameters for create_input_split")
     path = fsys.URI(spec.uri)
     fs = fsys.get_filesystem(path)
-    # the port's one filesystem is the local one (get_filesystem raises for
-    # the others), so the native engine serves every split it can build
-    native_ok = threaded and native_bridge.enabled()
+    # the native engine serves every filesystem: local files via FILE*,
+    # anything else through the read-at callback (_ReadAtAdapter).  Local
+    # is the default; remote defaults to the Python engines, as in the JAX
+    # package, and takes the native one only under DMLC_TPU_NATIVE_REMOTE=1
+    native_ok = threaded and native_bridge.enabled() and (
+        isinstance(fs, fsys.LocalFileSystem) or _native_remote_asked())
 
     if type == "text":
         if native_ok:

@@ -34,9 +34,9 @@ import numpy as np
 
 __all__ = ["enabled", "load_library", "parse_libsvm", "parse_libfm",
            "parse_csv", "find_magic_positions", "recordio_scan",
-           "recordio_extract", "recordio_frame", "NativeLineSplit",
-           "NativeSpanReader", "NativeCacheReplay", "ENGINE_CALLS",
-           "reset_engine_calls", "BUILD_INFO"]
+           "recordio_extract", "recordio_frame", "READ_AT_FN",
+           "NativeLineSplit", "NativeSpanReader", "NativeCacheReplay",
+           "ENGINE_CALLS", "reset_engine_calls", "BUILD_INFO"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_PKG, "csrc", "native")
@@ -56,6 +56,13 @@ ENGINE_CALLS: Dict[str, int] = dict.fromkeys(
 
 # what the last build did: seconds and the command, or cached=True
 BUILD_INFO: Dict[str, object] = {}
+
+# read-at callback signature: (ctx, file_idx, offset, buf, size) -> bytes
+# read (0 = EOF), <0 = error.  Python implementations run on the native
+# prefetch thread; ctypes acquires the GIL per call.
+READ_AT_FN = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p,
+                              ctypes.c_int64, ctypes.c_int64,
+                              ctypes.POINTER(ctypes.c_char), ctypes.c_int64)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -234,12 +241,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dmlc_tpu_frame_fill.argtypes = [vp, vp, vp]
     lib.dmlc_tpu_frame_free.argtypes = [vp]
 
-    # the split engine (native/input_split.cc); the read-at callback stays
-    # NULL: the port reads local files only
+    # the split engine (native/input_split.cc); a NULL read-at callback
+    # reads local files with FILE*
     open_sig = [ctypes.c_char_p, i64p, i64p, i64, i64, i64, i64]
     lib.dmlc_tpu_lsplit_open2.restype = vp
     lib.dmlc_tpu_lsplit_open2.argtypes = open_sig + [
-        i64, i64, ctypes.c_char_p, vp, vp]
+        i64, i64, ctypes.c_char_p, READ_AT_FN, vp]
     lib.dmlc_tpu_lsplit_finish_cache.restype = i64
     lib.dmlc_tpu_lsplit_finish_cache.argtypes = [vp]
     lib.dmlc_tpu_creplay_open.restype = vp
@@ -252,7 +259,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dmlc_tpu_creplay_error.argtypes = [vp]
     lib.dmlc_tpu_creplay_close.argtypes = [vp]
     lib.dmlc_tpu_span_open2.restype = vp
-    lib.dmlc_tpu_span_open2.argtypes = open_sig[:4] + [vp, vp]
+    lib.dmlc_tpu_span_open2.argtypes = open_sig[:4] + [READ_AT_FN, vp]
     lib.dmlc_tpu_span_set_plan.argtypes = [vp, i64p, i64p, i64p, i64, i64]
     lib.dmlc_tpu_span_next_chunk.restype = i64
     lib.dmlc_tpu_span_next_chunk.argtypes = [
@@ -267,6 +274,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dmlc_tpu_lsplit_next_chunk.restype = i64
     lib.dmlc_tpu_lsplit_next_chunk.argtypes = [
         vp, ctypes.POINTER(ctypes.c_char_p)]
+    lib.dmlc_tpu_lsplit_next_chunks.restype = i64
+    lib.dmlc_tpu_lsplit_next_chunks.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_char_p), i64p, i64]
     lib.dmlc_tpu_lsplit_error.restype = ctypes.c_char_p
     lib.dmlc_tpu_lsplit_error.argtypes = [vp]
     lib.dmlc_tpu_lsplit_close.argtypes = [vp]
@@ -471,23 +481,45 @@ class NativeLineSplit:
     ``next_chunk`` returns bytes of whole records for the partition, or
     None at the end.  ``reset`` re-partitions (or rewinds, with the same
     arguments).  ``format`` selects the record kind: "line" or "recordio"
-    (same engine, another realignment scan).  ``cache_path`` tees epoch-1
-    chunks into a cache file (``finish_cache`` closes it,
-    :class:`NativeCacheReplay` replays it).  The native prefetch queue is
-    the classic double buffer (depth 2).
+    (same engine, another realignment scan).
+
+    ``read_at`` (a ``READ_AT_FN``-compatible callable) routes all byte
+    reads through Python: the remote-filesystem path.  ``cache_path`` tees
+    epoch-1 chunks into a cache file (``finish_cache`` closes it,
+    :class:`NativeCacheReplay` replays it).
+
+    ``ring`` is the native prefetch-queue depth.  2 is the classic double
+    buffer; deeper rings pre-post more read-ahead and switch the consumer
+    to the batched ``next_chunks`` pop: one Python-to-C crossing (one GIL
+    round trip) drains everything the ring had buffered, which amortizes
+    the per-chunk crossing on the remote callback path.
     """
 
     def __init__(self, paths, sizes, part: int, nparts: int,
                  buffer_size: int = 8 << 20, format: str = "line",
-                 cache_path: Optional[str] = None):
+                 read_at=None, cache_path: Optional[str] = None,
+                 ring: int = 2):
         lib = load_library()
         self._lib = lib
         self._handle = None
+        self._ring = max(2, int(ring))
+        # batched-pop state: arrays the C side fills in one crossing, and
+        # the views not yet handed back from the last fill (addr, len)
+        self._batch_ptrs = (ctypes.c_char_p * self._ring)()
+        self._batch_lens = (ctypes.c_int64 * self._ring)()
+        self._pending: list = []
         blob, lens, arr = _encode_files(paths, sizes)
+        # the CFUNCTYPE object must outlive the handle (the prefetch thread
+        # calls through it); keep the reference on self
+        if read_at is not None and not isinstance(read_at, READ_AT_FN):
+            read_at = READ_AT_FN(read_at)
+        self._read_at = read_at
         self._handle = lib.dmlc_tpu_lsplit_open2(
             blob, lens, arr, len(sizes), part, nparts, buffer_size,
-            1 if format == "recordio" else 0, 2,
-            cache_path.encode() if cache_path else None, None, None)
+            1 if format == "recordio" else 0, self._ring,
+            cache_path.encode() if cache_path else None,
+            self._read_at if self._read_at is not None
+            else ctypes.cast(None, READ_AT_FN), None)
         self._check()
 
     def finish_cache(self) -> None:
@@ -510,6 +542,7 @@ class NativeLineSplit:
         return self._lib.dmlc_tpu_lsplit_total(self._require_open())
 
     def reset(self, part: int, nparts: int) -> None:
+        self._pending.clear()   # views into pre-reset chunks are stale
         self._lib.dmlc_tpu_lsplit_reset(self._require_open(), part, nparts)
         self._check()
 
@@ -524,8 +557,29 @@ class NativeLineSplit:
         return ctypes.string_at(*view)
 
     def next_chunk_view(self):
-        """Zero-copy ``(addr, len)`` over the next chunk, valid until the
-        next call."""
+        """Zero-copy ``(addr, len)`` over the next chunk, valid at least
+        until the crossing after the batch it came from drains (with the
+        default ``ring=2``: until the next call; the parser's fast path
+        consumes it in place before popping again).
+
+        With ``ring > 2`` one batched ``next_chunks`` crossing drains
+        everything the native ring had buffered, and later calls serve from
+        that batch without crossing into C."""
+        if self._ring > 2:
+            if not self._pending:
+                n = self._lib.dmlc_tpu_lsplit_next_chunks(
+                    self._require_open(), self._batch_ptrs, self._batch_lens,
+                    self._ring)
+                if n < 0:
+                    self._check()
+                if n <= 0:
+                    return None
+                ptrs = ctypes.cast(self._batch_ptrs,
+                                   ctypes.POINTER(ctypes.c_void_p))
+                self._pending = [(ptrs[i], self._batch_lens[i])
+                                 for i in range(n)]
+            _count("lsplit_next_chunk")
+            return self._pending.pop(0)
         ptr = ctypes.c_char_p()
         n = self._lib.dmlc_tpu_lsplit_next_chunk(self._require_open(),
                                                  ctypes.byref(ptr))
@@ -537,6 +591,7 @@ class NativeLineSplit:
         return ctypes.cast(ptr, ctypes.c_void_p).value, n
 
     def close(self) -> None:
+        self._pending.clear()   # batched views die with the handle
         if self._handle is not None:
             self._lib.dmlc_tpu_lsplit_close(self._handle)
             self._handle = None
@@ -554,16 +609,22 @@ class NativeSpanReader:
     The caller (``IndexedRecordIOSplitter``) computes a per-epoch plan, flat
     (offset, size) spans in the concatenated-file space plus per-batch span
     counts, and pops concatenated batch chunks; a native producer thread
-    reads ahead (``SpanReadEngine``).
+    reads ahead (``SpanReadEngine``).  ``read_at`` routes the byte reads
+    through Python, as on :class:`NativeLineSplit`.
     """
 
-    def __init__(self, paths, sizes):
+    def __init__(self, paths, sizes, read_at=None):
         lib = load_library()
         self._lib = lib
         self._handle = None
         blob, lens, arr = _encode_files(paths, sizes)
-        self._handle = lib.dmlc_tpu_span_open2(blob, lens, arr, len(sizes),
-                                               None, None)
+        if read_at is not None and not isinstance(read_at, READ_AT_FN):
+            read_at = READ_AT_FN(read_at)
+        self._read_at = read_at  # keep alive for the prefetch thread
+        self._handle = lib.dmlc_tpu_span_open2(
+            blob, lens, arr, len(sizes),
+            self._read_at if self._read_at is not None
+            else ctypes.cast(None, READ_AT_FN), None)
 
     def _require_open(self):
         if self._handle is None:

@@ -459,14 +459,6 @@ def test_parser_counters_equal(tmp_path, case):
     assert len(got[1]) == 2
 
 
-@pytest.mark.parametrize("uri", ["s3://bucket/a.libsvm", "gs://b/a",
-                                 "http://host/a.libsvm", "https://host/a",
-                                 "hdfs://nn/a.libsvm", "azure://c/a"])
-def test_remote_filesystems_not_ported(uri):
-    with pytest.raises(Error, match="not yet in the PyTorch port"):
-        pfactory.create_parser(uri)
-
-
 def test_unported_formats_and_splits_raise(tmp_path):
     uri = _write(tmp_path, "libsvm")
     for fmt in ("parquet", "arrow"):
@@ -474,8 +466,6 @@ def test_unported_formats_and_splits_raise(tmp_path):
             pfactory.create_parser(uri, type=fmt)
     with pytest.raises(Error, match="ROADMAP"):
         pfactory.create_parser(str(tmp_path / "t.parquet"))
-    with pytest.raises(Error, match="ROADMAP"):
-        pfactory.create_row_block_iter(uri)
     with pytest.raises(Error, match="unknown input split type"):
         psplit.create_input_split(uri, 0, 1, "bogus")
 

@@ -46,6 +46,35 @@ def test_port_imports_no_jax(path):
             f"{os.path.relpath(path, REPO)} imports {name}"
 
 
+def _package_files():
+    return [p for p in _port_files() if p != SMOKE]
+
+
+def _imports_tests(path):
+    return any(name.split(".")[0] == "tests"
+               for name in _imported_roots(path))
+
+
+@pytest.mark.parametrize("path", _package_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_package_imports_no_tests(path):
+    """The port's package never imports the repository's ``tests`` (the
+    mock object store is for the tests and ``chip_smoke.py`` only)."""
+    assert not _imports_tests(path), \
+        f"{os.path.relpath(path, REPO)} imports tests"
+
+
+def test_port_tests_rule_catches_a_tests_import(tmp_path):
+    for code, caught in (("from tests.mock_s3 import MockS3", True),
+                         ("import tests.mock_s3", True),
+                         ("import testsuite", False),
+                         ("from dmlc_core_tpu_torch.io import s3_filesys",
+                          False)):
+        path = tmp_path / "m.py"
+        path.write_text(code + "\n")
+        assert _imports_tests(str(path)) == caught, code
+
+
 def _names_repo_native(node):
     """Whether an AST node names the repository's ``native/`` directory: a
     path string through it, or ``os.path.join(..., "native")`` not under
