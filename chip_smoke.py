@@ -267,7 +267,40 @@ Phases (any failure exits non-zero and prints no result line):
    blocks are bitwise epoch 1's.  (13e) a second store that cuts every 7th
    GET off mid-body: a 16 MiB object read whole twice comes back
    byte-equal, with at least one retry counted.  No ``hdfs://``: the
-   card machine has no ``pyarrow``.
+   card machine has no ``pyarrow``;
+14. tensor and sequence parallelism, ranks sharing the card over gloo
+   (correctness and transport cost, no scaling figure).  (14a)
+   ``graft_entry.dryrun_multichip(8)``: 8 ranks through the port's
+   launcher (data 4 x model 2, the hybrid dcn_data 2 x ici_data 2 x
+   model 2 whose margin must equal the flat mesh's within 1e-5), every
+   section of the reference's dryrun; on every rank K4 at the dryrun's
+   shapes (16 bins, 4 columns a rank) on the flat and the hybrid mesh's
+   rows, within rtol 1e-4, atol 1e-3 of its plain version on the same
+   rows and of ``grad_hist_ref`` of all rows (launches not counted);
+   rank 0's K4 launches must be above 0 (counted from 0 at the rank's
+   start).  (14b) 4 ranks of this script
+   (``--worker seq DIR``) on an ``sp`` mesh: ring and Ulysses attention
+   at B = 1, L = 8,192, H = 8, D = 64, f32, causal and not, against
+   ``reference_attention`` of the whole sequence (one rank at a time:
+   2.1 GB of scores) at rtol 2e-4, atol 2e-5, and the dq, dk, dv of
+   ``sum(out**2)`` within 1e-4 of max|g_ref|; CUDA-event forward and
+   forward+backward ms, and the K/V rotations' and all-to-alls' ms alone
+   (medians of 5 turns with the forward they belong to).  (14c) ``--worker tp DIR`` in 4 workers of the port's launcher:
+   ``ring_allreduce`` against ``psum`` and ``allreduce_bandwidth_gbps``
+   (64 MiB; gloo through host memory, no interconnect figure); two f32
+   steps of ``MLP(model_axis="model")``; ``train_mlp.main`` with
+   ``--model-parallel 2`` on phase 6's 500,000-row libsvm file (kept
+   under ``build/chip_smoke_ingest/`` by phases 6 and 13, or written
+   again the same way; removed after 14c; the default ``--hidden 128,128``,
+   2 epochs, a ``--checkpoint-dir``): the model line's blocks bitwise
+   equal across the data line and the checkpoint's gathered params on
+   every rank, losses falling, the first two steps' all-reduced
+   gradients gathered against world-1 steps over the same global batches
+   (bf16 within 2e-2 of the largest, f32 within 1e-5), the checkpoint
+   restored into a world-1 ``MLP`` predicting bitwise what the run's
+   gathered params predicted; then ``python -m
+   dmlc_core_tpu_torch.examples.train_mlp --model-parallel 2 --epochs 3``
+   in 4 workers, which must resume from epoch 1.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -278,7 +311,8 @@ those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
 phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
 count of phase 11, the multi-worker path's run, phase 12's fit from
-recordio and phase 13's parse and fit from the bucket.
+recordio and phase 13's parse and fit from the bucket, and K4's adds
+rank 0's count of phase 14a's dryrun.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -386,6 +420,17 @@ RETRY_OBJECT = 16 << 20       # 13e: bytes read from the flaky store
 RETRY_FAIL_EVERY = 7          # 13e: every 7th GET cut off mid-body
                               # bf16 MLP (the same code); 9c's f32 control
                               # must read above it
+DRYRUN_RANKS = 8              # 14a: dryrun_multichip's ranks on the card
+SEQ_RANKS = 4                 # 14b: the sp mesh
+SEQ_B, SEQ_L, SEQ_H, SEQ_D = 1, 8192, 8, 64   # 14b: [B, L, H, D], f32
+SEQ_RTOL, SEQ_ATOL = 2e-4, 2e-5   # 14b: outputs (tests/test_sequence.py's)
+SEQ_GRAD_TOL = 1e-4           # 14b: dq/dk/dv, of max|g_ref|
+SEQ_ITERS = 5                 # 14b: timed calls of each case
+RING_ELEMS = 1 << 20          # 14c: ring_allreduce's f32 elements a rank
+RING_TOL = 1e-5               # 14c: ring against psum (sums of 4 randn)
+RING_BYTES = 64 << 20         # 14c: allreduce_bandwidth_gbps's array
+TP_PROBE = 4096               # 14c: rows the checkpoint's predict scores
+TP_F32_TOL = 1e-5             # 14c: f32 steps against world-1 steps
 K3_RAGGED = [
     # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
     # f_count, offset of the tensors in their allocations (elements); node
@@ -3148,15 +3193,16 @@ def cli_worker_main(outdir):
     torch.save(result, os.path.join(outdir, f"cli{rank}.pt"))
 
 
-def _submit(args, cmd, outdir, name, timeout_s):
-    """``cmd`` in 2 workers through the port's launcher (gloo on the one
-    card, a store port of its own); fail with the launch's stderr tail and
-    each rank's own log on any failure.  Returns (stdout, seconds)."""
+def _submit(args, cmd, outdir, name, timeout_s, workers=2, log="cli"):
+    """``cmd`` in ``workers`` workers through the port's launcher (gloo on
+    the one card, a store port of its own); fail with the launch's stderr
+    tail and each rank's own log (``OUTDIR/{log}{rank}.err``) on any
+    failure.  Returns (stdout and stderr, seconds)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=here,
                DMLC_COLLECTIVE_TIMEOUT=str(MW_COLLECTIVE_TIMEOUT_S))
     full = [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
-            "--cluster", "local", "--num-workers", "2", "--env",
+            "--cluster", "local", "--num-workers", str(workers), "--env",
             f"DMLC_COORDINATOR_PORT={_free_port()}", *args, "--", *cmd]
     start = time.perf_counter()
     try:
@@ -3169,15 +3215,15 @@ def _submit(args, cmd, outdir, name, timeout_s):
     if rc != 0:
         print(f"--- {name} launch ({rc}) stderr tail:\n{err[-4000:]}",
               file=sys.stderr, flush=True)
-        for rank in range(2):
-            log = os.path.join(outdir, f"cli{rank}.err")
-            if os.path.exists(log):
-                with open(log) as f:
+        for rank in range(workers):
+            path = os.path.join(outdir, f"{log}{rank}.err")
+            if os.path.exists(path):
+                with open(path) as f:
                     tail = f.read()[-3000:]
                 print(f"--- {name} rank {rank} stderr tail:\n{tail}",
                       file=sys.stderr, flush=True)
-        fail(f"phase 11 {name}: the 2-worker launch exited {rc}")
-    return out, secs
+        fail(f"{name}: the {workers}-worker launch exited {rc}")
+    return out + err, secs
 
 
 def _over_two(lines):
@@ -3375,7 +3421,7 @@ def phase_multiworker(card, ref):
         with open(os.path.join(outdir, "cli.json"), "w") as f:
             json.dump(runs, f)
         _, wall = _submit([], [sys.executable, os.path.abspath(__file__),
-                               "--worker", "cli", outdir], outdir, "CLIs",
+                               "--worker", "cli", outdir], outdir, "phase 11 CLIs",
                           MW_TIMEOUT_S)
         ranks = [torch.load(os.path.join(outdir, f"cli{r}.pt"),
                             weights_only=False) for r in range(2)]
@@ -3384,7 +3430,7 @@ def phase_multiworker(card, ref):
             sys.executable, "-m", "dmlc_core_tpu_torch.examples.train_gbdt",
             "--data", small, "--num-feature", str(N_FEATURES), "--rounds",
             str(ROUNDS), "--max-depth", str(MAX_DEPTH)], outdir,
-            "python -m train_gbdt", MW_TIMEOUT_S)
+            "phase 11 python -m train_gbdt", MW_TIMEOUT_S)
     cli_lines = _over_two(out.splitlines())
     if len(cli_lines) != 2 or cli_lines[0] != cli_lines[1]:
         fail(f"11 python -m train_gbdt: not one line twice: {cli_lines}")
@@ -4134,10 +4180,397 @@ def phase_remote(card, ref):
         if not was_on:
             telemetry.disable()
         shutil.rmtree(tmp, ignore_errors=True)
-    shutil.rmtree(os.path.dirname(svm), ignore_errors=True)
+    # the libsvm file stays for phase 14c, which removes it
     print(f"phase 13: {time.perf_counter() - phase_start:.1f} s [{card}]",
           flush=True)
     return launches["grad_hist_fused_cuda"]
+
+
+# -- phase 14: tensor and sequence parallelism on a mesh of ranks --------------
+def _seq_case(fn, blocks, mesh, causal):
+    """(output block, its q/k/v gradients) of ``fn`` on this rank's
+    blocks, the loss ``sum(out**2)`` over every rank."""
+    leaves = [t.clone().requires_grad_(True) for t in blocks]
+    out = fn(*leaves, mesh, axis="sp", causal=causal)
+    (out ** 2).sum().backward()
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _alternate(fns, rounds):
+    """Median seconds of each of ``fns``, timed one call each in turns
+    (after one untimed call each), so that a drift of the shared host
+    touches all of them alike."""
+    from dmlc_core_tpu_torch.utils.profiler import device_timer
+
+    times = [[] for _ in fns]
+    for fn in fns:
+        fn()
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(device_timer(fn, iters=1, warmup=0)[1])
+    return [float(np.median(t)) for t in times]
+
+
+def seq_worker_main(outdir):
+    """One rank of phase 14b (``--worker seq OUTDIR``): ring and Ulysses
+    attention over a 4-rank ``sp`` mesh on the card at L = 8,192, their
+    gradients, the plain reference on the whole sequence (one rank at a
+    time: 2.1 GB of scores), and CUDA-event times of each and of the K/V
+    rotation or all-to-alls alone, in turns with the forward."""
+    from dmlc_core_tpu_torch import collective
+    from dmlc_core_tpu_torch.collective.mesh_collectives import (
+        MeshCollective)
+    from dmlc_core_tpu_torch.parallel.mesh import make_mesh
+    from dmlc_core_tpu_torch.parallel.sequence import (reference_attention,
+                                                       ring_attention,
+                                                       shard_sequence,
+                                                       ulysses_attention)
+    from dmlc_core_tpu_torch.utils.profiler import device_timer
+
+    collective.init({"backend": "gloo", "timeout": MW_COLLECTIVE_TIMEOUT_S})
+    rank = collective.get_rank()
+    dev = torch.device("cuda")
+    mesh = make_mesh({"sp": SEQ_RANKS})
+    rng = np.random.RandomState(14)
+    shape = (SEQ_B, SEQ_L, SEQ_H, SEQ_D)
+    full = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+            for _ in range(3)]
+    blocks = [shard_sequence(t, mesh, "sp").contiguous() for t in full]
+    coll = MeshCollective(mesh, "sp")
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    result = {"rank": rank}
+    for causal in (False, True):
+        def reference():
+            leaves = [t.clone().requires_grad_(True) for t in full]
+            out = reference_attention(*leaves, causal=causal)
+            (out ** 2).sum().backward()
+            res = [shard_sequence(out.detach(), mesh, "sp")] + [
+                shard_sequence(t.grad, mesh, "sp") for t in leaves]
+            res = [t.contiguous() for t in res]
+            del out, leaves
+            torch.cuda.empty_cache()
+            return res
+
+        want = _time_serially(rank, reference)
+        for name, fn in fns.items():
+            tag = f"{name}_{'causal' if causal else 'full'}"
+            out, grads = _seq_case(fn, blocks, mesh, causal)
+            err = {"out": (out - want[0]).abs().max().item(),
+                   "out_ok": torch.allclose(out, want[0], rtol=SEQ_RTOL,
+                                            atol=SEQ_ATOL)}
+            for t, g, w in zip("qkv", grads, want[1:]):
+                scale = w.abs().max().item()
+                err["d" + t] = (g - w).abs().max().item() / scale
+            _, fwd = device_timer(
+                lambda: fn(*blocks, mesh, axis="sp", causal=causal),
+                iters=SEQ_ITERS, warmup=1)
+            _, both = device_timer(lambda: _seq_case(fn, blocks, mesh,
+                                                     causal),
+                                   iters=SEQ_ITERS, warmup=1)
+            err.update(fwd_ms=fwd * 1e3, fwd_bwd_ms=both * 1e3)
+            result[tag] = err
+    # the transport alone, in turns with the forward it belongs to: the
+    # ring's n - 1 K/V rotations, and Ulysses' four all-to-alls
+    kv = torch.stack(blocks[1:])
+    fwd, rot = _alternate([
+        lambda: ring_attention(*blocks, mesh, axis="sp"),
+        lambda: [coll.ppermute(kv, 1) for _ in range(SEQ_RANKS - 1)]],
+        SEQ_ITERS)
+    ufwd, a2a = _alternate([
+        lambda: ulysses_attention(*blocks, mesh, axis="sp"),
+        lambda: [coll.all_to_all(t, 2, 1) for t in blocks]
+        + [coll.all_to_all(blocks[0], 1, 2)]], SEQ_ITERS)
+    result.update(ring_fwd_ms=fwd * 1e3, rotation_ms=rot * 1e3,
+                  ulysses_fwd_ms=ufwd * 1e3, all_to_all_ms=a2a * 1e3)
+    torch.save(result, os.path.join(outdir, f"seq{rank}.pt"))
+    collective.finalize()
+
+
+def tp_worker_main(outdir):
+    """One rank of phase 14c (``--worker tp OUTDIR``), in a 4-worker job
+    of the port's launcher: ``ring_allreduce`` against ``psum`` and
+    ``allreduce_bandwidth_gbps`` over the 4 ranks; two f32 steps of
+    ``MLP(model_axis="model")`` on the rank's first two batches of the
+    data; then ``train_mlp.main`` with ``--model-parallel 2`` (bf16, 2
+    epochs, a ``--checkpoint-dir``), its first two steps' all-reduced
+    gradients and its checkpoint's params captured gathered, with the
+    world-1 and the tensor-parallel ``predict`` of probe rows at that
+    point."""
+    from dmlc_core_tpu_torch import collective
+    from dmlc_core_tpu_torch.bridge.loader import MeshBatchLoader
+    from dmlc_core_tpu_torch.collective.mesh_collectives import (
+        MeshCollective, allreduce_bandwidth_gbps, ring_allreduce)
+    from dmlc_core_tpu_torch.data.factory import create_parser
+    from dmlc_core_tpu_torch.examples import train_mlp
+    from dmlc_core_tpu_torch.models import mlp as mlp_mod
+    from dmlc_core_tpu_torch.parallel.mesh import make_mesh
+
+    with open(os.path.join(outdir, "tp.json")) as f:
+        run = json.load(f)
+    rank = int(os.environ["DMLC_TASK_ID"])
+    for fd, ext in ((1, "out"), (2, "err")):
+        with open(os.path.join(outdir, f"tp{rank}.{ext}"), "w") as f:
+            os.dup2(f.fileno(), fd)
+    dev = torch.device("cuda")
+    collective.init({"backend": "gloo", "timeout": MW_COLLECTIVE_TIMEOUT_S})
+    result = {"rank": rank}
+
+    # the ring all-reduce and the algbw meter over the 4 ranks
+    flat = make_mesh({"r": 4})
+    x = torch.from_numpy(np.random.RandomState(rank).randn(
+        RING_ELEMS).astype(np.float32)).to(dev)
+    ring = ring_allreduce(flat, "r", x)
+    psum = MeshCollective(flat, "r").psum(x)
+    result["ring_err"] = (ring - psum).abs().max().item()
+    result["ring_bitwise"] = bool(torch.equal(ring, psum))
+    result["gbps"] = allreduce_bandwidth_gbps(flat, "r", nbytes=RING_BYTES,
+                                              iters=5)
+
+    # two f32 steps on the rank's first two batches, gathered
+    mesh = make_mesh({"data": 2, "model": 2})
+    param = mlp_mod.MLPParam(num_feature=N_FEATURES, bf16=False)
+    model = mlp_mod.MLP(param, model_axis="model", device=dev, mesh=mesh)
+    params = model.init_params()
+    opt = model.init_optimizer(params)
+    parser = create_parser(run["data"], mesh.coord("data"), 2, type="auto")
+    loader = MeshBatchLoader(parser, mesh, form="dense",
+                             global_batch_size=1024,
+                             num_feature=N_FEATURES, device=dev)
+    f32_steps = []
+    with mesh:
+        for batch, _ in zip(loader, range(2)):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in mlp_mod._leaves(params)]
+            loss, grads = model._data_parallel_grads(leaves, batch)
+            f32_steps.append(_to_cpu(dict(
+                params=model.gather_params(params),
+                grads=model.gather_params(mlp_mod._rebuild(list(grads))),
+                loss=loss, batch=batch)))
+            params, opt, _ = model.train_step(params, opt, batch)
+    loader.close()
+    result["f32_steps"] = f32_steps
+
+    # the CLI, its first two steps and its checkpoint captured gathered
+    steps, saved = [], {}
+    grads_of = mlp_mod.MLP._data_parallel_grads
+    gathered = train_mlp._gathered
+    probe = torch.from_numpy(np.asarray(run["probe"], np.float32)).to(dev)
+
+    def recorded(self, leaves, batch):
+        loss, grads = grads_of(self, leaves, batch)
+        if len(steps) < 2:
+            steps.append(_to_cpu(dict(
+                params=self.gather_params(mlp_mod._rebuild(leaves)),
+                grads=self.gather_params(mlp_mod._rebuild(list(grads))),
+                loss=loss, batch=batch, param=self.param)))
+        return loss, grads
+
+    def gathered_and_scored(model, params, opt_state):
+        full = gathered(model, params, opt_state)
+        one = mlp_mod.MLP(model.param, device=model.device)
+        saved.update(_to_cpu(dict(
+            params=full[0], world1_predict=one.predict(full[0], probe),
+            tp_predict=model.predict(params, probe))))
+        return full
+
+    mlp_mod.MLP._data_parallel_grads = recorded
+    train_mlp._gathered = gathered_and_scored
+    lines = _tee_lines()
+    start = time.perf_counter()
+    blocks, _, losses = train_mlp.main(run["argv"])
+    sys.stdout, sys.stderr = sys.stdout.inner, sys.stderr.inner
+    result.update(wall=time.perf_counter() - start, losses=losses,
+                  blocks=_to_cpu(blocks), steps=steps, saved=saved,
+                  lines=list(lines))
+    torch.save(result, os.path.join(outdir, f"tp{rank}.pt"))
+
+
+def _replay_world_one(steps, bf16):
+    """The largest gradient error of each step of ``steps`` (gathered
+    params, batches of both data ranks, all-reduced loss and gradients of
+    the tensor-parallel run) against a world-1 step over the global
+    batch, relative to the largest gradient, and the loss's relative
+    error."""
+    from dmlc_core_tpu_torch.models import mlp as mlp_mod
+
+    dev = torch.device("cuda")
+    out = []
+    for s0, s1 in zip(*steps):
+        param = mlp_mod.MLPParam(num_feature=N_FEATURES, bf16=bf16)
+        model = mlp_mod.MLP(param, device=dev)
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in mlp_mod._leaves(s0["params"])]
+        gb = mlp_mod.batch_to(_global_batch(s0["batch"], s1["batch"]), dev)
+        with torch.enable_grad():
+            loss = model._loss(mlp_mod._rebuild(leaves), gb)
+            grads = torch.autograd.grad(loss, leaves)
+        got = mlp_mod._leaves(s0["grads"])
+        scale = max(g.abs().max().item() for g in grads)
+        gerr = max((a.to(dev) - b).abs().max().item()
+                   for a, b in zip(got, grads)) / scale
+        lerr = abs(float(s0["loss"]) - loss.item()) / abs(loss.item())
+        out.append((gerr, lerr))
+    return out
+
+
+def phase_parallel(card, ref):
+    """Phase 14: the tensor- and sequence-parallel slice on the card, ranks
+    sharing it over gloo.  Returns rank 0's K4 launches of 14a."""
+    from dmlc_core_tpu_torch import graft_entry
+    from dmlc_core_tpu_torch.bridge.checkpoint import CheckpointManager
+    from dmlc_core_tpu_torch.models import mlp as mlp_mod
+
+    print(f"== phase 14: tensor and sequence parallelism, ranks sharing the "
+          f"card over gloo (not scaling figures) [{card}]", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+
+    # 14a: the dryrun of the reference's multi-device step
+    start = time.perf_counter()
+    summary = graft_entry.dryrun_multichip(DRYRUN_RANKS,
+                                           timeout_s=MW_TIMEOUT_S)
+    if summary["k4_launches"] <= 0:
+        fail("14a: K4 was not launched on the card")
+    k4_err = summary["k4_max_abs_err"]
+    if set(k4_err) != {"flat", "hybrid"}:
+        fail(f"14a: K4 was held to its plain versions on {sorted(k4_err)}, "
+             f"not on the flat and the hybrid mesh")
+    print(f"14a dryrun_multichip({DRYRUN_RANKS}) above: rank 0 launched K4 "
+          f"{summary['k4_launches']} times; K4 at the dryrun's shapes (16 "
+          f"bins, 4 columns a rank) against its plain version and the "
+          f"whole rows' grad_hist_ref: max abs err {k4_err['flat']:.3g} on "
+          f"the flat mesh, {k4_err['hybrid']:.3g} on the hybrid mesh (rtol "
+          f"{graft_entry.K4_RTOL}, atol {graft_entry.K4_ATOL}, every rank); "
+          f"{summary['seconds']:.1f} s on rank 0, "
+          f"{time.perf_counter() - start:.1f} s with the launch [{card}]",
+          flush=True)
+
+    # 14b: ring and Ulysses attention at L = 8,192 over 4 ranks
+    outdir = os.path.join(here, "build", "chip_smoke_parallel")
+    shutil.rmtree(outdir, ignore_errors=True)
+    start = time.perf_counter()
+    _launch_workers("seq", SEQ_RANKS, outdir, MW_TIMEOUT_S)
+    ranks = [torch.load(os.path.join(outdir, f"seq{r}.pt"),
+                        weights_only=False) for r in range(SEQ_RANKS)]
+    r0 = ranks[0]
+    for tag in ("ring_full", "ring_causal", "ulysses_full",
+                "ulysses_causal"):
+        errs = [r[tag] for r in ranks]
+        worst = {k: max(e[k] for e in errs) for k in ("out", "dq", "dk",
+                                                      "dv")}
+        e = r0[tag]
+        print(f"14b {tag} B={SEQ_B} L={SEQ_L:,} H={SEQ_H} D={SEQ_D} f32 "
+              f"over {SEQ_RANKS} ranks: out max abs err {worst['out']:.3g}"
+              f" (rtol {SEQ_RTOL}, atol {SEQ_ATOL}); dq/dk/dv max err "
+              f"{worst['dq']:.3g}/{worst['dk']:.3g}/{worst['dv']:.3g} of "
+              f"max|g_ref|; rank 0 forward {e['fwd_ms']:.2f} ms, "
+              f"forward+backward {e['fwd_bwd_ms']:.2f} ms [{card}]",
+              flush=True)
+        if not all(x["out_ok"] for x in errs):
+            fail(f"14b {tag}: the output disagrees with reference_attention")
+        if max(worst["dq"], worst["dk"], worst["dv"]) > SEQ_GRAD_TOL:
+            fail(f"14b {tag}: gradients beyond {SEQ_GRAD_TOL} of "
+                 f"max|g_ref|: {worst}")
+    print(f"14b transport (gloo through host memory), medians of "
+          f"{SEQ_ITERS} turns with the non-causal forward on rank 0: the "
+          f"ring's {SEQ_RANKS - 1} K/V rotations {r0['rotation_ms']:.2f} ms "
+          f"of its {r0['ring_fwd_ms']:.2f} ms forward "
+          f"({100 * r0['rotation_ms'] / r0['ring_fwd_ms']:.0f}%), Ulysses' "
+          f"4 all-to-alls {r0['all_to_all_ms']:.2f} ms of "
+          f"{r0['ulysses_fwd_ms']:.2f} ms "
+          f"({100 * r0['all_to_all_ms'] / r0['ulysses_fwd_ms']:.0f}%); 14b "
+          f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
+
+    # 14c: train_mlp --model-parallel 2 in 4 workers, then its resume
+    start = time.perf_counter()
+    data = _ingest_path()          # phase 6's, kept by phase 13
+    if not os.path.exists(data):
+        os.makedirs(os.path.dirname(data), exist_ok=True)
+        _write_text(data, ref["x"][:N_INGEST], ref["y"][:N_INGEST], " ",
+                    " ", "{}:%.9g")
+    ckpt = os.path.join(outdir, "ckpt")
+    probe = make_higgs_like(N_HELDOUT, N_FEATURES, seed=1)[0][:TP_PROBE]
+    common = ["--data", data, "--num-feature", str(N_FEATURES),
+              "--model-parallel", "2", "--checkpoint-dir", ckpt]
+    with open(os.path.join(outdir, "tp.json"), "w") as f:
+        json.dump(dict(data=data, probe=probe.tolist(),
+                       argv=common + ["--epochs", "2"]), f)
+    _submit([], [sys.executable, os.path.abspath(__file__), "--worker",
+                 "tp", outdir], outdir, "14c TP", MW_TIMEOUT_S, workers=4,
+            log="tp")
+    ranks = [torch.load(os.path.join(outdir, f"tp{r}.pt"),
+                        weights_only=False) for r in range(4)]
+    r0 = ranks[0]
+    print(f"14c ring_allreduce of {RING_ELEMS:,} f32 over 4 ranks against "
+          f"psum: max abs err {r0['ring_err']:.3g} (bitwise "
+          f"{r0['ring_bitwise']}); allreduce_bandwidth_gbps "
+          f"{r0['gbps']:.3f} GB/s at {RING_BYTES >> 20} MiB (gloo through "
+          f"host, 4 ranks on 1 card: no interconnect figure) [{card}]",
+          flush=True)
+    if r0["ring_err"] > RING_TOL:
+        fail(f"14c: ring_allreduce differs from psum by {r0['ring_err']}")
+    # ranks (0, 2) hold model column 0, ranks (1, 3) column 1
+    for r in (2, 3):
+        for a, b in zip(mlp_mod._leaves(ranks[r]["blocks"]),
+                        mlp_mod._leaves(ranks[r - 2]["blocks"])):
+            if not torch.equal(a, b):
+                fail(f"14c: rank {r}'s blocks differ from rank {r - 2}'s")
+    for r in range(4):
+        for a, b in zip(mlp_mod._leaves(ranks[r]["saved"]["params"]),
+                        mlp_mod._leaves(r0["saved"]["params"])):
+            if not torch.equal(a, b):
+                fail(f"14c: rank {r}'s gathered checkpoint params differ")
+    losses = r0["losses"]
+    if len(losses) != 2 or not losses[1] < losses[0]:
+        fail(f"14c: rank 0's losses {losses} do not fall")
+    bf16 = _replay_world_one([ranks[0]["steps"], ranks[2]["steps"]], True)
+    f32 = _replay_world_one([ranks[0]["f32_steps"], ranks[2]["f32_steps"]],
+                            False)
+    print(f"14c first two steps against world-1 steps over the same global "
+          f"batches (gradient error of the largest, loss relative error): "
+          f"bf16 {bf16}, f32 {f32} [{card}]", flush=True)
+    if max(g for g, _ in bf16) > MW_GRAD_TOL \
+            or max(lo for _, lo in bf16) > MW_GRAD_TOL:
+        fail(f"14c: bf16 steps beyond {MW_GRAD_TOL}: {bf16}")
+    if max(max(g, lo) for g, lo in f32) > TP_F32_TOL:
+        fail(f"14c: f32 steps beyond {TP_F32_TOL}: {f32}")
+    # the checkpoint is the full tree: a world-1 MLP restores it
+    one = mlp_mod.MLP(ranks[0]["steps"][0]["param"], device="cuda")
+    tmpl = one.init_params()
+    params, _ = CheckpointManager(ckpt).restore(
+        1, template=(tmpl, (one.init_optimizer(tmpl), ())))
+    params = mlp_mod._rebuild([torch.from_numpy(np.array(a)).cuda()
+                               for a in mlp_mod._leaves(params)])
+    got = one.predict(params, torch.from_numpy(probe).cuda()).cpu()
+    if not torch.equal(got, r0["saved"]["world1_predict"]):
+        fail("14c: the restored checkpoint's predict differs from the TP "
+             "run's gathered predict")
+    tp_err = (r0["saved"]["tp_predict"] - got).abs().max().item()
+    if tp_err > MW_GRAD_TOL:
+        fail(f"14c: the tensor-parallel predict is {tp_err} from the world-1"
+             f" predict of the gathered params")
+    print(f"14c train_mlp --model-parallel 2 over 4 ranks (data 2 x model "
+          f"2), {N_INGEST:,} rows, 2 epochs: rank 0 losses {losses}; "
+          f"blocks bitwise equal across the data line, checkpoint params "
+          f"bitwise equal on all 4 ranks; step 1 restored into a world-1 "
+          f"MLP predicts bitwise the gathered params' predict on "
+          f"{TP_PROBE} rows (tensor-parallel predict within {tp_err:.3g});"
+          f" main() {r0['wall']:.1f} s [{card}]", flush=True)
+    out, wall = _submit([], [sys.executable, "-m",
+                             "dmlc_core_tpu_torch.examples.train_mlp",
+                             *common, "--epochs", "3"], outdir,
+                        "14c resume", MW_TIMEOUT_S, workers=4, log="tp")
+    if "resuming from checkpoint epoch 1" not in out \
+            or "epoch 2: loss=" not in out:
+        fail("14c: the rerun did not resume from epoch 1 and train epoch 2")
+    print(f"14c python -m dmlc_core_tpu_torch.examples.train_mlp "
+          f"--model-parallel 2 --epochs 3 in 4 workers resumed and exited 0"
+          f" in {wall:.1f} s [{card}]", flush=True)
+    shutil.rmtree(os.path.dirname(data), ignore_errors=True)
+    print(f"phase 14: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return summary["k4_launches"]
 
 
 def main():
@@ -4148,6 +4581,10 @@ def main():
         sys.path.insert(0, here)
         if sys.argv[2] == "cli":
             cli_worker_main(sys.argv[3])
+        elif sys.argv[2] == "seq":
+            seq_worker_main(sys.argv[3])
+        elif sys.argv[2] == "tp":
+            tp_worker_main(sys.argv[3])
         else:
             worker_main(sys.argv[2], sys.argv[3])
         return
@@ -4173,8 +4610,10 @@ def main():
     k3["launches"] += phase_recordio(card, ref)
     # and those of phase 13's fit from the bucket
     k3["launches"] += phase_remote(card, ref)
+    # the parallel slice's path: rank 0's K4 launches of the dryrun count
+    k4["launches"] += phase_parallel(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-13 passed in "
+    print(f"chip_smoke: phases 1-14 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

@@ -6,8 +6,11 @@ idiom.
 
 :class:`MeshBatchLoader` stages a parser's dense or sparse batches on a
 prefetch thread and places each on the rank's device; with one process
-per rank, a rank yields its own ``global_batch_size / world`` rows (the
-JAX loader's per-process share of one global batch).
+per rank, a rank yields its own share of one global batch: ``global_batch_size
+/ P`` rows, where P is the number of row shards of the mesh (the product
+of its row axes; ``world`` on a ``data`` mesh over all ranks, the JAX
+loader's per-process share), so ranks that differ only along a ``model``
+axis stage the same rows.
 
 :class:`DeviceFeedLoader`: on ``cuda`` each host batch is copied into one
 of a ring of ``prefetch + 1`` pinned host buffers (allocated once per batch
@@ -125,11 +128,11 @@ class MeshBatchLoader:
     Args:
       parser: host-side Parser (already sharded per process through
         ``part_index``/``num_parts`` at creation).
-      mesh: the job's :class:`~..parallel.mesh.Mesh` (the reference's
-        signature; each rank places its own rows on its device).
+      mesh: the job's :class:`~..parallel.mesh.Mesh`; each rank places
+        its own rows on its device.
       form: "dense" or "sparse".
       global_batch_size: rows per global step; this process stages
-        ``global_batch_size / world`` rows.
+        ``global_batch_size / P`` rows, P the mesh's row shards.
       num_feature: required for the dense form.
       nnz_bucket: fixed nonzero bucket for the sparse form (else the
         power-of-two ladder of :func:`~.batching.bucket_size`).
@@ -143,9 +146,8 @@ class MeshBatchLoader:
                  num_feature: Optional[int] = None,
                  nnz_bucket: Optional[int] = None, prefetch: int = 2,
                  drop_remainder: bool = True, device: Any = None):
-        import torch.distributed as dist
-
-        nproc = dist.get_world_size() if dist.is_initialized() else 1
+        rows = mesh.row_axes
+        nproc = mesh.axis_size(rows) if rows else 1
         CHECK(global_batch_size % nproc == 0,
               "global_batch_size must divide evenly across processes")
         self._device = resolve_device(device)

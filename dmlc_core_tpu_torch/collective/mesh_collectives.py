@@ -13,40 +13,55 @@ tensor is copied to host memory and back here, explicitly: gloo stages
 CUDA tensors through the host in any case, and some builds lack CUDA
 ``all_gather`` under gloo.  That copy is the transport; the kernels that
 made the tensor ran on the card.  Under ``nccl`` tensors stay on the card.
+
+``axis`` may be a tuple of axes: the line over their product, in the
+flattened coordinate order (the JAX ``psum(x, ("a", "b"))``).
+:meth:`MeshCollective.ppermute` and :meth:`MeshCollective.all_to_all` are
+the JAX ``lax.ppermute`` (a shift around the line) and ``lax.all_to_all``
+(``tiled=True``); :func:`ppermute` and :func:`all_to_all` are their
+differentiable forms, whose backward is the transpose JAX applies (the
+inverse shift, the inverse all-to-all).  :func:`ring_allreduce` is the
+reference's explicit ring (a reduce-scatter, then an all-gather, over
+point-to-point sends), and :func:`allreduce_bandwidth_gbps` its algbw
+meter.
+
+The rows of a fit are split over the ambient mesh's row axes
+(``Mesh.row_axes``: ``("data",)`` on a mesh with a ``data`` axis, or
+what ``with data_sharding(mesh, axis=...)`` names), which
+:func:`data_parallel` and :func:`data_allreduce` read.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
+from dmlc_core_tpu_torch.parallel.mesh import Axes, ambient_mesh
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
-__all__ = ["MeshCollective", "DATA_AXIS", "data_parallel", "data_allreduce"]
-
-# the mesh axis rows are sharded over
-DATA_AXIS = "data"
+__all__ = ["MeshCollective", "data_parallel", "data_allreduce", "ppermute",
+           "all_to_all", "ring_allreduce",
+           "allreduce_bandwidth_gbps"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
 
 class MeshCollective:
-    """Collectives over ``axis`` of ``mesh``, on this rank's line."""
+    """Collectives over ``axis`` (an axis or a tuple of axes) of
+    ``mesh``, on this rank's line."""
 
-    def __init__(self, mesh, axis: str = "data"):
-        CHECK(axis in mesh.axis_names,
-              f"axis {axis!r} not in mesh {mesh.axis_names}")
+    def __init__(self, mesh, axis: Axes = "data"):
         self.mesh = mesh
         self.axis = axis
-        self.axis_size = mesh.shape[axis]
+        self.axis_size = mesh.axis_size(axis)
         self.index = mesh.coord(axis)
         self._group = mesh.group(axis)
         CHECK(self._group is not None or self.axis_size == 1,
               f"axis {axis!r} spans {self.axis_size} ranks but this mesh "
               f"has no process group for it (build it with make_mesh "
-              f"after collective.init)")
+              f"after collective.init, and a tuple's with make_groups)")
         # torch orders a group by ascending global rank, which along a
         # mesh line is the coordinate order
         self._ranks = mesh.line_ranks(axis)
@@ -102,18 +117,143 @@ class MeshCollective:
             dist.broadcast(t, src=self._ranks[root], group=self._group)
         return t.to(x.device)
 
+    def ppermute(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """The shard of the rank ``shift`` coordinates behind: this rank
+        sends ``x`` to coordinate ``(index + shift) % n`` and receives from
+        ``(index - shift) % n`` (the JAX ``ppermute`` with the permutation
+        ``i -> i + shift``), in one batch of point-to-point ops."""
+        n = self.axis_size
+        if self._group is None or shift % n == 0:
+            return self._send(x).to(x.device)
+        t = self._send(x)
+        out = torch.empty_like(t)
+        # p2p peers are global ranks, also inside a group
+        ops = [dist.P2POp(dist.isend, t, self._ranks[(self.index + shift) % n],
+                          self._group),
+               dist.P2POp(dist.irecv, out,
+                          self._ranks[(self.index - shift) % n], self._group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out.to(x.device)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """The JAX ``all_to_all(x, axis, split_dim, concat_dim,
+        tiled=True)``: ``x`` cut into ``n`` blocks along ``split_dim``,
+        block ``j`` sent to coordinate ``j``, and the blocks received
+        concatenated along ``concat_dim`` in coordinate order."""
+        n = self.axis_size
+        CHECK(x.shape[split_dim] % n == 0,
+              f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not "
+              f"split into {n} blocks")
+        if self._group is None:
+            return self._send(x).to(x.device)
+        src = self._send(torch.stack(torch.chunk(x, n, dim=split_dim)))
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self._group)
+        return torch.cat(out.to(x.device).unbind(0), dim=concat_dim)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll, shift):
+        ctx.coll, ctx.shift = coll, shift
+        return coll.ppermute(x, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.ppermute(g.contiguous(), -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll, split_dim, concat_dim):
+        ctx.coll, ctx.dims = coll, (split_dim, concat_dim)
+        return coll.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.coll.all_to_all(g.contiguous(), concat_dim, split_dim),
+                None, None, None)
+
+
+def ppermute(x: torch.Tensor, coll: MeshCollective,
+             shift: int = 1) -> torch.Tensor:
+    """:meth:`MeshCollective.ppermute`, differentiable: the gradient goes
+    back by the inverse shift.  Every rank of the line must run the
+    backward too."""
+    return _PPermute.apply(x, coll, shift)
+
+
+def all_to_all(x: torch.Tensor, coll: MeshCollective, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """:meth:`MeshCollective.all_to_all`, differentiable: the gradient
+    goes back by the all-to-all with the two dims swapped."""
+    return _AllToAll.apply(x, coll, split_dim, concat_dim)
+
+
+def ring_allreduce(mesh, axis: Axes, x: torch.Tensor) -> torch.Tensor:
+    """The sum of the shards over ``axis`` by the reference's explicit
+    ring: ``x`` (this rank's shard) cut into ``n`` segments on dim 0,
+    ``n - 1`` reduce-scatter steps (at step ``k`` send segment ``(c - k)
+    % n`` to the next rank and add the one received into segment ``(c - k
+    - 1) % n``), then ``n - 1`` all-gather steps (send ``(c - k + 1) % n``,
+    receive into ``(c - k) % n``).  The same segment order and additions
+    as ``_build_ring_allreduce``."""
+    coll = MeshCollective(mesh, axis)
+    n, c = coll.axis_size, coll.index
+    CHECK(x.shape[0] % n == 0,
+          f"ring_allreduce: dim 0 of {tuple(x.shape)} does not split into "
+          f"{n} segments")
+    segs = list(x.reshape((n, -1) + tuple(x.shape[1:])).clone().unbind(0))
+    for k in range(n - 1):
+        got = coll.ppermute(segs[(c - k) % n], 1)
+        segs[(c - k - 1) % n] = segs[(c - k - 1) % n] + got
+    for k in range(n - 1):
+        segs[(c - k) % n] = coll.ppermute(segs[(c - k + 1) % n], 1)
+    return torch.stack(segs).reshape(x.shape)
+
+
+def allreduce_bandwidth_gbps(mesh, axis: Axes, nbytes: int = 64 << 20,
+                             iters: int = 10, dtype=np.float32,
+                             device=None) -> float:
+    """Effective all-reduce bandwidth over ``axis`` in GB/s, the
+    reference's algbw: ``2 (n - 1) / n * bytes / seconds``, where
+    ``bytes`` is the whole array of ``n`` shards of ``nbytes / n`` bytes
+    and each iteration is one ``psum`` of this rank's shard (on
+    ``device``, ``cuda`` unless the caller passes ``device="cpu"``),
+    timed by :func:`..utils.profiler.device_timer` (the card synchronised
+    before the clock stops)."""
+    from dmlc_core_tpu_torch.utils.device import resolve_device
+    from dmlc_core_tpu_torch.utils.profiler import device_timer
+
+    coll = MeshCollective(mesh, axis)
+    n = coll.axis_size
+    itemsize = np.dtype(dtype).itemsize
+    elems = max(1, nbytes // itemsize // max(n, 1))
+    x = torch.ones(elems, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                   device=resolve_device(device))
+    _, seconds = device_timer(coll.psum, x, iters=iters, warmup=1)
+    payload = elems * itemsize * n
+    algbw = 2 * (n - 1) / max(n, 1) * payload / max(seconds, 1e-12)
+    return algbw / 1e9
+
 
 def data_parallel() -> bool:
-    """Whether the ambient mesh's ``data`` axis spans more than one rank."""
+    """Whether the ambient mesh's row axes span more than one rank."""
     mesh = ambient_mesh()
-    return mesh is not None and mesh.shape.get(DATA_AXIS, 1) > 1
+    return (mesh is not None and bool(mesh.row_axes)
+            and mesh.axis_size(mesh.row_axes) > 1)
 
 
 def data_allreduce(*tensors):
-    """The tensors (of one shape) summed over the ambient mesh's ``data``
-    group when that axis spans more than one rank, as one collective (the
-    reference gets these sums from GSPMD); else the tensors unchanged."""
+    """The tensors (of one shape) summed over the ambient mesh's row-axes
+    group (``data`` on a flat mesh) when it spans more than one rank, as
+    one collective (the reference gets these sums from GSPMD); else the
+    tensors unchanged."""
     if not data_parallel():
         return tensors
-    return tuple(MeshCollective(ambient_mesh(), DATA_AXIS).psum(
+    mesh = ambient_mesh()
+    return tuple(MeshCollective(mesh, mesh.row_axes).psum(
         torch.stack(tensors)))

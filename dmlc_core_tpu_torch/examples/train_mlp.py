@@ -12,15 +12,20 @@ but the last through ``CheckpointManager`` (step N = N epochs done); a
 rerun with the same directory restores the latest step into the freshly
 initialised structure and resumes.  The optimizer state is written in the
 reference's layout (optax's ``(ScaleByAdamState, EmptyState)``), so
-either package resumes the other's checkpoints.  ``--model-parallel`` > 1
-raises: sharding the hidden layers needs more than one card (ROADMAP §1
-item 9a).  ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run
-the plain versions on the CPU.
+either package resumes the other's checkpoints.  ``--device`` defaults
+to ``cuda``; pass ``--device cpu`` to run the plain versions on the CPU.
 
-Under a launch of several workers every rank reads its byte-range shard
-and stages ``batch_size / N`` rows a step; the steps run under a ``data``
-mesh over all ranks (the gradients all-reduced before Adam), so every
-rank holds the same params.  Rank 0 writes ``--checkpoint-dir``, and every
+Under a launch of N workers the steps run under a ``{"data": N / m,
+"model": m}`` mesh (``--model-parallel m``, default 1).  The ranks of a
+model line read the same byte-range shard (part = their ``data``
+coordinate, of ``N / m`` parts) and stage ``batch_size * m / N`` rows a
+step; with m > 1 they hold column blocks of the middle layers
+(``MLP(model_axis="model")``).  The gradients are all-reduced over the
+data line before Adam, so every rank of a model line holds the same
+blocks and every data line the same params.  Rank 0 writes
+``--checkpoint-dir`` after gathering its model line's blocks: the
+checkpoint is the full tree, which either package, and any
+``--model-parallel``, resumes (a resume cuts the blocks again).  Every
 rank checks that its view of the directory's latest step is rank 0's
 (shared storage), exiting otherwise, as the reference does.
 """
@@ -44,8 +49,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--learning-rate", type=float, default=1e-3)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="width of the 'model' mesh axis for the hidden "
-                         "layers (only 1 in the port)")
+                    help="mesh width of the 'model' axis for tp layers")
     ap.add_argument("--checkpoint-dir", default="",
                     help="resumable training: epoch-numbered checkpoints "
                          "(params + optimizer state); rerunning with the "
@@ -61,16 +65,30 @@ def _on_device(tree, device):
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
+def _gathered(model, params, opt_state):
+    """The full ``(params, opt_state)`` trees from the rank's blocks
+    (collective over the model line)."""
+    from dmlc_core_tpu_torch.models.mlp import AdamState
+
+    return model.gather_params(params), AdamState(
+        count=opt_state.count, mu=model.gather_params(opt_state.mu),
+        nu=model.gather_params(opt_state.nu))
+
+
+def _sharded(model, params, opt_state):
+    """The rank's blocks of full ``(params, opt_state)`` trees."""
+    from dmlc_core_tpu_torch.models.mlp import AdamState
+
+    return model.shard_params(params), AdamState(
+        count=opt_state.count, mu=model.shard_params(opt_state.mu),
+        nu=model.shard_params(opt_state.nu))
+
+
 def main(argv: Optional[List[str]] = None):
     """Train; returns (params, opt_state, [loss of each epoch this run
-    trained])."""
+    trained]), the rank's blocks with ``--model-parallel`` > 1."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: sharding the hidden "
-            f"layers over a model mesh axis needs more than one card and is "
-            f"not ported (ROADMAP.md §1 item 9a)")
 
     from dmlc_core_tpu_torch import collective
     from dmlc_core_tpu_torch.bridge.loader import MeshBatchLoader
@@ -82,11 +100,22 @@ def main(argv: Optional[List[str]] = None):
 
     # gloo, so that ranks may share one card (NCCL refuses two on one)
     collective.init({"backend": "gloo"})
+    world = collective.get_world_size()
+    mp = max(1, args.model_parallel)
+    if world % mp:
+        raise SystemExit(f"--model-parallel {mp} does not divide {world} "
+                         f"ranks")
+    mesh = make_mesh({"data": world // mp, "model": mp} if mp > 1
+                     else {"data": world})
+    # the ranks of a model line read the same rows: the part of their data
+    # coordinate (rank // mp on the row-major mesh)
     part, nparts = local_shard_info()
+    part, nparts = part // mp, nparts // mp
     param = MLPParam(num_feature=args.num_feature, hidden=args.hidden,
                      learning_rate=args.learning_rate)
     # resolves the device first: no card and no --device cpu raises here
-    model = MLP(param, device=worker_device(args.device))
+    model = MLP(param, model_axis="model" if mp > 1 else None,
+                device=worker_device(args.device), mesh=mesh)
     params = model.init_params()
     opt_state = model.init_optimizer(params)
 
@@ -97,7 +126,7 @@ def main(argv: Optional[List[str]] = None):
 
         mgr = CheckpointManager(args.checkpoint_dir, keep=3)
         latest = mgr.latest_step()
-        if nparts > 1:
+        if world > 1:
             # rank 0 is the writer: every rank must see ITS view of the
             # store agree with rank 0's, otherwise --checkpoint-dir is not
             # shared storage and ranks would resume at different epochs
@@ -107,18 +136,22 @@ def main(argv: Optional[List[str]] = None):
             if agreed != mine:
                 raise SystemExit(
                     f"--checkpoint-dir must be shared storage: rank "
-                    f"{part} sees step {mine} but rank 0 sees {agreed}")
+                    f"{collective.get_rank()} sees step {mine} but rank 0 "
+                    f"sees {agreed}")
         if latest is not None:
-            # template restore into the reference's optimizer layout
+            # template restore of the full trees into the reference's
+            # optimizer layout, then the rank's blocks
+            tmpl = MLP(param, device=model.device).init_params()
             params, (opt_state, _) = _on_device(mgr.restore(
-                latest, template=(params, (opt_state, ()))), model.device)
+                latest, template=(tmpl, (model.init_optimizer(tmpl), ()))),
+                model.device)
+            params, opt_state = _sharded(model, params, opt_state)
             start_epoch = latest
             collective.tracker_print(
                 f"resuming from checkpoint epoch {latest}")
 
     parser = create_parser(args.data, part, nparts, type="auto")
     meter = ThroughputMeter("train")
-    mesh = make_mesh()
     loader = MeshBatchLoader(parser, mesh, form="dense",
                              global_batch_size=args.batch_size,
                              num_feature=args.num_feature,
@@ -126,7 +159,7 @@ def main(argv: Optional[List[str]] = None):
     losses = []
     for epoch in range(start_epoch, args.epochs):
         loss = None
-        # under the mesh each step is data-parallel over the ranks
+        # under the mesh each step is data-parallel over the data line
         with mesh:
             for batch in loader:
                 params, opt_state, loss = model.train_step(params, opt_state,
@@ -136,8 +169,10 @@ def main(argv: Optional[List[str]] = None):
         if loss is not None:
             losses.append(float(loss))
             collective.tracker_print(f"epoch {epoch}: loss={losses[-1]:.5f}")
-        if mgr is not None and (epoch + 1) < args.epochs and part == 0:
-            mgr.save(epoch + 1, (params, (opt_state, ())))
+        if mgr is not None and (epoch + 1) < args.epochs:
+            full = _gathered(model, params, opt_state)   # every rank
+            if collective.get_rank() == 0:
+                mgr.save(epoch + 1, (full[0], (full[1], ())))
     if mgr is not None:
         mgr.wait_until_finished()
     loader.close()

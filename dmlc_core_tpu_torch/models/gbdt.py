@@ -11,11 +11,12 @@ histogram (the CUDA kernel on the card) plus a few tensor ops.
 Distributed training follows the reference's mesh semantics with one
 process per rank (:mod:`..parallel.mesh`): under ``with mesh:`` each rank
 fits on its own rows, every level's histogram is summed over the mesh's
-``data`` group (and, with ``model_axis``, computed by K4 on the rank's
-feature window and gathered over the ``model`` group), the split scan
-runs on every rank on identical sums, and leaf sums are summed over the
-``data`` group.  Every rank ends with the same ensemble; margins stay
-local.
+row axes (``data``, or the hybrid mesh's ``("dcn_data", "ici_data")``
+under ``with data_sharding(mesh, axis=...)``; and, with ``model_axis``,
+computed by K4 on the rank's feature window and gathered over the
+``model`` group), the split scan runs on every rank on identical sums,
+and leaf sums are summed over the same row axes.  Every rank ends with
+the same ensemble; margins stay local.
 
 Beside fitting and scoring it carries the reference's estimator extras:
 ``fit_with_eval`` (eval-set losses, early stopping), ``staged_losses``,
@@ -49,7 +50,8 @@ from dmlc_core_tpu_torch.bridge.checkpoint import (host_array,
                                                    load_checkpoint,
                                                    save_checkpoint)
 from dmlc_core_tpu_torch.collective.mesh_collectives import (MeshCollective,
-                                                         data_allreduce)
+                                                         data_allreduce,
+                                                         data_parallel)
 from dmlc_core_tpu_torch.ops import hist_cuda
 from dmlc_core_tpu_torch.ops.histogram import (
     apply_bins, as_tensor, bin_onehot, distributed_quantile_boundaries,
@@ -601,16 +603,15 @@ class GBDT:
 
     def _row_offset(self, rows: int) -> int:
         """Global index of this rank's first row: rows shard over the
-        ambient mesh's ``data`` axis in coordinate order, so the offset is
-        the row count of the lower data coordinates (gathered once, on
-        the fit's device).  0 without a mesh or without row sampling."""
-        mesh = ambient_mesh()
-        if (self.param.subsample >= 1.0 or mesh is None
-                or mesh.shape.get(hist_cuda.DATA_AXIS, 1) == 1):
+        ambient mesh's row axes in coordinate order, so the offset is
+        the row count of the lower coordinates (gathered once, on the
+        fit's device).  0 without a mesh or without row sampling."""
+        if self.param.subsample >= 1.0 or not data_parallel():
             return 0
-        counts = MeshCollective(mesh, hist_cuda.DATA_AXIS).allgather(
+        mesh = ambient_mesh()
+        counts = MeshCollective(mesh, mesh.row_axes).allgather(
             torch.tensor([rows], dtype=torch.int64, device=self.device))
-        return int(counts[:mesh.coord(hist_cuda.DATA_AXIS)].sum())
+        return int(counts[:mesh.coord(mesh.row_axes)].sum())
 
     def _bins(self, bins):
         return _widen_bins(as_tensor(bins, self.device)).contiguous()

@@ -16,8 +16,22 @@ out in one all-reduce over the data group; dividing by the global
 and every rank applies the same Adam update.  Without such a mesh the step
 is the single-process one.
 
-A column-sharded hidden layer (the reference's ``model_axis``) needs more
-than one card and is not ported (ROADMAP.md §1 item 9a).
+``MLP(model_axis="model")`` shards the columns of the middle layers
+(``0 < i < len(layers) - 1``, as the reference's sharding constraint
+does) over the ``model`` axis of the mesh (``mesh=``, else the ambient
+one): each rank of a model line holds its column block of those layers'
+``w`` and ``b`` and of their Adam moments.  The forward is Megatron's: a
+sharded layer's input is replicated on the line, the rank multiplies it
+by its block, and the blocks are gathered (:class:`_GatherColumns`,
+whose backward keeps the rank's slice of the replicated gradient).  The
+layer's backward (:class:`_ColumnLinear`) sums the partial input
+gradients of the line in float32 and rounds once, as the unsharded GEMM
+does (in bf16 each partial rounded before the sum would drift from it).
+The data-parallel all-reduce above runs unchanged over the data line.
+At the boundaries the tree has the reference's full shapes:
+:meth:`MLP.init_params` draws the full weights and keeps the rank's
+block (:meth:`MLP.shard_params`), and :meth:`MLP.gather_params` builds
+the full tree (checkpoints, :mod:`..convert`).
 """
 
 from __future__ import annotations
@@ -29,11 +43,14 @@ import torch
 import torch.nn.functional as F
 
 from dmlc_core_tpu_torch.bridge.batching import DenseBatch
-from dmlc_core_tpu_torch.collective.mesh_collectives import (data_allreduce,
+from dmlc_core_tpu_torch.collective.mesh_collectives import (MeshCollective,
+                                                         data_allreduce,
                                                          data_parallel)
 from dmlc_core_tpu_torch.models.linear import batch_to
 from dmlc_core_tpu_torch.param import Parameter, field
+from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.device import resolve_device
+from dmlc_core_tpu_torch.utils.logging import CHECK
 
 __all__ = ["MLPParam", "MLP", "AdamState"]
 
@@ -82,20 +99,111 @@ def _rebuild(leaves: List[torch.Tensor]) -> Dict[str, Any]:
                        for i in range(0, len(leaves), 2)]}
 
 
+class _ColumnLinear(torch.autograd.Function):
+    """``h @ w + b`` on the rank's column block of a sharded layer, ``h``
+    replicated on the model line.  Backward: ``dh`` is the sum over the
+    line of the partial ``dy @ w.T``, taken in float32 and rounded once
+    to ``h``'s dtype; ``dw`` and ``db`` are the block's own, as autograd
+    computes them for the unsharded layer."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, coll):
+        ctx.save_for_backward(h, w)
+        ctx.coll = coll
+        return h @ w + b
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        partial = dy.to(torch.float32) @ w.to(torch.float32).t()
+        dh = ctx.coll.psum(partial).to(h.dtype)
+        return dh, h.t() @ dy, dy.sum(0), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The line's column blocks side by side (the forward all-gather);
+    the gradient downstream is replicated, so the backward keeps the
+    rank's slice of it, with no sum."""
+
+    @staticmethod
+    def forward(ctx, y, coll):
+        ctx.coll, ctx.width = coll, y.shape[1]
+        # float32 on the wire: exact for bf16, whatever the backend takes
+        return coll.allgather(y.to(torch.float32), dim=1).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.coll.index * ctx.width
+        return g[:, lo:lo + ctx.width].contiguous(), None
+
+
 class MLP:
     """Plain-torch MLP with a hand-written Adam state."""
 
     def __init__(self, param: MLPParam, model_axis: Optional[str] = None,
-                 device=None):
-        if model_axis is not None:
-            raise NotImplementedError(
-                "MLP(model_axis=...) shards the hidden layers over a model "
-                "mesh axis, which needs more than one card: not ported "
-                "(ROADMAP.md §1 item 9a)")
+                 device=None, mesh=None):
         self.param = param
+        self.model_axis = model_axis
         self.device = resolve_device(device)
+        self._mesh = mesh
+
+    def _model_mesh(self):
+        """The mesh of the model axis; None without ``model_axis``."""
+        if self.model_axis is None:
+            return None
+        mesh = self._mesh if self._mesh is not None else ambient_mesh()
+        CHECK(mesh is not None and self.model_axis in mesh.shape,
+              f"MLP(model_axis={self.model_axis!r}) needs a mesh with that "
+              f"axis: pass mesh= or run under `with mesh:`")
+        return mesh
+
+    def _model_line(self) -> Optional[MeshCollective]:
+        """The model line's collectives; None without ``model_axis``."""
+        mesh = self._model_mesh()
+        return None if mesh is None else MeshCollective(mesh,
+                                                        self.model_axis)
+
+    def _sharded(self, i: int, num_layers: int) -> bool:
+        return self.model_axis is not None and 0 < i < num_layers - 1
+
+    def shard_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The rank's tree from a full one (the reference's shapes): the
+        rank's column block of each middle layer's ``w`` and ``b``."""
+        mesh = self._model_mesh()
+        layers = params["layers"]
+        out = []
+        for i, layer in enumerate(layers):
+            if mesh is None or not self._sharded(i, len(layers)):
+                out.append(dict(layer))
+                continue
+            width, parts = layer["w"].shape[1], mesh.shape[self.model_axis]
+            CHECK(width % parts == 0,
+                  f"layer {i}'s {width} columns do not split over {parts} "
+                  f"model ranks")
+            k = width // parts
+            lo = mesh.coord(self.model_axis) * k
+            out.append({"w": layer["w"][:, lo:lo + k].contiguous(),
+                        "b": layer["b"][lo:lo + k].contiguous()})
+        return {"layers": out}
+
+    def gather_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The full tree (the reference's shapes) from the rank's: the
+        model line's blocks gathered, on every rank of the line.  Any tree
+        shaped like the params (the Adam moments) gathers the same way."""
+        coll = self._model_line()
+        layers = params["layers"]
+        out = []
+        for i, layer in enumerate(layers):
+            if coll is None or not self._sharded(i, len(layers)):
+                out.append(dict(layer))
+                continue
+            out.append({"w": coll.allgather(layer["w"], dim=1),
+                        "b": coll.allgather(layer["b"], dim=0)})
+        return {"layers": out}
 
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
+        """The reference's ``RandomState(seed)`` weights, drawn whole; with
+        ``model_axis`` the rank keeps its blocks."""
         rng = np.random.RandomState(seed)
         layers = []
         sizes = [self.param.num_feature] + self.param.hidden_sizes()
@@ -109,16 +217,24 @@ class MLP:
                 "b": torch.zeros((fan_out,), dtype=torch.float32,
                                  device=self.device),
             })
-        return {"layers": layers}
+        params = {"layers": layers}
+        return params if self.model_axis is None \
+            else self.shard_params(params)
 
     def _apply(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         act = _ACTIVATIONS[self.param.activation]
         compute_dtype = torch.bfloat16 if self.param.bf16 else torch.float32
+        coll = self._model_line()
         h = x.to(compute_dtype)
         layers = params["layers"]
         for i, layer in enumerate(layers):
-            h = h @ layer["w"].to(compute_dtype) \
-                + layer["b"].to(compute_dtype)
+            w = layer["w"].to(compute_dtype)
+            b = layer["b"].to(compute_dtype)
+            if coll is not None and self._sharded(i, len(layers)):
+                h = _GatherColumns.apply(
+                    _ColumnLinear.apply(h, w, b, coll), coll)
+            else:
+                h = h @ w + b
             if i < len(layers) - 1:
                 h = act(h)
         return h.to(torch.float32)
@@ -203,6 +319,9 @@ class MLP:
 
     @torch.no_grad()
     def predict(self, params: Dict[str, Any], x) -> torch.Tensor:
+        """Probabilities (or the regression output) of the rows ``x``
+        from the rank's tree, on every rank (with ``model_axis`` the
+        columns are gathered as in a step)."""
         # non_blocking: a copy from pageable memory is staged before the
         # call returns, and does not wait for the work queued before it
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device,

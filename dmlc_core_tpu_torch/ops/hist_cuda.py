@@ -17,8 +17,9 @@ Counterpart of ``dmlc_core_tpu/ops/hist_pallas.py``.  The kernels live in
 - :func:`grad_hist_sharded_cuda` replaces ``grad_hist_pallas_sharded``
   (K4): on a rank at mesh coordinate ``(d, m)``, K3's kernel over the rank's
   window of ``F/mp`` feature columns (read in place: the kernels take a
-  row stride and a column offset), then the sum over the rank's ``data``
-  group and the concatenation over its ``model`` group.
+  row stride and a column offset), then the sum over the rank's row-axes
+  group (``data`` on a flat mesh, ``("dcn_data", "ici_data")`` on the
+  hybrid one) and the concatenation over its ``model`` group.
 
 All three CUDA paths can read a column window ``[f_offset, f_offset +
 f_count)`` of a wider ``[B, F]`` bins array; outputs cover the window.
@@ -55,8 +56,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from dmlc_core_tpu_torch.collective.mesh_collectives import (DATA_AXIS,
-                                                         MeshCollective)
+from dmlc_core_tpu_torch.collective.mesh_collectives import MeshCollective
 from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
@@ -66,7 +66,7 @@ __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
            "segment_sum", "node_weights", "hist_node_block",
            "hist_matmul_plan", "grad_hist_fused_plan", "sharded_hist_plan",
            "kernels_available", "reset_launches", "LAUNCHES",
-           "STAGE_SECONDS", "DATA_AXIS", "TILE"]
+           "STAGE_SECONDS", "TILE"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"hist_matmul_cuda": 0, "grad_hist_fused_cuda": 0,
@@ -561,43 +561,42 @@ def _shard_window(bins, mesh, model_axis: str) -> Tuple[int, int]:
     return mesh.coord(model_axis) * f_count, f_count
 
 
-def _shard_collectives(G, H, mesh, model_axis: str, data_axis: str):
-    """Steps 2 and 3 of K4: the sum over the data group (the reference's
-    ``psum``), then the model group's windows concatenated on the feature
-    axis in model-coordinate order (what GSPMD does before the split
-    scan)."""
+def _shard_collectives(G, H, mesh, model_axis: str):
+    """Steps 2 and 3 of K4: the sum over the group of the mesh's row axes
+    (the reference's ``psum`` over its ``data_axis``), then the model
+    group's windows concatenated on the feature axis in model-coordinate
+    order (what GSPMD does before the split scan)."""
     gh = torch.stack([G, H])                         # [2, n, F/mp, nbins]
-    if data_axis in mesh.shape:
+    if mesh.row_axes:
         with _stage("all_reduce"):
-            gh = MeshCollective(mesh, data_axis).psum(gh)
+            gh = MeshCollective(mesh, mesh.row_axes).psum(gh)
     with _stage("all_gather"):
         gh = MeshCollective(mesh, model_axis).allgather(gh, dim=2)
     return gh[0], gh[1]
 
 
 def grad_hist_sharded_ref(bins, node_ids, grad, hess, num_nodes: int,
-                          num_bins: int, mesh, model_axis: str,
-                          data_axis: str = DATA_AXIS):
+                          num_bins: int, mesh, model_axis: str):
     """Plain version of K4: the rank's window as a copy,
     :func:`grad_hist_ref`, then the same collectives."""
     f_offset, f_count = _shard_window(bins, mesh, model_axis)
     G, H = grad_hist_ref(_columns(bins, f_offset, f_count), node_ids, grad,
                          hess, num_nodes, num_bins)
-    return _shard_collectives(G, H, mesh, model_axis, data_axis)
+    return _shard_collectives(G, H, mesh, model_axis)
 
 
 def grad_hist_sharded_cuda(bins, node_ids, grad, hess, num_nodes: int,
-                           num_bins: int, mesh, model_axis: str,
-                           data_axis: str = DATA_AXIS):
+                           num_bins: int, mesh, model_axis: str):
     """K4: (G, H), each [num_nodes, F, num_bins] f32, identical on every
     rank of ``mesh``.
 
     ``bins`` [B_local, F] are this rank's rows, all F columns; ranks that
     share a data coordinate hold the same rows.  The rank runs K3's kernel
     (the reference's K2 or K3: one function, one kernel on the card) on its
-    window of ``F/mp`` columns in place, sums the result over its
-    ``data_axis`` group and gathers the windows of its ``model_axis``
-    group.  CPU tensors take :func:`grad_hist_sharded_ref`.
+    window of ``F/mp`` columns in place, sums the result over the group of
+    the mesh's row axes (``Mesh.row_axes``, where the reference takes a
+    ``data_axis``) and gathers the windows of its ``model_axis`` group.
+    CPU tensors take :func:`grad_hist_sharded_ref`.
     Every rank of the mesh must make the call (a rank with no rows joins
     with zeros)."""
     _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
@@ -607,14 +606,14 @@ def grad_hist_sharded_cuda(bins, node_ids, grad, hess, num_nodes: int,
           f"{model_axis!r} of mesh {mesh.shape} at {num_bins} bins")
     if bins.device.type == "cpu":
         return grad_hist_sharded_ref(bins, node_ids, grad, hess, num_nodes,
-                                     num_bins, mesh, model_axis, data_axis)
+                                     num_bins, mesh, model_axis)
     _check_cuda(bins)
     f_offset, f_count = _shard_window(bins, mesh, model_axis)
     with _stage("kernel"):
         G, H = grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
                                     num_bins, f_offset, f_count)
     LAUNCHES["grad_hist_sharded_cuda"] += 1
-    return _shard_collectives(G, H, mesh, model_axis, data_axis)
+    return _shard_collectives(G, H, mesh, model_axis)
 
 
 def _probe_cases(device):

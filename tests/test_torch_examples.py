@@ -256,8 +256,10 @@ def test_train_mlp_resumes_jax_checkpoint_and_back(tmp_path, monkeypatch,
 
 
 def test_train_mlp_model_parallel_names_the_roadmap_item(tmp_path):
+    # [9a] is ported: a model axis wider than the job exits with the
+    # reference's message (tests/test_torch_mlp_tp.py runs it in 4 ranks)
     data = _linear_file(tmp_path, n=64)
-    with pytest.raises(NotImplementedError, match=r"\[9a\]|9a"):
+    with pytest.raises(SystemExit, match="does not divide 1 ranks"):
         train_mlp.main(["--data", data, "--num-feature", "8",
                         "--model-parallel", "2", "--device", "cpu"])
 
@@ -276,8 +278,9 @@ def test_clis_refuse_a_multi_worker_launch(tmp_path, monkeypatch, capsys,
                                            cli):
     """A launch of more than one worker is not refused: the
     CLI reads its own byte-range shard and steps under the data mesh
-    (``tests/test_torch_multiworker.py`` runs it in 2 real workers).  What
-    such a launch still refuses is the tensor-parallel MLP ([9a])."""
+    (``tests/test_torch_multiworker.py`` runs it in 2 real workers).  A
+    model axis must divide the job: ``--model-parallel 2`` in this
+    one-process job exits."""
     from dmlc_core_tpu_torch.data import factory
     from dmlc_core_tpu_torch.parallel import mesh
 
@@ -297,7 +300,7 @@ def test_clis_refuse_a_multi_worker_launch(tmp_path, monkeypatch, capsys,
     assert shards == [(0, 2)] and len(losses) == 1
     assert "never per-shard models" not in capsys.readouterr().err
     if cli is train_mlp:
-        with pytest.raises(NotImplementedError, match="9a"):
+        with pytest.raises(SystemExit, match="does not divide"):
             cli.main(argv + ["--model-parallel", "2"])
 
 

@@ -27,8 +27,9 @@ dmlc_core_tpu_torch.tracker.submit``).  The port's workers call the CLI's
   norm), rank 0's printed losses within rtol = atol = 2e-2;
 - shards whose batch counts differ: the port's launch fails within the
   collective timeout (the JAX CLI hangs there, ROADMAP.md §3);
-- refusals under 2 workers: ``train_mlp --model-parallel 2`` ([9a]) and
-  ``train_gbdt --eval-data`` (the reference's message).
+- refusals under 2 workers: ``train_mlp --model-parallel 3`` (a model
+  axis that does not divide the job) and ``train_gbdt --eval-data`` (the
+  reference's messages).
 
 In-process: a data-parallel step (its collective replaced by one that
 adds a second rank's local sums) equals the JAX step on the two slices
@@ -338,7 +339,8 @@ def test_refusals_under_two_workers(tmp_path, case):
     data = _libsvm(tmp_path / "t.libsvm", 600, F, 0)
     common = ["--data", data, "--num-feature", str(F), "--device", "cpu"]
     cmd, want = {
-        "mlp_model_parallel": (["train_mlp", "--model-parallel", "2"], "9a"),
+        "mlp_model_parallel": (["train_mlp", "--model-parallel", "3"],
+                               "--model-parallel 3 does not divide 2 ranks"),
         "gbdt_eval": (["train_gbdt", "--eval-data", data],
                       "--eval-data/--checkpoint-dir are single-host flows"),
     }[case]

@@ -282,9 +282,27 @@ def test_router_recovers_an_ejected_replica_via_half_open():
         a.close()
 
 
+def _warm(*servers):
+    """One answer from each server, directly and through a throwaway
+    router, so that the first answers the test times are not the
+    process's first (cold) ones: under a loaded host a cold first answer
+    from the fast replica can land after the straggler's, and the hedge
+    delay the router seeds from it then outlasts the straggler."""
+    for srv in servers:
+        assert post(srv.url, {"instances": [[1.0, 0, 0, 0]]})[0] == 200
+    warm = RouterServer([srv.url for srv in servers], probe_interval_s=60.0,
+                        try_timeout_s=5.0, hedge=False)
+    warm.start()
+    try:
+        assert post(warm.url, {"instances": [[1.0, 0, 0, 0]]})[0] == 200
+    finally:
+        warm.close()
+
+
 def test_router_hedges_a_straggler_and_fast_replica_wins():
     fast = make_server()
     slow = make_server(delay_s=0.6)
+    _warm(fast)
     router = RouterServer([slow.url, fast.url], probe_interval_s=0.2,
                           try_timeout_s=5.0, request_timeout_s=10.0,
                           hedge=True)

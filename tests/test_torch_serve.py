@@ -44,6 +44,7 @@ from dmlc_core_tpu_torch.serve import (CheckpointWatcher, GBDTRuntime,
                                        build_runtime, runtime_builder)
 from dmlc_core_tpu_torch.serve.__main__ import main as serve_main
 from dmlc_core_tpu_torch.serve.model_runtime import PendingResult, to_host
+from dmlc_core_tpu_torch.utils.logging import Error
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NF = 28          # bench.py's widths
@@ -295,9 +296,10 @@ def test_stats_metrics_and_not_ported_parts(tmp_path):
     assert metrics_status == 200
     assert b"dmlc_serve_requests_total" in metrics
     assert b"dmlc_serve_warmup_total" in metrics
-    # what stays unported on this path: the MLP's sharded hidden layers
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        MLP(MLPParam(num_feature=4), model_axis="model", device="cpu")
+    # the MLP's sharded hidden layers need a mesh with the model axis
+    with pytest.raises(Error, match="needs a mesh"):
+        MLP(MLPParam(num_feature=4), model_axis="model",
+            device="cpu").init_params()
     with pytest.raises(ValueError, match="unknown model kind"):
         build_runtime("svm", 4, device="cpu")
     with pytest.raises(SystemExit):
