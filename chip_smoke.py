@@ -300,7 +300,34 @@ Phases (any failure exits non-zero and prints no result line):
    restored into a world-1 ``MLP`` predicting bitwise what the run's
    gathered params predicted; then ``python -m
    dmlc_core_tpu_torch.examples.train_mlp --model-parallel 2 --epochs 3``
-   in 4 workers, which must resume from epoch 1.
+   in 4 workers, which must resume from epoch 1;
+15. the substrate, the parse process pool and columnar ingest.  (15a)
+   phase 6's 500,000-row libsvm file (written again the same way; phase
+   14c removed it) parsed with the numpy engine
+   (``DMLC_TPU_DISABLE_NATIVE``) through the thread pool
+   (``DMLC_PARSE_PROC=0``), then twice through 4 worker processes
+   (``DMLC_PARSE_PROC=4``; the first parse starts the spawned workers,
+   each of which re-imports this script): the pool engaged, the three
+   parses' merged columns bitwise equal and bitwise phase 6's native
+   parse, no native engine call, each parse's seconds, MB/s and rows/s on
+   the host clock; the pool's rows binned as phase 6 bins them (the wire
+   bitwise phase 4's) and fitted on the card at full width: ensemble and
+   margin bitwise phase 6's ingest-path fit, K3's kernel on every level,
+   K1 never (counts set to 0 before the parse, read after the fit).  (15b)
+   phase 4's ensemble saved with the port's serializer as
+   ``Pair(Map(Str, Vector(POD(int32))), Map(Str, Vector(POD(float32))))``
+   on a local stream, loaded back onto the card: ``predict`` on 200,000
+   rows bitwise the original ensemble's; ``interop.to_torch`` of a CUDA
+   tensor's dlpack capsule shares its ``data_ptr``; and
+   ``examples/cpp/consumer_demo.cc`` built unchanged with g++ against the
+   port's ``libdmlc_torch_native.so`` passes the four checks of
+   ``tests/test_cpp_consumer.py``.  (15c) where ``pyarrow`` is present, a
+   Parquet copy of 15a's rows (row groups of 65,536) must parse to the
+   libsvm parse's columns and fit bitwise phase 6's, with K3's kernel on
+   every level and K1 never (counted and added to the kernels line);
+   where it is missing, one line says that columnar ingest did not run
+   and a ``.parquet`` URI must raise the one clear error naming
+   pyarrow.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -311,8 +338,9 @@ those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
 phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
 count of phase 11, the multi-worker path's run, phase 12's fit from
-recordio and phase 13's parse and fit from the bucket, and K4's adds
-rank 0's count of phase 14a's dryrun.
+recordio, phase 13's parse and fit from the bucket and phase 15's parse
+and fit through the process pool (and from Parquet, where it ran), and
+K4's adds rank 0's count of phase 14a's dryrun.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -431,6 +459,8 @@ RING_TOL = 1e-5               # 14c: ring against psum (sums of 4 randn)
 RING_BYTES = 64 << 20         # 14c: allreduce_bandwidth_gbps's array
 TP_PROBE = 4096               # 14c: rows the checkpoint's predict scores
 TP_F32_TOL = 1e-5             # 14c: f32 steps against world-1 steps
+PARSE_PROCS = 4               # 15a: DMLC_PARSE_PROC's worker processes
+N_SERVED = 200_000            # 15b: rows the reloaded ensemble predicts
 K3_RAGGED = [
     # num_nodes, num_bins, bins dtype, (lo, hi) of the bins, f_offset,
     # f_count, offset of the tensors in their allocations (elements); node
@@ -4572,6 +4602,307 @@ def phase_parallel(card, ref):
           flush=True)
     return summary["k4_launches"]
 
+# -- phase 15: the substrate, the parse process pool, columnar ingest ----------
+def _fit_from_blocks(blocks):
+    """Phase 6's path from parsed RowBlocks: edges on the first 50,000
+    rows, ``binned_batches``, the wire on the card, ``fit_binned``.
+    Returns (ens, margin, wire, seconds binning, seconds fitting)."""
+    from dmlc_core_tpu_torch.bridge.binning import HostBinner, binned_batches
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.utils.timer import device_time
+
+    dev = torch.device("cuda")
+    param = dict(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                 num_bins=NUM_BINS, learning_rate=0.3)
+    model = GBDT(GBDTParam(**param), num_feature=N_FEATURES)
+    start = time.perf_counter()
+    px, _, _ = _dense_rows(blocks, N_FEATURES)
+    model.make_bins(px[:50_000])
+    binned = list(binned_batches(blocks, HostBinner(model.boundaries,
+                                                    NUM_BINS), INGEST_BATCH))
+    wire = np.concatenate([b.bins[:b.num_rows].numpy() for b in binned])
+    label = torch.cat([b.label[:b.num_rows] for b in binned]).to(dev)
+    bin_sec = time.perf_counter() - start
+    (ens, margin), fit_sec = device_time(model.fit_binned,
+                                         torch.from_numpy(wire).to(dev),
+                                         label)
+    return ens, margin, wire, bin_sec, fit_sec
+
+
+def _check_fit(label, ens, margin, wire, ref):
+    ref_ens, ref_margin = ref["ingest_fit"]
+    if not np.array_equal(wire, ref["wire"][:N_INGEST]):
+        fail(f"{label}: the binned wire differs from phase 4's")
+    if not (all(torch.equal(a, b) for a, b in zip(ens, ref_ens))
+            and torch.equal(margin, ref_margin)):
+        fail(f"{label}: the fit differs from phase 6's ingest-path fit")
+
+
+def _consumer_demo(card, build, demo, tmp):
+    """15b: the C++ consumer built against the port's library, with the
+    four checks of ``tests/test_cpp_consumer.py``."""
+    from dmlc_core_tpu_torch import serializer as ser
+    from dmlc_core_tpu_torch.io.stream import (create_stream,
+                                               create_stream_for_read)
+
+    out, err = build.communicate(timeout=CLI_TIMEOUT_S)
+    if build.returncode != 0:
+        fail(f"15b: consumer_demo.cc did not build against the port's "
+             f"library: {err[-3000:]}")
+
+    def run(*args):
+        return subprocess.run([demo, *args], capture_output=True, text=True,
+                              timeout=60)
+
+    data = os.path.join(tmp, "demo.libsvm")
+    nnz = label_sum = 0
+    with open(data, "w") as f:
+        for i in range(500):
+            feats = [(j, (i + j) % 10 / 10.0) for j in range(i % 4 + 1)]
+            f.write(f"{i % 2} " + " ".join(f"{j}:{v}" for j, v in feats)
+                    + "\n")
+            nnz += len(feats)
+            label_sum += i % 2
+    for nparts in ("1", "3"):
+        proc = run(data, nparts)
+        if (proc.returncode != 0 or f"rows=500 nnz={nnz} label_sum="
+                f"{float(label_sum):.1f}" not in proc.stdout
+                or "nthread : int, default=2" not in proc.stdout
+                or "range check ok" not in proc.stdout):
+            fail(f"15b: consumer_demo over {nparts} part(s): "
+                 f"{proc.stdout}{proc.stderr}")
+    spec = ser.Pair(ser.Map(ser.Str, ser.Vector(ser.POD(np.float32))),
+                    ser.Vector(ser.Pair(ser.Str, ser.POD(np.int64))))
+    blob = os.path.join(tmp, "port.bin")
+    with create_stream(blob, "w") as s:
+        ser.save(s, ({"bias": np.array([0.125], np.float32),
+                      "weights": np.array([1.5, -2.25, 0.0], np.float32)},
+                     [("rounds", 10), ("depth", 6)]), spec)
+    proc = run("--deserialize", blob)
+    if (proc.returncode != 0 or "maps=2 wsum=-0.6250 rounds=10 depth=6"
+            not in proc.stdout or "roundtrip ok" not in proc.stdout):
+        fail(f"15b: C++ did not load the port's blob: {proc.stdout}"
+             f"{proc.stderr}")
+    blob = os.path.join(tmp, "cpp.bin")
+    proc = run("--serialize", blob)
+    if proc.returncode != 0:
+        fail(f"15b: consumer_demo --serialize: {proc.stderr}")
+    with create_stream_for_read(blob) as s:
+        maps, meta = ser.load(s, spec)
+    if (list(maps["weights"]) != [1.5, -2.25, 0.0]
+            or list(maps["bias"]) != [0.125]
+            or meta != [("rounds", 10), ("depth", 6)]):
+        fail(f"15b: the port read C++'s blob as {maps}, {meta}")
+    garbage = os.path.join(tmp, "garbage.bin")
+    with open(garbage, "wb") as f:
+        f.write(b"\xff" * 64)
+    proc = run("--deserialize", garbage)
+    if proc.returncode != 1 or "deserialize failed" not in proc.stderr:
+        fail(f"15b: garbage did not fail cleanly: {proc.returncode}")
+    if run("--serialise", garbage).returncode != 2:
+        fail("15b: an unknown flag was not refused with exit 2")
+    print(f"15b consumer_demo.cc built unchanged against "
+          f"libdmlc_torch_native.so: shard reads over 1 and 3 parts cover "
+          f"500 rows / {nnz} nonzeros once, the port's blob loads in C++ and "
+          f"C++'s in the port, garbage fails cleanly [{card}]", flush=True)
+
+
+def _substrate_on_card(card, ref, tmp):
+    """15b: phase 4's ensemble through the port's serializer and back onto
+    the card, and dlpack interop with a CUDA tensor."""
+    from dmlc_core_tpu_torch import interop
+    from dmlc_core_tpu_torch import serializer as ser
+    from dmlc_core_tpu_torch.convert import (ensemble_from_numpy,
+                                             ensemble_to_numpy)
+    from dmlc_core_tpu_torch.io.stream import (create_stream,
+                                               create_stream_for_read)
+
+    names = ("split_feat", "split_bin", "leaf_value", "default_left",
+             "split_gain", "split_cover")
+    arrays = dict(zip(names, ensemble_to_numpy(ref["ens"])))
+    ints = {k: v.astype(np.int32).reshape(-1) for k, v in arrays.items()
+            if v.dtype.kind in "bi"}
+    floats = {k: v.reshape(-1) for k, v in arrays.items()
+              if v.dtype.kind == "f"}
+    spec = ser.Pair(ser.Map(ser.Str, ser.Vector(ser.POD(np.int32))),
+                    ser.Map(ser.Str, ser.Vector(ser.POD(np.float32))))
+    path = os.path.join(tmp, "ensemble.bin")
+    start = time.perf_counter()
+    with create_stream(path, "w") as s:
+        ser.save(s, (ints, floats), spec)
+    with create_stream_for_read(path) as s:
+        got_ints, got_floats = ser.load(s, spec)
+    loaded = []
+    for name in names:
+        want = arrays[name]
+        flat = got_ints[name] if name in got_ints else got_floats[name]
+        loaded.append(flat.astype(want.dtype).reshape(want.shape))
+    ens = ensemble_from_numpy(loaded)
+    sec = time.perf_counter() - start
+    rows = ref["bins"][:N_SERVED]
+    got = ref["model"].predict(ens, rows)
+    want = ref["model"].predict(ref["ens"], rows)
+    if not torch.equal(got, want):
+        fail("15b: predict of the serializer round trip differs from the "
+             "original ensemble's")
+    print(f"15b phase 4's ensemble as Pair(Map(Str, Vector(POD(int32))), "
+          f"Map(Str, Vector(POD(float32)))), {os.path.getsize(path):,} bytes"
+          f", saved and loaded in {sec:.3f} s; predict on {N_SERVED:,} rows "
+          f"on the card bitwise the original's [{card}]", flush=True)
+
+    t = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    shared = interop.to_torch(torch.utils.dlpack.to_dlpack(t))
+    on_card = interop.from_numpy(np.arange(4, dtype=np.float32))
+    if (shared.data_ptr() != t.data_ptr() or shared.device != t.device
+            or interop.from_torch(t).data_ptr() != t.data_ptr()
+            or on_card.device.type != "cuda"
+            or interop.to_numpy(on_card).tolist() != [0.0, 1.0, 2.0, 3.0]):
+        fail("15b: dlpack interop did not share the CUDA tensor's memory")
+    print("15b interop.to_torch of a CUDA tensor's dlpack capsule shares its "
+          "data_ptr; from_numpy lands on the card, to_numpy copies back",
+          flush=True)
+
+
+def _columnar(card, ref, tmp, text_columns):
+    """15c: a Parquet copy of 15a's rows through the columnar front door,
+    where pyarrow is installed."""
+    from dmlc_core_tpu_torch.data import arrow_ingest
+    from dmlc_core_tpu_torch.data.factory import create_parser
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    if not arrow_ingest.pyarrow_available():
+        try:
+            create_parser(os.path.join(tmp, "train.parquet"))
+        except RuntimeError as exc:
+            if "pyarrow" not in str(exc):
+                fail(f"15c: a .parquet URI raised {exc!r}")
+        else:
+            fail("15c: a .parquet URI built a parser without pyarrow")
+        print("15c columnar ingest did not run: pyarrow is not installed on "
+              "this machine; a .parquet URI raises the one clear error "
+              "naming pyarrow (no card figure)", flush=True)
+        return 0
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    x, y = ref["x"][:N_INGEST], ref["y"][:N_INGEST]
+    cols = {"label": pa.array(y, pa.float32())}
+    cols.update({f"f{j}": pa.array(x[:, j], pa.float32())
+                 for j in range(N_FEATURES)})
+    path = os.path.join(tmp, "train.parquet")
+    pq.write_table(pa.table(cols), path, row_group_size=65_536)
+    hist_cuda.reset_launches()
+    blocks, sec = _parse_blocks(path + "?label_column=0")
+    if not _same_columns(blocks, text_columns):
+        fail("15c: the Parquet columns differ from the libsvm parse")
+    ens, margin, wire, _, _ = _fit_from_blocks(blocks)
+    torch.cuda.synchronize()
+    launches = dict(hist_cuda.LAUNCHES)
+    _check_fit("15c", ens, margin, wire, ref)
+    print(f"15c Parquet (pyarrow {pa.__version__}, "
+          f"{os.path.getsize(path):,} bytes): parse {sec:.3f} "
+          f"s, {N_INGEST / sec:,.0f} rows/s, columns bitwise the libsvm "
+          f"parse, fit bitwise phase 6's; launches {launches} [{card}]",
+          flush=True)
+    return launches["grad_hist_fused_cuda"]
+
+
+def phase_substrate(card, ref):
+    import tempfile
+
+    from dmlc_core_tpu_torch import native_bridge
+    from dmlc_core_tpu_torch.data import parse_proc
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    print(f"== phase 15: the parse process pool ({PARSE_PROCS} workers) on "
+          f"phase 6's {N_INGEST:,} libsvm rows -> fit, the substrate on the "
+          f"card, columnar ingest", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    svm = _ingest_path()
+    if not os.path.exists(svm):      # phase 14c removed it
+        os.makedirs(os.path.dirname(svm), exist_ok=True)
+        _write_text(svm, ref["x"][:N_INGEST], ref["y"][:N_INGEST], " ", " ",
+                    "{}:%.9g")
+    nbytes = os.path.getsize(svm)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 15b's C++ consumer compiles while 15a parses
+        demo = os.path.join(tmp, "consumer_demo")
+        lib = native_bridge.library_path()
+        build = subprocess.Popen(
+            ["g++", "-std=c++17", "-Wall", "-Wextra", "-Werror", "-I",
+             os.path.join(here, "include"),
+             os.path.join(here, "examples", "cpp", "consumer_demo.cc"), lib,
+             f"-Wl,-rpath,{os.path.dirname(lib)}", "-o", demo],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            # 15a: the slice's path, counts set to 0 just before the parse
+            hist_cuda.reset_launches()
+            native_bridge.reset_engine_calls()
+            parses = {}
+            # the pool's first parse starts its workers (each spawned child
+            # re-imports this script, torch included); the second is warm
+            for name, procs in (("threads", "0"),
+                                ("process pool, cold", str(PARSE_PROCS)),
+                                ("process pool", str(PARSE_PROCS))):
+                with _env(DMLC_TPU_DISABLE_NATIVE="1",
+                          DMLC_PARSE_PROC=procs):
+                    blocks, sec = _parse_blocks(svm)
+                if parse_proc.engaged() != (procs != "0"):
+                    fail(f"15a: the {name} parse ran with the pool "
+                         f"engaged={parse_proc.engaged()}")
+                parses[name] = blocks
+                print(f"15a parse libsvm, numpy engine, {name} "
+                      f"(DMLC_PARSE_PROC={procs}): {sec:.3f} s, "
+                      f"{nbytes / sec / 1e6:.2f} MB/s, {N_INGEST / sec:,.0f} "
+                      f"rows/s (host clock) [{card}]", flush=True)
+            parse_proc.shutdown()
+            if not _same_columns(parses.pop("process pool, cold"),
+                                 parses["process pool"]):
+                fail("15a: the pool's two parses differ")
+            if any(native_bridge.ENGINE_CALLS.values()):
+                fail(f"15a: the numpy engine called into the native library"
+                     f": {native_bridge.ENGINE_CALLS}")
+            if not _same_columns(parses["process pool"], parses["threads"]):
+                fail("15a: the process pool's blocks differ from the "
+                     "threads'")
+            if not _same_columns(parses["process pool"],
+                                 [ref["ingest_columns"]]):
+                fail("15a: the process pool's columns differ from phase 6's "
+                     "native parse")
+            text_columns = parses.pop("threads")
+            ens, margin, wire, bin_sec, fit_sec = _fit_from_blocks(
+                parses.pop("process pool"))
+            torch.cuda.synchronize()
+            launches = dict(hist_cuda.LAUNCHES)
+            print(f"15a phase 15 launches on the process-pool path: "
+                  f"{launches}", flush=True)
+            if launches["grad_hist_fused_cuda"] < ROUNDS * MAX_DEPTH:
+                fail(f"15a: K3's kernel launched "
+                     f"{launches['grad_hist_fused_cuda']} times, expected "
+                     f">= {ROUNDS * MAX_DEPTH}")
+            if launches["hist_matmul_cuda"] != 0:
+                fail("15a: the fit launched K1")
+            _check_fit("15a", ens, margin, wire, ref)
+            print(f"15a the two parses' blocks bitwise equal and bitwise "
+                  f"phase 6's native columns; binning {bin_sec:.3f} s, fit "
+                  f"{fit_sec:.3f} s, ensemble and margin bitwise phase 6's "
+                  f"[{card}]", flush=True)
+            k3 = launches["grad_hist_fused_cuda"]
+            del ens, margin, wire
+            _substrate_on_card(card, ref, tmp)
+            _consumer_demo(card, build, demo, tmp)
+            k3 += _columnar(card, ref, tmp, text_columns)
+        finally:
+            if build.poll() is None:
+                build.kill()
+                build.wait()
+    shutil.rmtree(os.path.dirname(svm), ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return k3
+
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4612,8 +4943,10 @@ def main():
     k3["launches"] += phase_remote(card, ref)
     # the parallel slice's path: rank 0's K4 launches of the dryrun count
     k4["launches"] += phase_parallel(card, ref)
+    # and those of phase 15's fit from the parse process pool
+    k3["launches"] += phase_substrate(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-14 passed in "
+    print(f"chip_smoke: phases 1-15 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

@@ -6,7 +6,8 @@ Counterpart of ``dmlc_core_tpu/collective``:
   get_world_size/allreduce/broadcast/allgather/tracker_print and the
   checkpoint/load_checkpoint recovery pair) over host numpy arrays;
 - :mod:`.mesh_collectives` — collectives over one axis of a mesh, on
-  tensors, which the model-sharded histogram uses.
+  tensors, which the model-sharded histogram uses, and the explicit
+  ``ring_allreduce``.
 """
 
 from dmlc_core_tpu_torch.collective.api import (  # noqa: F401
@@ -26,4 +27,5 @@ from dmlc_core_tpu_torch.collective.api import (  # noqa: F401
 )
 from dmlc_core_tpu_torch.collective.mesh_collectives import (  # noqa: F401
     MeshCollective,
+    ring_allreduce,
 )

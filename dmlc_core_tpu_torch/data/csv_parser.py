@@ -47,6 +47,15 @@ class CSVParser(TextParserBase):
                                        if k in CSVParserParam.__fields__})
         CHECK_EQ(self.param.format, "csv")
 
+    def _proc_spec(self):
+        # the process-backend workers rebuild this parser source-less; the
+        # CSV params ride along as URI-style strings (parse_proc)
+        module, qualname, kwargs = super()._proc_spec()
+        kwargs["args"] = {"format": "csv",
+                          "label_column": str(self.param.label_column),
+                          "missing": repr(self.param.missing)}
+        return module, qualname, kwargs
+
     def parse_chunk_native(self, data):
         parsed = native_bridge.parse_csv(data, nthread=max(self._nthread, 2),
                                          missing=self.param.missing,

@@ -1,13 +1,13 @@
 """Parser factory with format auto-detection from URI args.
 
-Counterpart of ``dmlc_core_tpu/data/factory.py`` for the text formats the
-port has (``libsvm``, ``libfm``, ``csv``): registry-driven parser
-construction (reference DMLC_REGISTER_DATA_PARSER, data.h:330-333) and
-``format=`` auto-detection from the URI query string (data.cc:70-76,
-default libsvm).  A ``#cachefile`` URI reads through the cached split.
-``create_row_block_iter`` chooses in-memory or disk-cached iteration by the
-presence of a ``#cachefile`` (data.cc:87-107).  The columnar formats are not
-ported yet and raise.
+Counterpart of ``dmlc_core_tpu/data/factory.py``, with the same formats:
+the text formats (``libsvm``, ``libfm``, ``csv``) and the columnar ones
+(``parquet``, ``arrow``/``feather``/``ipc``, :mod:`.arrow_ingest`).
+Registry-driven parser construction (reference DMLC_REGISTER_DATA_PARSER,
+data.h:330-333) and ``format=`` auto-detection from the URI query string
+(data.cc:70-76, default libsvm).  A ``#cachefile`` URI reads through the
+cached split.  ``create_row_block_iter`` chooses in-memory or disk-cached
+iteration by the presence of a ``#cachefile`` (data.cc:87-107).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ from dmlc_core_tpu_torch.data.parser import Parser, ThreadedParser
 from dmlc_core_tpu_torch.io.input_split import create_input_split
 from dmlc_core_tpu_torch.io.uri_spec import URISpec
 from dmlc_core_tpu_torch.registry import Registry
-from dmlc_core_tpu_torch.utils.logging import log_fatal
 
 __all__ = ["create_parser", "create_row_block_iter", "parser_registry"]
 
@@ -44,10 +43,33 @@ def _make_csv(source, args, nthread, index_dtype):
     return CSVParser(source, args=args, nthread=nthread, index_dtype=index_dtype)
 
 
-# formats of the JAX package still to port -> the ROADMAP item naming them
-_NOT_PORTED = {"parquet": "columnar ingest",
-               "arrow": "columnar ingest", "feather": "columnar ingest",
-               "ipc": "columnar ingest"}
+@parser_registry.register("parquet",
+                          description="columnar Parquet row groups, "
+                                      "zero-copy Arrow buffer -> RowBlock")
+def _make_parquet(uri, args, part_index, num_parts, nthread, index_dtype):
+    # lazy import: pyarrow is optional and its absence must only surface
+    # when a columnar source is actually requested (the HDFS gating pattern)
+    from dmlc_core_tpu_torch.data.arrow_ingest import ParquetParser
+
+    return ParquetParser(uri, args=args, part_index=part_index,
+                         num_parts=num_parts, index_dtype=index_dtype)
+
+
+@parser_registry.register("arrow", aliases=["feather", "ipc"],
+                          description="Arrow IPC record batches, mmap'd "
+                                      "zero-copy views -> RowBlock")
+def _make_arrow_ipc(uri, args, part_index, num_parts, nthread, index_dtype):
+    from dmlc_core_tpu_torch.data.arrow_ingest import ArrowIPCParser
+
+    return ArrowIPCParser(uri, args=args, part_index=part_index,
+                          num_parts=num_parts, index_dtype=index_dtype)
+
+
+# columnar formats consume the URI itself (footer + unit ranged reads)
+# instead of a newline-oriented InputSplit; sharding is by row group /
+# record batch
+_make_parquet.takes_uri = True
+_make_arrow_ipc.takes_uri = True
 
 # extension -> format when neither type= nor ?format= names one
 _COLUMNAR_EXTENSIONS = {".parquet": "parquet", ".arrow": "arrow",
@@ -66,10 +88,10 @@ def create_parser(
     """Create a parser (reference Parser<IndexType>::Create, src/data.cc:132-138).
 
     ``type="auto"`` reads ``?format=`` from the URI; a bare
-    ``.parquet``/``.arrow``/``.feather`` path names a columnar format
-    (not ported yet), anything else defaults to libsvm (reference
-    data.cc:70-76).  The returned parser is wrapped in a
-    :class:`ThreadedParser` prefetcher unless ``threaded=False``.
+    ``.parquet``/``.arrow``/``.feather`` path selects the columnar front
+    door, anything else defaults to libsvm (reference data.cc:70-76).  The
+    returned parser is wrapped in a :class:`ThreadedParser` prefetcher
+    unless ``threaded=False``.
     """
     spec = URISpec(uri, part_index, num_parts)
     ptype = type
@@ -77,17 +99,19 @@ def create_parser(
         ext = "." + spec.uri.rsplit(".", 1)[-1] if "." in spec.uri else ""
         default = _COLUMNAR_EXTENSIONS.get(ext, "libsvm")
         ptype = spec.args.get("format", default)
-    if ptype in _NOT_PORTED:
-        log_fatal(f"parser format {ptype!r} is not yet in the PyTorch port "
-                  f"(ROADMAP §1: {_NOT_PORTED[ptype]})")
     entry = parser_registry[ptype]
-    split_uri = spec.uri + (f"#{spec.cache_file}" if spec.cache_file else "")
-    source = create_input_split(split_uri, part_index, num_parts, "text")
-    try:
-        parser = entry(source, spec.args, nthread, np.dtype(index_dtype))
-    except BaseException:
-        source.close()      # its read-ahead thread would outlive the error
-        raise
+    if getattr(entry.body, "takes_uri", False):
+        parser = entry(spec.uri, spec.args, part_index, num_parts, nthread,
+                       np.dtype(index_dtype))
+    else:
+        split_uri = spec.uri + (f"#{spec.cache_file}" if spec.cache_file
+                                else "")
+        source = create_input_split(split_uri, part_index, num_parts, "text")
+        try:
+            parser = entry(source, spec.args, nthread, np.dtype(index_dtype))
+        except BaseException:
+            source.close()  # its read-ahead thread would outlive the error
+            raise
     if threaded:
         return ThreadedParser(parser)
     return parser

@@ -1,7 +1,6 @@
 """Parser iteration protocol + threaded decorator + text-chunk parallelism.
 
-Counterpart of ``dmlc_core_tpu/data/parser.py`` without the process pool
-(``DMLC_PARSE_PROC`` is not read; ROADMAP §1, [1e]).  Parity with the
+Counterpart of ``dmlc_core_tpu/data/parser.py``.  Parity with the
 reference's parser core (src/data/parser.h:23-126) and ``TextParserBase``
 (src/data/text_parser.h:24-118):
 
@@ -16,7 +15,11 @@ reference's parser core (src/data/parser.h:23-126) and ``TextParserBase``
   That is the numpy engine.  By default a whole chunk goes to the native
   C++ parser instead (:mod:`dmlc_core_tpu_torch.native_bridge`), which
   threads internally, and a native split hands it the chunk in place;
-  ``DMLC_TPU_DISABLE_NATIVE`` asks for the numpy engine;
+  ``DMLC_TPU_DISABLE_NATIVE`` asks for the numpy engine.
+  With ``DMLC_PARSE_PROC=N`` the numpy engine's fan-out moves to worker
+  *processes* whose RowBlock columns come back through shared memory with
+  zero copies (:mod:`dmlc_core_tpu_torch.data.parse_proc`) — off while the
+  native engine parses chunks, with a clean fallback to the thread path;
 - :class:`ThreadedParser` — prefetch decorator running the whole parse on a
   producer thread with a bounded queue (parser.h:70-126, capacity 8); the
   queue is additionally bounded by decoded-block *bytes*
@@ -31,11 +34,14 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
+import numpy as np
+
 from dmlc_core_tpu_torch import native_bridge, telemetry
+from dmlc_core_tpu_torch.data import parse_proc
 from dmlc_core_tpu_torch.data.row_block import RowBlock, RowBlockContainer, concat_blocks
 from dmlc_core_tpu_torch.io.input_split import InputSplit
 from dmlc_core_tpu_torch.io.threadediter import ThreadedIter
-from dmlc_core_tpu_torch.utils.logging import CHECK, log_warning
+from dmlc_core_tpu_torch.utils.logging import CHECK, log_info, log_warning
 
 __all__ = ["Parser", "ParserImpl", "TextParserBase", "ThreadedParser"]
 
@@ -110,6 +116,9 @@ class TextParserBase(ParserImpl):
         self._source = source
         self._bytes_read = 0
         self._nthread = max(1, nthread)
+        self._nproc = parse_proc.resolve_nproc()
+        self._proc_pool: Optional[parse_proc.ProcParsePool] = None
+        self._proc_off = self._nproc < 2
         # acquired last: every statement after this is a plain assignment,
         # so a constructor failure can never orphan the executor
         self._pool = (ThreadPoolExecutor(max_workers=self._nthread,
@@ -134,6 +143,41 @@ class TextParserBase(ParserImpl):
         OpenMP team, text_parser.h:100-115)."""
         return None
 
+    def _proc_spec(self):
+        """``(module, class, kwargs)`` rebuilding a source-less, thread-less
+        twin of this parser inside each worker process.  Subclasses whose
+        constructor takes extra state (CSV args) extend the kwargs."""
+        idx = np.dtype(getattr(self, "_index_dtype", np.uint32))
+        return (type(self).__module__, type(self).__qualname__,
+                {"nthread": 1, "index_dtype": idx.str})
+
+    def _get_proc_pool(self) -> Optional[parse_proc.ProcParsePool]:
+        """The lazy process pool, or None (off / native engine / failed)."""
+        if self._proc_off:
+            return None
+        if self._proc_pool is not None and not self._proc_pool.alive():
+            # the shared pool this handle was built on died (worker kill):
+            # drop the handle so a retried epoch self-heals on a fresh pool
+            self._proc_pool = None
+        if self._proc_pool is None:
+            if native_bridge.enabled():
+                # the native parser threads internally without the GIL;
+                # stacking processes on top only costs transport
+                log_info(f"{parse_proc.ENV_NPROC}={self._nproc} is not used: "
+                         "the native engine parses whole chunks (set "
+                         "DMLC_TPU_DISABLE_NATIVE=1 for the process pool)")
+                self._proc_off = True
+                return None
+            try:
+                self._proc_pool = parse_proc.ProcParsePool(
+                    self._proc_spec(), self._nproc)
+            except Exception as exc:  # noqa: BLE001 - any bring-up failure
+                log_warning("process parse backend unavailable "
+                            f"({exc!r}); falling back to threads")
+                self._proc_off = True
+                return None
+        return self._proc_pool
+
     def parse_next_blocks(self) -> Optional[List[RowBlockContainer]]:
         """One source chunk -> containers, with per-chunk telemetry (span +
         ``dmlc_parser_{rows,bytes}_total``, labeled by parser class)."""
@@ -153,6 +197,8 @@ class TextParserBase(ParserImpl):
 
     def _parse_next_blocks_impl(self) -> Optional[List[RowBlockContainer]]:
         native = native_bridge.enabled()
+        # None while the native engine is on: the pool switches itself off
+        pool = self._get_proc_pool()
         # zero-copy path: a native split hands an (addr, len) view over its
         # resident chunk buffer and the native parser reads it in place, with
         # no Python bytes between the two C++ stages
@@ -176,7 +222,10 @@ class TextParserBase(ParserImpl):
                 block = self.parse_chunk_native(chunk)
                 if block is not None:
                     return [block]
-        ranges = self._split_ranges(chunk, self._nthread)
+        ranges = self._split_ranges(chunk, pool.nproc if pool is not None
+                                    else self._nthread)
+        if pool is not None and len(ranges) > 1:
+            return pool.parse_ranges(ranges, parser_name=type(self).__name__)
         if self._pool is None or len(ranges) <= 1:
             return [self.parse_block(r) for r in ranges]
         return list(self._pool.map(self.parse_block, ranges))
@@ -207,6 +256,9 @@ class TextParserBase(ParserImpl):
         return ranges
 
     def close(self) -> None:
+        if self._proc_pool is not None:
+            self._proc_pool.close()
+            self._proc_pool = None
         if self._pool is not None:
             self._pool.shutdown(wait=False)
         self._source.close()

@@ -13,6 +13,7 @@ Injection sites (see :data:`SITES`):
   (``http_status`` rules replace the request; act rules fire before it);
 - ``io.cache.fetch``       — remote page-cache ranged reads;
 - ``threadediter.produce`` — the producer thread, per item;
+- ``data.parse_worker``   — the process-pool parse worker, per sub-range;
 - ``serve.request`` / ``serve.queue`` / ``serve.predict`` /
   ``serve.swap`` — the scoring server's ingress, batch assembly, model
   call and hot-swap stages;
@@ -82,6 +83,11 @@ SITES: Dict[str, str] = {
         "end in a loud stream-parse fallback, never a served bad page"),
     "threadediter.produce": (
         "producer thread, once per produced item (ctx: name=<iterator>)"),
+    "data.parse_worker": (
+        "process-pool parse worker, once per sub-range before parsing "
+        "(ctx: parser=<class>); 'exit' kills the worker mid-chunk.  "
+        "Workers read DMLC_FAULT_PLAN at start: the shared pool must be "
+        "(re)started after setting the plan (data.parse_proc.shutdown())"),
     "io.fleet.lease": (
         "fleet-ingest shard-lease client, once per wire op before it runs "
         "(ctx: op=acquire|renew|commit, worker=<id>); 'delay' models a "

@@ -10,17 +10,19 @@ from a JAX coordinator and a JAX worker from a port coordinator.
 
 - :func:`plan_units` splits one input URI into many more **work units**
   than workers: each unit is an opaque JSON spec naming a
-  ``(part, nparts)`` byte-range shard of a text URI (libsvm, CSV).
-  Columnar units (parquet/arrow) are not ported (ROADMAP §1 item 1d) and
-  fail a CHECK that says so;
+  ``(part, nparts)`` shard of the URI — byte-range shards for text
+  formats (the ``reset_partition`` math), row-group/record-batch units
+  for parquet/arrow (the columnar parsers shard ``k % n`` by unit);
 - :class:`LeaseClient` speaks the framed lease protocol (one short
   conversation per op, so no lock ever spans a socket read);
 - :func:`run_worker` is the worker loop: acquire -> drive the unit
-  through ``create_parser`` -> densify -> commit.  A commit rejected
-  because the lease expired and moved means those rows are **discarded,
-  not counted**: coverage stays exactly-once by construction.  A daemon
-  heartbeat renews all held leases every ``lease_timeout / 3``; when the
-  process dies, the heartbeat dies with it and the coordinator reassigns.
+  through ``create_parser`` (the ``DMLC_PARSE_PROC`` fan-out, the remote
+  page-cache fetch and columnar ingest engage exactly as they would
+  single-host) -> densify -> commit.  A commit rejected because the lease
+  expired and moved means those rows are **discarded, not counted**:
+  coverage stays exactly-once by construction.  A daemon heartbeat renews
+  all held leases every ``lease_timeout / 3``; when the process dies, the
+  heartbeat dies with it and the coordinator reassigns.
 
 Observability: ``ingest.lease`` spans bracket waiting for a grant,
 ``ingest.unit`` spans bracket unit processing, and
@@ -53,26 +55,10 @@ from dmlc_core_tpu_torch.tracker.rendezvous import (DEFAULT_LEASE_TIMEOUT,
                                                     LEASE_MAGIC, FramedSocket,
                                                     ProtocolError,
                                                     TrackerError)
-from dmlc_core_tpu_torch.utils.logging import CHECK, log_warning
+from dmlc_core_tpu_torch.utils.logging import log_warning
 
 __all__ = ["plan_units", "LeaseClient", "WorkerResult", "run_worker",
            "default_unit_processor", "fleet_binner"]
-
-_COLUMNAR = ("parquet", "arrow", "feather", "ipc")
-
-
-def _check_text_unit(uri: str, fmt: str) -> None:
-    """Fleet units of the port are text shards; a columnar unit is not
-    ported yet."""
-    ext = uri.rsplit(".", 1)[-1].lower() if "." in uri else ""
-    named = fmt if fmt != "auto" else (ext if ext in _COLUMNAR else "")
-    if not named and "format=" in uri:
-        named = uri.split("format=", 1)[1].split("&")[0]
-    CHECK(named not in _COLUMNAR,
-          f"fleet unit {uri!r} is columnar ({named}); parquet/arrow units "
-          f"are not yet in the PyTorch port (ROADMAP §1 item 1d, columnar "
-          f"ingest)")
-
 
 def plan_units(uri: str, num_workers: int, *,
                units_per_worker: Optional[int] = None,
@@ -97,7 +83,6 @@ def plan_units(uri: str, num_workers: int, *,
     """
     upw = (units_per_worker if units_per_worker is not None
            else get_env("DMLC_FLEET_UNITS_PER_WORKER", int, 8))
-    _check_text_unit(uri, fmt)
     n = num_units or max(1, num_workers) * max(1, upw)
     spec: Dict[str, Any] = {"uri": uri, "nparts": n, "format": fmt,
                             "nthread": nthread, "threaded": threaded}
@@ -244,7 +229,8 @@ def default_unit_processor(spec: Dict[str, Any],
     """Drive one unit through the port's ingest stack.
 
     Builds a parser for the unit's ``(part, nparts)`` shard of the URI
-    (text formats only).  With ``dense_features`` each block is densified
+    (a byte range of a text file, or row groups/record batches of a
+    columnar one).  With ``dense_features`` each block is densified
     to a contiguous float32 ``[n, F]`` array (the form a device copy ships
     as-is) and fed to the binner accumulator when one is active.  Returns
     the commit payload (``rows`` + optional label-id ledger fields).
@@ -252,7 +238,6 @@ def default_unit_processor(spec: Dict[str, Any],
     from dmlc_core_tpu_torch.bridge.batching import block_to_dense
     from dmlc_core_tpu_torch.data.factory import create_parser
 
-    _check_text_unit(spec["uri"], spec.get("format", "auto"))
     parser = create_parser(spec["uri"], int(spec.get("part", 0)),
                            int(spec.get("nparts", 1)),
                            type=spec.get("format", "auto"),

@@ -3,15 +3,14 @@
 Counterpart of ``dmlc_core_tpu/utils/timer.py``.  PyTorch returns before
 CUDA work finishes, so a host clock around device work must end in
 ``torch.cuda.synchronize()``; kernel times come from CUDA events over many
-launches.
+launches.  ``torch`` is imported where a function waits for the card, so
+:func:`get_time` costs a spawned parse worker no torch import.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, Tuple
-
-import torch
 
 __all__ = ["get_time", "device_time", "cuda_event_ms"]
 
@@ -22,6 +21,8 @@ def get_time() -> float:
 
 
 def _sync() -> None:
+    import torch
+
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
@@ -39,6 +40,8 @@ def cuda_event_ms(fn: Callable[[], Any], iters: int = 10,
                   warmup: int = 2) -> float:
     """Mean milliseconds per call of ``fn`` on the current stream, from
     CUDA events around ``iters`` calls after ``warmup`` untimed ones."""
+    import torch
+
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)

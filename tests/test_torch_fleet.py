@@ -100,11 +100,39 @@ def test_plan_units_env_default(corpus, monkeypatch):
 @pytest.mark.parametrize("uri,fmt", [("data.parquet", "auto"),
                                      ("data.bin", "arrow"),
                                      ("data.bin?format=parquet", "auto")])
-def test_columnar_units_not_ported(uri, fmt):
-    with pytest.raises(Exception, match="1d"):
-        fleet_ingest.plan_units(uri, 2, fmt=fmt)
-    with pytest.raises(Exception, match="1d"):
-        fleet_ingest.default_unit_processor({"uri": uri, "format": fmt})
+def test_columnar_units_not_ported(tmp_path, uri, fmt):
+    """Fleet units may be columnar (row groups / record batches): the port
+    plans them as the JAX package does, and each unit's commit payload
+    (rows, batches, label-id ledger, densified) equals the JAX one."""
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+
+    rng = np.random.RandomState(2)
+    cols = {"label": pa.array(np.arange(ROWS, dtype=np.float32))}
+    for j in range(FEATURES):
+        cols[f"f{j}"] = pa.array(rng.randn(ROWS).astype(np.float32))
+    table = pa.table(cols)
+    path = str(tmp_path / uri.split("?")[0])
+    if fmt == "arrow":
+        with pa.ipc.new_file(path, table.schema) as writer:
+            for batch in table.to_batches(max_chunksize=300):
+                writer.write_batch(batch)
+    else:
+        pq.write_table(table, path, row_group_size=300)
+    full = str(tmp_path / uri)
+    units = fleet_ingest.plan_units(full, 2, fmt=fmt, num_units=5,
+                                    dense_features=FEATURES,
+                                    ledger_labels=True)
+    assert units == jax_fleet.plan_units(full, 2, fmt=fmt, num_units=5,
+                                         dense_features=FEATURES,
+                                         ledger_labels=True)
+    total = 0
+    for spec_json in units:
+        spec = json.loads(spec_json)
+        payload = fleet_ingest.default_unit_processor(spec)
+        assert payload == jax_fleet.default_unit_processor(spec)
+        total += payload["rows"]
+    assert total == ROWS
 
 
 @pytest.mark.parametrize("dense", [0, FEATURES])

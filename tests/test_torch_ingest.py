@@ -460,12 +460,24 @@ def test_parser_counters_equal(tmp_path, case):
 
 
 def test_unported_formats_and_splits_raise(tmp_path):
+    """The columnar formats build the columnar parsers (which refuse a text
+    file as the JAX package's do); an unknown split type raises."""
+    from dmlc_core_tpu.data.factory import create_parser as jax_create
+
+    pytest.importorskip("pyarrow")
     uri = _write(tmp_path, "libsvm")
     for fmt in ("parquet", "arrow"):
-        with pytest.raises(Error, match="ROADMAP"):
-            pfactory.create_parser(uri, type=fmt)
-    with pytest.raises(Error, match="ROADMAP"):
-        pfactory.create_parser(str(tmp_path / "t.parquet"))
+        parser = pfactory.create_parser(uri, type=fmt, threaded=False)
+        assert type(parser).__name__ == ("ParquetParser" if fmt == "parquet"
+                                         else "ArrowIPCParser")
+        jparser = jax_create(uri, type=fmt, threaded=False)
+        with pytest.raises(Exception) as jerr:
+            list(jparser)
+        with pytest.raises(Exception) as perr:
+            list(parser)
+        assert type(perr.value) is type(jerr.value)
+        parser.close()
+        jparser.close()
     with pytest.raises(Error, match="unknown input split type"):
         psplit.create_input_split(uri, 0, 1, "bogus")
 

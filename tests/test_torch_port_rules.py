@@ -128,6 +128,35 @@ def test_port_rule_catches_the_jax_native_build():
                    for n in ast.walk(ast.parse(code))) == names, code
 
 
+# what a spawned parse worker imports (``data.parse_proc`` rebuilds the
+# parsers by module path) and the host-side packages around it
+WORKER_MODULES = ("dmlc_core_tpu_torch", "dmlc_core_tpu_torch.data",
+                  "dmlc_core_tpu_torch.io", "dmlc_core_tpu_torch.utils",
+                  "dmlc_core_tpu_torch.config", "dmlc_core_tpu_torch.json_io",
+                  "dmlc_core_tpu_torch.serializer",
+                  "dmlc_core_tpu_torch.data.parse_proc",
+                  "dmlc_core_tpu_torch.data.libsvm_parser",
+                  "dmlc_core_tpu_torch.data.libfm_parser",
+                  "dmlc_core_tpu_torch.data.csv_parser",
+                  "dmlc_core_tpu_torch.data.arrow_ingest",
+                  "dmlc_core_tpu_torch.interop")
+
+
+def test_parse_worker_modules_import_no_torch_nor_jax():
+    """Spawned parse workers stay cheap: in a fresh interpreter, the modules
+    they import load neither ``torch`` nor ``jax``.  A later re-export that
+    pulled torch into ``dmlc_core_tpu_torch.data`` fails here."""
+    code = ("import importlib, sys\n"
+            f"for m in {WORKER_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "    bad = [r for r in ('torch', 'jax') if r in sys.modules]\n"
+            "    assert not bad, (m, bad)\n"
+            "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked():
     x = np.zeros((4, 2), np.float32)
     bounds = np.zeros((2, 3), np.float32)
