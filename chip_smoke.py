@@ -327,7 +327,35 @@ Phases (any failure exits non-zero and prints no result line):
    every level and K1 never (counted and added to the kernels line);
    where it is missing, one line says that columnar ingest did not run
    and a ``.parquet`` URI must raise the one clear error naming
-   pyarrow.
+   pyarrow;
+16. the cluster backends.  (16a) phase 11's 500,000 libsvm rows (written
+   again) trained by ``train_gbdt``'s ``main(argv)`` (``--worker backend
+   DIR``; phase 4's flags) in 2 workers sharing the card over gloo,
+   launched by ``python -m dmlc_core_tpu_torch.tracker.submit`` from a
+   temporary directory once through each of ``--cluster local``, ``ssh``
+   (a host file of localhost twice and a fake ``ssh`` on ``PATH`` that
+   drops ``-o``/``-p`` and runs the remote command through ``sh -c``, as
+   sshd does), ``mpi`` (a fake Open MPI ``mpirun``: ``-n``/``-x``, ranks
+   with ``OMPI_COMM_WORLD_RANK`` and no ``DMLC_TASK_ID``) and ``sge`` (a
+   fake ``qsub`` that runs the array job's script once a task with
+   ``SGE_TASK_ID``; the script lands in the launch's cwd).  The fakes are
+   written at run time.  Every launch must exit 0 and print one
+   ``trained ... over 2 workers`` line twice; each rank's rank must be
+   the one ``_task_id_from_env`` reads from its launcher's variable
+   (``OMPI_COMM_WORLD_RANK`` under mpi, ``SGE_TASK_ID`` - 1 under sge),
+   and so must its collective rank; both ranks' ensembles of every
+   launch must be bitwise the local launch's rank 0's; each rank makes
+   at least 60 K3 launches and none of K1.  Each rank sends the tracker
+   the Rabit ``shutdown`` a Rabit client sends at finalize, since sge's
+   launcher joins the tracker as the reference's does.  Per backend it
+   prints the launch's wall seconds and the fit's seconds and rows/s.
+   (16b) the ssh launch ran with ``--env DMLC_TELEMETRY_DIR=D`` (the
+   launcher with it too): ``python -m dmlc_core_tpu_torch.telemetry
+   trace D --fail-on-orphans --json --out D/merged.json`` must exit 0
+   with the tracker's trace over >= 3 processes and no orphan,
+   ``merged.json`` must load, ``telemetry report D --json`` must
+   aggregate ranks 0 and 1, and ``python -m dmlc_core_tpu_torch.fault
+   validate`` must exit 0 on a good plan and 2 on a malformed one.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -338,9 +366,10 @@ those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
 phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
 count of phase 11, the multi-worker path's run, phase 12's fit from
-recordio, phase 13's parse and fit from the bucket and phase 15's parse
-and fit through the process pool (and from Parquet, where it ran), and
-K4's adds rank 0's count of phase 14a's dryrun.
+recordio, phase 13's parse and fit from the bucket, phase 15's parse
+and fit through the process pool (and from Parquet, where it ran) and
+rank 0's count of phase 16's ssh launch, and K4's adds rank 0's count of
+phase 14a's dryrun.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -421,6 +450,7 @@ N_ENTRY = 200_000             # 10b's libsvm rows (phase 6's first 200,000)
 N_ENTRY_EVAL = 50_000         # 10b's held-out libsvm rows
 N_MULTI = 500_000             # phase 11's libsvm rows, 250,000 a rank
 N_MULTI_CLI = 100_000         # its plain `python -m` launch
+BACKENDS = ("local", "ssh", "mpi", "sge")   # phase 16's launches, in order
 MW_TIMEOUT_S = 240            # wall clock of each phase-11 launch
 MW_COLLECTIVE_TIMEOUT_S = 60  # a dead peer fails phase 11 after this
 MW_LEAF_TOL = 1e-4            # 11a: leaf values against the world-1 fit of
@@ -3223,21 +3253,25 @@ def cli_worker_main(outdir):
     torch.save(result, os.path.join(outdir, f"cli{rank}.pt"))
 
 
-def _submit(args, cmd, outdir, name, timeout_s, workers=2, log="cli"):
-    """``cmd`` in ``workers`` workers through the port's launcher (gloo on
+def _submit(args, cmd, outdir, name, timeout_s, workers=2, log="cli",
+            cluster="local", cwd=None, env_extra=None):
+    """``cmd`` in ``workers`` workers through the port's launcher
+    (``--cluster cluster``, from ``cwd``, the repo root by default; gloo on
     the one card, a store port of its own); fail with the launch's stderr
     tail and each rank's own log (``OUTDIR/{log}{rank}.err``) on any
     failure.  Returns (stdout and stderr, seconds)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=here,
                DMLC_COLLECTIVE_TIMEOUT=str(MW_COLLECTIVE_TIMEOUT_S))
+    env.update(env_extra or {})
     full = [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
-            "--cluster", "local", "--num-workers", str(workers), "--env",
+            "--cluster", cluster, "--num-workers", str(workers), "--env",
             f"DMLC_COORDINATOR_PORT={_free_port()}", *args, "--", *cmd]
     start = time.perf_counter()
     try:
-        proc = subprocess.run(full, cwd=here, env=env, capture_output=True,
-                              text=True, timeout=timeout_s)
+        proc = subprocess.run(full, cwd=cwd or here, env=env,
+                              capture_output=True, text=True,
+                              timeout=timeout_s)
         rc, out, err = proc.returncode, proc.stdout, proc.stderr
     except subprocess.TimeoutExpired as exc:
         rc, out, err = "timeout", str(exc.stdout or ""), str(exc.stderr or "")
@@ -4904,6 +4938,311 @@ def phase_substrate(card, ref):
     return k3
 
 
+# -- phase 16: multi-worker training through the cluster backends -----------
+FAKE_SSH = """#!/bin/sh
+# sshd's side of a connection: drop ssh's options, run the command here
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -o|-p) shift 2 ;;
+    *) break ;;
+  esac
+done
+shift
+exec sh -c "$*"
+"""
+
+FAKE_MPIRUN = """#!{python}
+# Open MPI's mpirun: -n N, -x K=V; each rank gets OMPI_COMM_WORLD_RANK
+import os, subprocess, sys
+args = sys.argv[1:]
+if "--version" in args:
+    print("mpirun (Open MPI) 5.0.fake")
+    sys.exit(0)
+n, env, cmd, i = 1, {{}}, [], 0
+while i < len(args):
+    if args[i] == "-n":
+        n = int(args[i + 1]); i += 2
+    elif args[i] == "--hostfile":
+        i += 2
+    elif args[i] == "-x":
+        k, _, v = args[i + 1].partition("="); env[k] = v; i += 2
+    else:
+        cmd = args[i:]; break
+procs = []
+for r in range(n):
+    e = dict(os.environ, **env)
+    e.pop("DMLC_TASK_ID", None)
+    e.update(OMPI_COMM_WORLD_RANK=str(r), OMPI_COMM_WORLD_SIZE=str(n))
+    procs.append(subprocess.Popen(cmd, env=e))
+sys.exit(max([p.wait() for p in procs], default=0))
+"""
+
+FAKE_QSUB = """#!{python}
+# an SGE array job: -t LO-HI runs the script once a task, SGE_TASK_ID set
+import os, subprocess, sys
+args = sys.argv[1:]
+lo = hi = 1
+for i, a in enumerate(args):
+    if a == "-t":
+        lo, hi = (int(x) for x in args[i + 1].split("-"))
+procs = [subprocess.Popen(["/bin/bash", args[-1]],
+                          env=dict(os.environ, SGE_TASK_ID=str(t)))
+         for t in range(lo, hi + 1)]
+sys.exit(max([p.wait() for p in procs], default=0))
+"""
+
+
+def _rabit_shutdown(rank):
+    """Send the tracker this rank's Rabit ``shutdown``, as a Rabit client's
+    finalize does.  The port's ranks meet through torch.distributed and
+    never dial the tracker, and a launcher that joins it (sge, as in the
+    reference) waits until every rank has shut down."""
+    from dmlc_core_tpu_torch.tracker.rendezvous import MAGIC, FramedSocket
+
+    uri = os.environ.get("DMLC_TRACKER_URI")
+    port = os.environ.get("DMLC_TRACKER_PORT")
+    if not uri or not port:
+        fail("16: the rank got no DMLC_TRACKER_URI/PORT")
+    try:
+        with socket.create_connection((uri, int(port)), timeout=30) as s:
+            fs = FramedSocket(s)
+            fs.sendint(MAGIC)
+            if fs.recvint() != MAGIC:
+                fail("16: the tracker answered with another magic")
+            fs.sendint(rank)
+            fs.sendint(-1)
+            fs.sendstr("NULL")
+            fs.sendstr("shutdown")
+    except OSError:
+        # a launcher that does not join the tracker may be gone already
+        pass
+
+
+def backend_worker_main(outdir):
+    """One rank of phase 16 (``--worker backend OUTDIR``): train_gbdt's
+    ``main(argv)`` with the argv of ``OUTDIR/backend.json``; saves the
+    rank that ``_task_id_from_env`` gives it and the launcher's variables
+    it came from, the card it ran on, the ensemble, the launch counts, its
+    printed lines and the fit's seconds."""
+    from dmlc_core_tpu_torch.collective.api import _task_id_from_env
+    from dmlc_core_tpu_torch.examples import train_gbdt
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    with open(os.path.join(outdir, "backend.json")) as f:
+        argv = json.load(f)["argv"]
+    rank = _task_id_from_env(os.environ)
+    with open(os.path.join(outdir, f"rank{rank}.err"), "w") as f:
+        os.dup2(f.fileno(), 2)
+    hist_cuda.kernels_available()      # the probe's launches are not the path's
+    fit_s = []
+    fit_distributed = train_gbdt._fit_distributed
+
+    def timed_fit(model, bins, label, collective):
+        out = fit_distributed(model, bins, label, collective)
+        fit_s.append((out[3], collective.get_rank(),
+                      collective.get_world_size()))
+        return out
+
+    train_gbdt._fit_distributed = timed_fit
+    lines = _tee_lines()
+    hist_cuda.reset_launches()
+    out = train_gbdt.main(argv)
+    sys.stdout, sys.stderr = sys.stdout.inner, sys.stderr.inner
+    env = {k: os.environ.get(k) for k in ("DMLC_TASK_ID",
+                                          "OMPI_COMM_WORLD_RANK",
+                                          "SGE_TASK_ID", "DMLC_JOB_CLUSTER")}
+    torch.save(dict(rank=rank, env=env, card=torch.cuda.current_device(),
+                    model=_ensemble_arrays(out[0]), lines=list(lines),
+                    launches=dict(hist_cuda.LAUNCHES), fit=fit_s),
+               os.path.join(outdir, f"rank{rank}.pt"))
+    _rabit_shutdown(rank)
+
+
+def _write_fakes(bindir):
+    os.makedirs(bindir)
+    for name, body in (("ssh", FAKE_SSH),
+                       ("mpirun", FAKE_MPIRUN.format(python=sys.executable)),
+                       ("qsub", FAKE_QSUB.format(python=sys.executable))):
+        path = os.path.join(bindir, name)
+        with open(path, "w") as f:
+            f.write(body)
+        os.chmod(path, 0o755)
+        if shutil.which(name, path=bindir) != path:
+            fail(f"16: the fake {name} at {path} is not runnable")
+
+
+def _rank_source(backend, r):
+    """(what ``_task_id_from_env`` must have read, its launcher variable)
+    for rank ``r`` of a ``backend`` launch."""
+    return {"mpi": ("OMPI_COMM_WORLD_RANK", r), "sge": ("SGE_TASK_ID", r + 1)
+            }.get(backend, ("DMLC_TASK_ID", r))
+
+
+def _host_cli(args, name, want_rc=0):
+    """``python -m dmlc_core_tpu_torch.<args>``; fail unless it exits
+    ``want_rc``.  Returns its stdout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != want_rc:
+        fail(f"16b {name}: exit {proc.returncode} (want {want_rc}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _telemetry_checks(card, tel):
+    """16b: the ssh launch's telemetry directory through the host CLIs."""
+    merged = os.path.join(tel, "merged.json")
+    report = json.loads(_host_cli(
+        ["dmlc_core_tpu_torch.telemetry", "trace", tel, "--fail-on-orphans",
+         "--json", "--out", merged], "telemetry trace"))
+    with open(merged) as f:
+        events = json.load(f)["traceEvents"]
+    tracker = [t for t in report["traces"] if t["root"] == "tracker.start"]
+    if len(tracker) != 1 or len(tracker[0]["pids"]) < 3 \
+            or tracker[0]["orphans"] or report["orphans"]:
+        fail(f"16b: want one tracker trace over >= 3 processes and no "
+             f"orphans: {json.dumps(report)[:3000]}")
+    t = tracker[0]
+    snaps = json.loads(_host_cli(["dmlc_core_tpu_torch.telemetry", "report",
+                                  tel, "--json"], "telemetry report"))
+    ranks = sorted({r for v in snaps.values() for r in v.get("ranks", [])})
+    if ranks != [0, 1]:
+        fail(f"16b: the report aggregates rank(s) {ranks}, want [0, 1]")
+    good = os.path.join(tel, "plan-good.json")
+    bad = os.path.join(tel, "plan-bad.json")
+    with open(good, "w") as f:
+        json.dump({"seed": 1, "rules": [{"site": "tracker.accept",
+                                         "kind": "delay", "seconds": 0.0}]},
+                  f)
+    with open(bad, "w") as f:
+        f.write('{"rules": [{"site": "tracker.accept", "kind": "nope"}]}')
+    _host_cli(["dmlc_core_tpu_torch.fault", "validate", good],
+              "fault validate (good plan)")
+    _host_cli(["dmlc_core_tpu_torch.fault", "validate", bad],
+              "fault validate (malformed plan)", want_rc=2)
+    print(f"16b telemetry trace --fail-on-orphans: exit 0; the tracker's "
+          f"trace {t['trace_id'][:8]}... holds {t['spans']} spans from "
+          f"{len(t['pids'])} processes, 0 orphans, {t['total_ms']:.1f} ms; "
+          f"{report['spans']} spans in {report['sources']} files, "
+          f"{len(events):,} events in merged.json; telemetry report: ranks "
+          f"{ranks}, {len(snaps)} series; fault validate: 0 on a good plan, "
+          f"2 on a malformed one [{card}]", flush=True)
+
+
+def phase_backends(card, ref):
+    """Phase 16: train_gbdt in 2 workers on the card through the launcher's
+    local, ssh, mpi and sge backends (fake ssh, mpirun and qsub); the
+    ssh launch's telemetry through the host CLIs."""
+    import tempfile
+
+    print(f"== phase 16: train_gbdt in 2 workers on one card through "
+          f"--cluster {', '.join(BACKENDS)} (gloo; fake ssh, mpirun and "
+          f"qsub), {N_MULTI:,} libsvm rows", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(here, "build", "chip_smoke_backends")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    x, y = ref["x"][:N_MULTI], ref["y"][:N_MULTI]
+    ranks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        svm = os.path.join(tmp, "train.libsvm")
+        _write_text(svm, x, y, " ", " ", "{}:%.9g")
+        bindir = os.path.join(tmp, "bin")
+        _write_fakes(bindir)
+        hosts = os.path.join(tmp, "hosts")
+        with open(hosts, "w") as f:
+            f.write("localhost\nlocalhost\n")
+        tel = os.path.join(outdir, "telemetry")
+        os.makedirs(tel)
+        # the launches' cwd: sge writes its run script there
+        rundir = os.path.join(tmp, "run")
+        os.makedirs(rundir)
+        argv = ["--data", svm, "--num-feature", str(N_FEATURES), "--rounds",
+                str(ROUNDS), "--max-depth", str(MAX_DEPTH), "--num-bins",
+                str(NUM_BINS)]
+        walls = {}
+        for backend in BACKENDS:
+            bdir = os.path.join(outdir, backend)
+            os.makedirs(bdir)
+            with open(os.path.join(bdir, "backend.json"), "w") as f:
+                json.dump({"argv": argv}, f)
+            # what a remote rank needs travels as --env (ssh forwards only
+            # its FORWARD_ENV list of the launcher's own variables)
+            args = ["--env", f"DMLC_COLLECTIVE_TIMEOUT="
+                             f"{MW_COLLECTIVE_TIMEOUT_S}",
+                    "--env", "OMP_NUM_THREADS=2"]
+            env = {"PATH": f"{bindir}{os.pathsep}{os.environ['PATH']}"}
+            if backend == "ssh":
+                args += ["--host-file", hosts, "--env",
+                         f"DMLC_TELEMETRY_DIR={tel}"]
+                env["DMLC_TELEMETRY_DIR"] = tel     # the launcher's own spans
+            if backend == "sge":
+                args += ["--jobname", "chip_smoke"]
+            out, walls[backend] = _submit(
+                args, [sys.executable, os.path.abspath(__file__), "--worker",
+                       "backend", bdir], bdir, f"phase 16 --cluster {backend}",
+                MW_TIMEOUT_S, log="rank", cluster=backend, cwd=rundir,
+                env_extra=env)
+            paths = [os.path.join(bdir, f"rank{r}.pt") for r in range(2)]
+            missing = [p for p in paths if not os.path.exists(p)]
+            if missing:
+                fail(f"16a --cluster {backend}: exit 0 but no {missing}")
+            ranks[backend] = [torch.load(p, weights_only=False)
+                              for p in paths]
+            summary = _over_two(out.splitlines())
+            if len(summary) != 2 or summary[0] != summary[1]:
+                fail(f"16a --cluster {backend}: not one trained line twice: "
+                     f"{summary}")
+        if not os.path.exists(os.path.join(rundir, "chip_smoke.sge.sh")):
+            fail("16a --cluster sge wrote no run script into its cwd")
+
+    base = ranks["local"][0]
+    k3_need = ROUNDS * MAX_DEPTH
+    for backend, runs in ranks.items():
+        for r, run in enumerate(runs):
+            key, value = _rank_source(backend, r)
+            if run["rank"] != r or run["env"][key] != str(value) \
+                    or (backend == "mpi" and run["env"]["DMLC_TASK_ID"]):
+                fail(f"16a --cluster {backend}: rank {r} read rank "
+                     f"{run['rank']} from {run['env']}")
+            if [f[1:] for f in run["fit"]] != [(r, 2)]:
+                fail(f"16a --cluster {backend}: rank {r}'s collective was "
+                     f"(rank, world) {[f[1:] for f in run['fit']]}")
+            for k, a in base["model"].items():
+                b = run["model"][k]
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    fail(f"16a --cluster {backend}: rank {r}'s {k} differs "
+                         f"from the local launch's rank 0")
+            k1 = run["launches"]["hist_matmul_cuda"]
+            k3 = run["launches"]["grad_hist_fused_cuda"]
+            if k3 < k3_need or k1 != 0:
+                fail(f"16a --cluster {backend}: rank {r} launched K3 {k3} "
+                     f"times (want >= {k3_need}) and K1 {k1} (want 0)")
+            lines = _over_two(run["lines"])
+            if len(lines) != 1 or lines[0] != _over_two(runs[0]["lines"])[0]:
+                fail(f"16a --cluster {backend}: rank {r}'s summary lines "
+                     f"{lines}")
+        fit = runs[0]["fit"][0][0]
+        print(f"16a --cluster {backend}: launch {walls[backend]:.1f} s; fit "
+              f"{fit:.4f} s (the slower rank), "
+              f"{N_MULTI * ROUNDS / fit:,.0f} rows/s; ranks "
+              f"{[run['rank'] for run in runs]} from "
+              f"{_rank_source(backend, 0)[0]}, card "
+              f"{[run['card'] for run in runs]}; K3 "
+              f"{[run['launches']['grad_hist_fused_cuda'] for run in runs]}, "
+              f"K1 {[run['launches']['hist_matmul_cuda'] for run in runs]}; "
+              f"ensembles bitwise the local launch's [{card}]", flush=True)
+    print(f"16a {_over_two(base['lines'])[0]}", flush=True)
+    _telemetry_checks(card, tel)
+    print(f"phase 16: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return ranks["ssh"][0]["launches"]["grad_hist_fused_cuda"]
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -4916,6 +5255,8 @@ def main():
             seq_worker_main(sys.argv[3])
         elif sys.argv[2] == "tp":
             tp_worker_main(sys.argv[3])
+        elif sys.argv[2] == "backend":
+            backend_worker_main(sys.argv[3])
         else:
             worker_main(sys.argv[2], sys.argv[3])
         return
@@ -4945,8 +5286,10 @@ def main():
     k4["launches"] += phase_parallel(card, ref)
     # and those of phase 15's fit from the parse process pool
     k3["launches"] += phase_substrate(card, ref)
+    # and rank 0's of phase 16's launch through the ssh backend
+    k3["launches"] += phase_backends(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-15 passed in "
+    print(f"chip_smoke: phases 1-16 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

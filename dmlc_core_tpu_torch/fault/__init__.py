@@ -97,22 +97,28 @@ SITES: Dict[str, str] = {
         "exactly-once coverage (docs/performance.md \"Fleet ingest\")"),
     "serve.request": (
         "scoring HTTP ingress, once per POST /v1/score before parsing; "
-        "'http_status' REPLACES the response, delay/stall model a slow "
-        "handler thread, 'reset' kills the connection mid-request"),
+        "'http_status' REPLACES the response (the chaos 503 storm), "
+        "delay/stall model a slow handler thread, 'reset' kills the "
+        "connection mid-request (the one outcome a client sees as a "
+        "crash)"),
     "serve.queue": (
         "micro-batch assembly loop, once per batch (ctx: depth=<queue "
         "depth>); 'stall' models a stuck consumer — the queue backs up "
         "and admission control starts shedding (503 + Retry-After)"),
     "serve.predict": (
         "once per assembled batch before the model call (ctx: "
-        "model=<family>, slot=<slot name>, rows=<n>); 'error' fails that "
-        "batch's requests with a structured 503 predict_failed and the "
-        "batcher continues"),
+        "model=<family>, slot=<slot name>, rows=<n>); 'error' models a "
+        "killed predict worker — that batch's requests fail with a "
+        "structured 503 predict_failed and the batcher continues; a "
+        "'delay' holds the batch's admission bytes, so queues genuinely "
+        "back up (the router chaos drill saturates replicas this way)"),
     "serve.swap": (
         "model-lifecycle watcher, once per stage of each hot-swap cycle "
         "(ctx: model=<slot>, stage=watch|validate|warmup|swap); "
         "'error'/'reset' during validate or warmup reject the candidate "
-        "— previous-good keeps serving"),
+        "— previous-good keeps serving; 'stall' during swap delays the "
+        "pointer flip but can never tear it (docs/serving.md \"Model "
+        "lifecycle\")"),
     "serve.router.forward": (
         "multi-replica router, once per forward attempt before the replica "
         "connection is opened (ctx: replica=<name>, attempt=<n>, "
@@ -122,7 +128,7 @@ SITES: Dict[str, str] = {
         "territory), 'error' a router-side forwarding bug (structured "
         "503 replica_failed, never a dropped connection), and "
         "'http_status' REPLACES the replica round-trip with an injected "
-        "response"),
+        "response (docs/serving.md \"Multi-replica tier\")"),
     "train.ingest": (
         "continuous trainer, once per batch fetch before the source is "
         "read (ctx: cursor=<position>, incarnation=<n>); 'error'/'reset' "

@@ -5,7 +5,8 @@ metrics registry (counters / gauges / fixed-bucket histograms with labels),
 a span tracer exporting Chrome-trace JSON and JSONL, and Prometheus-text /
 JSON-snapshot exporters with an atexit flush.  Span and counter names are
 the JAX package's, letter for letter, so one trace reader serves both.
-(The ``report``/``trace`` CLI is not ported yet.)
+``python -m dmlc_core_tpu_torch.telemetry report|trace DIR`` aggregates
+the snapshots and assembles the span files of such a directory.
 
 Usage (instrumentation sites)::
 
@@ -26,7 +27,8 @@ Enable explicitly via :func:`enable`, or by environment:
   flight recorder's abnormal-exit dumps (:mod:`.flight`).
 
 Spans carry distributed trace identity when a trace context is active
-(:mod:`.tracecontext`).
+(:mod:`.tracecontext`); :mod:`.traceview` merges the per-process span files
+and crash dumps into one Perfetto trace with per-trace critical paths.
 """
 
 from __future__ import annotations

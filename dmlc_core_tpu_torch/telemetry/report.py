@@ -1,7 +1,7 @@
 """Multi-rank snapshot aggregation of telemetry snapshots.
 
-Counterpart of ``dmlc_core_tpu/telemetry/report.py`` (a copy; the
-``report`` command line that calls :func:`main` is not ported yet).
+Counterpart of ``dmlc_core_tpu/telemetry/report.py`` (a copy): ``python -m
+dmlc_core_tpu_torch.telemetry report DIR`` calls :func:`main`.
 
 Each rank flushing into a shared ``DMLC_TELEMETRY_DIR`` leaves one
 ``metrics-r<rank>-p<pid>.json`` snapshot.  This module folds them back into

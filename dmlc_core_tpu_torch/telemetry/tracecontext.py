@@ -6,7 +6,7 @@ through the HTTP handler, the micro-batcher and predict; a probe run from
 tracker's accept loop into every worker.  Each story gets one ``trace_id``;
 every span recorded while a :class:`TraceContext` is active carries that id
 plus its own ``span_id`` and its parent's, so the offline assembler
-(``python -m dmlc_core_tpu.telemetry trace``) can stitch per-process span
+(``python -m dmlc_core_tpu_torch.telemetry trace``) can stitch per-process span
 files back into one tree however many processes the story crossed.
 
 Propagation forms (all carry the same W3C ``traceparent`` string,

@@ -8,12 +8,12 @@ Counterpart of ``dmlc_core_tpu/tracker/``:
   shard-lease coordinator;
 - :mod:`.submit` / :mod:`.opts` — the launcher CLI (``python -m
   dmlc_core_tpu_torch.tracker.submit``) and its option schema;
-- :mod:`.local` — one process per worker on this host, with retry;
+- backends: :mod:`.local` (one process per worker on this host, with
+  retry), :mod:`.ssh`, :mod:`.mpi`, :mod:`.sge`, :mod:`.tpu_vm`,
+  :mod:`.yarn` (with the container supervisor of
+  :mod:`.yarn_supervisor`) and :mod:`.mesos`;
 - :mod:`.filecache` / :mod:`.launcher` — job file shipping and the
   container-side bootstrap.
-
-The other backends (ssh, mpi, sge, tpu-vm, yarn, mesos) are not ported
-(ROADMAP.md §1 [12]); the launcher refuses them.
 """
 
 from dmlc_core_tpu_torch.tracker.rendezvous import PSTracker, RabitTracker  # noqa: F401

@@ -1,8 +1,7 @@
 """Job file cache: ship files/archives named at submit time to the
 execution environment.
 
-Counterpart of ``dmlc_core_tpu/tracker/filecache.py``, whole (the port's
-local backend stages through it; the other backends are the reference's).
+Counterpart of ``dmlc_core_tpu/tracker/filecache.py``, whole.
 
 Reference semantics (tracker/dmlc_tracker/opts.py:6-36 auto cache-file set;
 opts.py:108-126 the ``--files``/``--archives`` options; consumed via

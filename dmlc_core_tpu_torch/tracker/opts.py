@@ -2,7 +2,6 @@
 
 Counterpart of ``dmlc_core_tpu/tracker/opts.py``: the same flags, choices
 and defaults, so one argv parses to the same options in both packages.
-Of the cluster backends only ``local`` runs in the port (:mod:`.submit`).
 """
 
 from __future__ import annotations

@@ -19,8 +19,8 @@ Env contract handed to every worker (the reference's, letter for letter):
 - ``DMLC_PS_ROOT_URI`` / ``DMLC_PS_ROOT_PORT`` when servers are asked for;
 - per-task: ``DMLC_TASK_ID``, ``DMLC_ROLE``, ``DMLC_NUM_ATTEMPT``.
 
-Only the ``local`` backend is in the port.  Every other backend of the
-option schema exits 2 with a message: it never falls back to ``local``.
+``--cluster`` picks the backend as in the reference: ``local``, ``ssh``,
+``mpi``, ``sge``, ``tpu-vm``, ``yarn`` or ``mesos``.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def run_ferried(tasks: Sequence[Tuple[str, Callable[[], None]]]) -> None:
     """Run ``(label, thunk)`` tasks on daemon threads, join them all, and
     re-raise the first failure.
 
-    The reference's ferrying stanza for its ssh/mpi/tpu-vm backends: a thread
+    The one ferrying stanza shared by the ssh/mpi/tpu-vm backends: a thread
     target that raises dies silently in ``Thread.run`` and ``join()``
     reports success over a dead task (the dmlclint lockset-thread-leak
     rule), so every task's exception is logged under its label and the
@@ -125,13 +125,24 @@ def main(argv=None) -> int:
     if not opts.command:
         print("error: no worker command given", file=sys.stderr)
         return 2
-    if opts.cluster != "local":
-        print(f"error: the {opts.cluster!r} backend is not in the PyTorch "
-              f"port (ROADMAP.md §1 [12]); launch with --cluster local",
+    if opts.cluster == "local":
+        from dmlc_core_tpu_torch.tracker import local as backend
+    elif opts.cluster == "ssh":
+        from dmlc_core_tpu_torch.tracker import ssh as backend
+    elif opts.cluster == "mpi":
+        from dmlc_core_tpu_torch.tracker import mpi as backend
+    elif opts.cluster == "sge":
+        from dmlc_core_tpu_torch.tracker import sge as backend
+    elif opts.cluster == "tpu-vm":
+        from dmlc_core_tpu_torch.tracker import tpu_vm as backend
+    elif opts.cluster == "yarn":
+        from dmlc_core_tpu_torch.tracker import yarn as backend
+    elif opts.cluster == "mesos":
+        from dmlc_core_tpu_torch.tracker import mesos as backend
+    else:
+        print(f"error: unknown cluster backend {opts.cluster!r}",
               file=sys.stderr)
         return 2
-    from dmlc_core_tpu_torch.tracker import local as backend
-
     backend.submit(opts)
     return 0
 

@@ -31,16 +31,22 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def worker_device(device: Optional[Union[str, torch.device]] = None
                   ) -> torch.device:
     """This worker's device in a launch of several workers: a bare
-    ``cuda`` becomes card ``(LOCAL_RANK or DMLC_TASK_ID) % device_count``
-    and is made current, as a JAX process takes its own local devices, so
-    ranks spread over a host's cards and share one where there is one.
-    Anything else, and any single-worker run, is :func:`resolve_device`'s
-    answer unchanged."""
+    ``cuda`` becomes card ``rank % device_count`` and is made current, as
+    a JAX process takes its own local devices, so ranks spread over a
+    host's cards and share one where there is one.  The rank is
+    ``LOCAL_RANK`` when set, else the collective's own (``DMLC_TASK_ID``,
+    or the rank that mpirun or SLURM gives a process that has no
+    ``DMLC_TASK_ID``).  Anything else, and any single-worker run, is
+    :func:`resolve_device`'s answer unchanged."""
+    # collective.api imports this module
+    from dmlc_core_tpu_torch.collective.api import _task_id_from_env
+
     dev = resolve_device(device)
     if (dev.type != "cuda" or dev.index is not None
             or int(os.environ.get("DMLC_NUM_WORKER", "1")) <= 1):
         return dev
-    local = os.environ.get("LOCAL_RANK") or os.environ.get("DMLC_TASK_ID")
-    dev = torch.device("cuda", int(local or 0) % torch.cuda.device_count())
+    local = os.environ.get("LOCAL_RANK", "").strip()
+    rank = int(local) if local else _task_id_from_env(os.environ)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     return dev

@@ -11,7 +11,9 @@
   (``tests/test_tracker.py``) checks ranks and realised links.
 - Launcher: ``get_opts`` equal to the JAX package's on the same argv,
   ``submit_job`` giving the same env keys, the ``local`` backend's retry
-  budget and staging, and every other backend refused with exit 2.
+  budget and staging, ``--cluster`` dispatching to the backend the JAX
+  launcher picks (an unknown one exits 2 with its message), and
+  ``worker_device`` taking the rank the collective takes.
 - Telemetry: the rendezvous spans and series, and the collective ops'
   series, with the JAX package's names and labels for the same calls.
 
@@ -29,6 +31,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from dmlc_core_tpu import telemetry as jax_telemetry
 from dmlc_core_tpu.tracker import filecache as jax_filecache
@@ -389,15 +392,78 @@ def test_launcher_exhausted_retries_fail(tmp_path):
     assert "failed with exit 7" in proc.stderr
 
 
-@pytest.mark.parametrize("cluster", ["ssh", "mpi", "sge", "tpu-vm", "yarn",
-                                     "mesos"])
-def test_other_backends_refused(cluster, tmp_path, capsys):
-    mark = tmp_path / "ran"
-    rc = submit.main(["--cluster", cluster, "--num-workers", "1", "--",
-                      sys.executable, "-c", f"open({str(mark)!r}, 'w')"])
-    assert rc == 2
-    assert "[12]" in capsys.readouterr().err
-    assert not mark.exists()         # never fell back to the local backend
+@pytest.mark.parametrize("cluster", ["local", "ssh", "mpi", "sge", "tpu-vm",
+                                     "yarn", "mesos", "unknown"])
+def test_backend_dispatch_matches_jax(cluster, monkeypatch, capsys):
+    """``main`` hands the options to the backend module the JAX launcher
+    picks for the same argv; a backend name that gets past the option
+    schema exits 2 with the reference's message and runs nothing."""
+    import importlib
+
+    out = {}
+    for name, package, main, opts_mod in (
+            ("jax", "dmlc_core_tpu", jax_submit.main, jax_opts),
+            ("port", "dmlc_core_tpu_torch", submit.main, opts)):
+        called = []
+        for backend in ("local", "ssh", "mpi", "sge", "tpu_vm", "yarn",
+                        "mesos"):
+            mod = importlib.import_module(f"{package}.tracker.{backend}")
+            monkeypatch.setattr(
+                mod, "submit", lambda o, b=backend: called.append(
+                    (b, vars(o))))
+        if cluster == "unknown":
+            real = opts_mod.get_opts
+
+            def renamed(argv, real=real):
+                parsed = real(argv)
+                parsed.cluster = "k8s"
+                return parsed
+
+            monkeypatch.setattr(opts_mod, "get_opts", renamed)
+        rc = main(["--cluster", "local" if cluster == "unknown" else cluster,
+                   "--num-workers", "2", "--", "true"])
+        out[name] = (rc, called, capsys.readouterr().err)
+    assert out["port"] == out["jax"]
+    rc, called, err = out["port"]
+    if cluster == "unknown":
+        assert rc == 2 and called == []
+        assert "error: unknown cluster backend 'k8s'" in err
+    else:
+        assert rc == 0 and [b for b, _ in called] == [cluster.replace("-",
+                                                                      "_")]
+
+
+@pytest.mark.parametrize("env,card", [
+    ({"OMPI_COMM_WORLD_RANK": "3"}, 3),
+    ({"PMIX_RANK": "6"}, 2),
+    ({"SLURM_PROCID": "1"}, 1),
+    ({"DMLC_TASK_ID": "2", "OMPI_COMM_WORLD_RANK": "3"}, 2),
+    ({"LOCAL_RANK": "1", "DMLC_TASK_ID": "2"}, 1),
+], ids=["mpi", "pmix", "slurm", "dmlc-first", "local-rank-first"])
+def test_worker_device_takes_the_collective_rank(env, card, monkeypatch):
+    """Under mpirun a rank has no DMLC_TASK_ID: its card comes from the
+    launcher's rank variable, as its collective rank does, so the ranks
+    of a host with several cards do not all land on card 0."""
+    from dmlc_core_tpu_torch.utils.device import worker_device
+
+    chosen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    for key in ("LOCAL_RANK", "DMLC_TASK_ID", "OMPI_COMM_WORLD_RANK",
+                "PMIX_RANK", "PMI_RANK", "SLURM_PROCID"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("DMLC_NUM_WORKER", "4")
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert worker_device() == torch.device("cuda", card)
+    assert chosen == [torch.device("cuda", card)]
+    # an explicit card, the CPU and a single worker stay as they are
+    assert worker_device("cuda:0") == torch.device("cuda", 0)
+    assert worker_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("DMLC_NUM_WORKER", "1")
+    assert worker_device() == torch.device("cuda")
+    assert len(chosen) == 1
 
 
 def test_no_command_is_a_usage_error(capsys):
