@@ -355,7 +355,22 @@ Phases (any failure exits non-zero and prints no result line):
    with the tracker's trace over >= 3 processes and no orphan,
    ``merged.json`` must load, ``telemetry report D --json`` must
    aggregate ranks 0 and 1, and ``python -m dmlc_core_tpu_torch.fault
-   validate`` must exit 0 on a good plan and 2 on a malformed one.
+   validate`` must exit 0 on a good plan and 2 on a malformed one;
+17. the port's lint gate and host syncs.  (17a) ``python -m
+   dmlc_core_tpu_torch.analysis`` from the checkout must exit 0 with
+   ``0 new finding(s)`` (its seconds printed).  (17b) one ``"auto"`` fit
+   of phase 4's 2,000,000 binned rows at phase 4's settings (60 K3
+   launches, no K1), then ``predict`` of 64 and of 65,536 of those rows,
+   each under ``torch.cuda.set_sync_debug_mode("warn")`` (reset to 0 in a
+   ``finally``): every synchronizing call the card reports is mapped to
+   its innermost frame in the package.  It prints the syncs per fit, per
+   round and per ``predict`` call and each distinct site with whether it
+   lies in a root of the analyzer's purity pass and which purity finding
+   covers its statement; a site inside a root that no finding covers
+   fails the phase.  The fit's ensemble and margin must be bitwise phase
+   4's ``"auto"`` fit's, and each ``predict`` bitwise the same call with
+   the debug mode off.  Last it prints how many static purity findings
+   never synced in this run.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
@@ -451,6 +466,8 @@ N_ENTRY_EVAL = 50_000         # 10b's held-out libsvm rows
 N_MULTI = 500_000             # phase 11's libsvm rows, 250,000 a rank
 N_MULTI_CLI = 100_000         # its plain `python -m` launch
 BACKENDS = ("local", "ssh", "mpi", "sge")   # phase 16's launches, in order
+GATE_TIMEOUT_S = 300          # 17a: the port's lint gate (~12 s)
+SYNC_PREDICT_ROWS = (64, 65_536)   # 17b: rows of the two predict calls
 MW_TIMEOUT_S = 240            # wall clock of each phase-11 launch
 MW_COLLECTIVE_TIMEOUT_S = 60  # a dead peer fails phase 11 after this
 MW_LEAF_TOL = 1e-4            # 11a: leaf values against the world-1 fit of
@@ -5243,6 +5260,203 @@ def phase_backends(card, ref):
     return ranks["ssh"][0]["launches"]["grad_hist_fused_cuda"]
 
 
+def _sync_sites(fn):
+    """Run ``fn`` with the card's sync debug mode on.  Returns its result,
+    the innermost package frame ``(relpath, line, function)`` of each
+    synchronizing call the card reported, in order (a call with no
+    package frame on its stack gives ``("<outside the package>", line,
+    chain)``, the chain its innermost frames), and the other warnings
+    raised meanwhile."""
+    import traceback
+    import warnings
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(here, "dmlc_core_tpu_torch") + os.sep
+    sites, others = [], []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            others.append(f"{category.__name__}: {message}")
+            return
+        stack = traceback.extract_stack()[:-1]
+        for frame in reversed(stack):
+            if frame.filename.startswith(pkg):
+                rel = os.path.relpath(frame.filename, here)
+                sites.append((rel.replace(os.sep, "/"), frame.lineno,
+                              frame.name))
+                return
+        chain = " <- ".join(
+            f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+            for f in reversed(stack) if "warnings" not in f.filename)
+        sites.append(("<outside the package>", lineno, chain))
+
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sites, others
+
+
+def _innermost_stmt(tree, line):
+    """(first, last) line of the innermost statement holding ``line``."""
+    import ast
+
+    best = None
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.stmt)
+                and node.lineno <= line <= node.end_lineno):
+            continue
+        span = (node.lineno, node.end_lineno)
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and line < body[0].lineno:
+            span = (node.lineno, body[0].lineno - 1)   # a compound header
+        if best is None or span[1] - span[0] < best[1] - best[0]:
+            best = span
+    return best or (line, line)
+
+
+def _purity_view(relpath):
+    """The purity pass's view of one package file: its parsed tree, the
+    line spans of its roots and reached functions, and its findings."""
+    import ast
+
+    from dmlc_core_tpu_torch.analysis import purity
+    from dmlc_core_tpu_torch.analysis.driver import (FileContext,
+                                                     analyze_source)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, relpath), encoding="utf-8") as f:
+        src = f.read()
+    tree = ast.parse(src, relpath)
+    spans = purity.hot_regions(FileContext(relpath, src, tree, True, False))
+    return tree, spans, analyze_source(src, relpath, passes=["purity"])
+
+
+def phase_analysis(card, ref):
+    """Phase 17: the port's lint gate on the card machine (17a), then the
+    host syncs the card reports through a fit and two predicts, held
+    against the static purity rule (17b)."""
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+    from dmlc_core_tpu_torch.ops import hist_cuda
+
+    print("== phase 17: the port's lint gate; host syncs on the card "
+          "against the purity rule", flush=True)
+    phase_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.analysis"],
+                          cwd=here, capture_output=True, text=True,
+                          timeout=GATE_TIMEOUT_S)
+    gate_sec = time.perf_counter() - start
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    print(f"17a gate: exit {proc.returncode}, {summary!r}, {gate_sec:.1f} s "
+          f"[{card}]", flush=True)
+    if proc.returncode != 0 or " 0 new finding(s)" not in summary:
+        fail(f"17a: the port's gate failed:\n{proc.stdout}\n{proc.stderr}")
+
+    model = GBDT(GBDTParam(num_boost_round=ROUNDS, max_depth=MAX_DEPTH,
+                           num_bins=NUM_BINS, learning_rate=0.3),
+                 num_feature=N_FEATURES)
+    model.set_boundaries(ref["model"].boundaries)
+    bins, y_tr = ref["bins"], ref["y_tr"]
+    want = {n: model.predict(ref["ens"], bins[:n]) for n in SYNC_PREDICT_ROWS}
+    torch.cuda.synchronize()
+    # the control: the first toggle of the debug mode in a process reports
+    # one sync of its own, at set_sync_debug_mode, with no work between
+    _, control, _ = _sync_sites(lambda: None)
+    hist_cuda.reset_launches()
+    start = time.perf_counter()
+    (ens, margin), fit_sites, others = _sync_sites(
+        lambda: model.fit_binned(bins, y_tr))
+    fit_sec = time.perf_counter() - start
+    _check_k3("17b fit under the sync debug mode", ROUNDS * MAX_DEPTH)
+    same = (all(torch.equal(a, b) for a, b in zip(ens, ref["ens"]))
+            and torch.equal(margin, ref["margin"]))
+    print(f"17b fit: {fit_sec:.3f} s with the debug mode on; ensemble and "
+          f"margin bitwise phase 4's auto fit: {same}", flush=True)
+    if not same:
+        fail("17b: the fit under the sync debug mode differs from phase 4's")
+    runs = [("control, no work", control), ("fit", fit_sites)]
+    for n in SYNC_PREDICT_ROWS:
+        got, sites, more = _sync_sites(
+            lambda n=n: model.predict(ref["ens"], bins[:n]))
+        others += more
+        if not torch.equal(got, want[n]):
+            fail(f"17b: predict of {n} rows differs under the debug mode")
+        runs.append((f"predict {n}", sites))
+    print(f"17b syncs: control {len(control)}; fit {len(fit_sites)} "
+          f"({len(fit_sites) / ROUNDS:g} a round), "
+          + ", ".join(f"{label} {len(s)}" for label, s in runs[2:])
+          + f"; other warnings {len(others)}", flush=True)
+    # "error" mode raises at the first sync with its Python stack: the
+    # same calls again, as a second witness
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.fit_binned(bins, y_tr)
+        for n in SYNC_PREDICT_ROWS:
+            model.predict(ref["ens"], bins[:n])
+        raised = "nothing"
+    except RuntimeError as exc:
+        raised = f"{exc}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"17b the fit and both predicts under the \"error\" mode raised "
+          f"{raised}", flush=True)
+    for w in sorted(set(others))[:5]:
+        print(f"17b other warning: {w}")
+
+    views = {}
+    unexplained = set()
+    seen = set()
+    for label, sites in runs:
+        for site in sorted(set(sites)):
+            rel, line, func = site
+            n = sites.count(site)
+            if not rel.startswith("dmlc_core_tpu_torch/"):
+                print(f"17b site [{label}] {rel}: {n}x, no package frame "
+                      f"on its stack: {func}")
+                continue
+            if rel not in views:
+                views[rel] = _purity_view(rel)
+            tree, spans, found = views[rel]
+            lo, hi = _innermost_stmt(tree, line)
+            seen.add((rel, lo, hi))
+            hot = [k for k, a, b in spans if a <= line <= b]
+            rules = sorted({f.rule for f in found if lo <= f.lineno <= hi})
+            print(f"17b site [{label}] {rel}:{line} {func}: {n}x; purity "
+                  f"root: {', '.join(sorted(set(hot))) or 'none'}; static "
+                  f"finding: {', '.join(rules) or 'none'}", flush=True)
+            if hot and not rules:
+                unexplained.add(f"{rel}:{line} ({func})")
+    static = []
+    pkg = os.path.join(here, "dmlc_core_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, name), here).replace(
+                os.sep, "/")
+            tree, _, found = views.get(rel) or _purity_view(rel)
+            for f in found:
+                lo, hi = _innermost_stmt(tree, f.lineno)
+                static.append((rel, lo, hi) in seen)
+    print(f"17b static purity findings: {len(static)}, of which "
+          f"{static.count(False)} never synced on the card in this run",
+          flush=True)
+    if unexplained:
+        fail("17b: syncs inside a purity root that are neither a finding "
+             f"nor baselined: {sorted(unexplained)}")
+    print(f"phase 17: {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
@@ -5288,8 +5502,9 @@ def main():
     k3["launches"] += phase_substrate(card, ref)
     # and rank 0's of phase 16's launch through the ssh backend
     k3["launches"] += phase_backends(card, ref)
+    phase_analysis(card, ref)
     del ref
-    print(f"chip_smoke: phases 1-16 passed in "
+    print(f"chip_smoke: phases 1-17 passed in "
           f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
     kernels = [k1, k3, dict(
         name="grad_hist_sharded_cuda", route="cuda",

@@ -52,7 +52,8 @@ EDITS = {
 
 
 def build_all(out_dir):
-    src = open(_build.SOURCE, encoding="utf-8").read()
+    with open(_build.SOURCE, encoding="utf-8") as fh:
+        src = fh.read()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, edits in EDITS.items():
