@@ -31,12 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
    (1,000,003 rows, 48 weight rows, 255 bins with bins out of range, uint8
    on all columns and int32 on the window 14..27), and K3
    (``grad_hist_fused_cuda``) alone on ragged shapes (1,000,003 rows; 1, 5,
-   13, 37 and 256 nodes with node ids in [-2, n + 3); 255 bins with bins
-   out of range in int32; windows 14..27 and 2..4; tensors at an offset in
-   their allocations), each against its plain version, bitwise over two
+   13, 37, 128, 129 and 256 nodes with node ids in [-2, n + 3); 255 and
+   16 bins with bins out of range in int32; windows 14..27, 2..4 and
+   4..7; tensors at an offset in their allocations, so both the bulk and
+   the cp.async copies), each against its plain version, bitwise over two
    launches and with its launches counted; the K1, K2 and K3 lines also
    give the dense tensor-core time 2*M*B*F*nbins at 989 TFLOP/s beside
-   the bound (for K2 and K3, M = 16 A rows per 8-node m-tile computed);
+   the bound (for K2 and K3, M = wgmma's N columns of each node block);
 4. GBDT: ``fit_binned`` (10 rounds, depth 6, 256 bins, learning rate 0.3)
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, twice through
    ``hist_method="auto"`` (K2) and once through ``"pallas_fused"`` (K3),
@@ -517,6 +518,11 @@ K3_RAGGED = [
     (13, 255, torch.uint8, (0, 256), 2, 3, 1),
     (37, 255, torch.int32, (-3, 260), 14, 14, 0),
     (256, 255, torch.uint8, (0, 256), 0, None, 5),
+    # four full 32-node blocks, and one node past them
+    (128, 255, torch.uint8, (0, 256), 0, None, 0),
+    (129, 256, torch.int32, (-3, 260), 14, 14, 3),
+    # 14a's K4 shapes: 16 bins, 4 nodes, a window of 4 columns
+    (4, 16, torch.int32, (-1, 17), 4, 4, 0),
 ]
 
 
@@ -663,8 +669,11 @@ def phase_kernels():
         # both run K3's kernel with one plan
         nbytes = B * F + 12 * B + 2 * n * F * nb * 4
         bound, by = _bound_ms(nbytes, 2 * live * F)
+        # K3's product: one-hot [64 slices bins, B] x rows [B, N] per node
+        # block, N = plan.cols (G and H of each node of a block)
         plan = hist_cuda.grad_hist_fused_plan(n, B, F, nb, 1)
-        m_rows = 16 * plan.m_tiles * plan.m_blocks
+        cols = plan.cols * plan.m_blocks
+        dense_tc = _dense_tc_ms(cols, B, F, 64 * plan.slices)
         cases = [("grad_hist_cuda", lambda: hist_cuda.grad_hist_cuda(*args),
                   lambda: hist_cuda.grad_hist_ref(*args)),
                  ("grad_hist_fused_cuda",
@@ -689,8 +698,8 @@ def phase_kernels():
             print(f"{name:22s} n={n:3d} max_abs_err={err:.3g} (rtol {RTOL}, "
                   f"atol {ATOL}) bitwise={same} ms={ms:.3f} "
                   f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
-                  f"dense_tc_ms={_dense_tc_ms(m_rows, B, F, nb):.4f} "
-                  f"(M={m_rows}) library_ms={library_ms:.3f}", flush=True)
+                  f"dense_tc_ms={dense_tc:.4f} (N={plan.cols} x "
+                  f"{plan.m_blocks}) library_ms={library_ms:.3f}", flush=True)
             if name == "grad_hist_fused_cuda":
                 entries[("K3", n)] = dict(
                     name="grad_hist_fused_cuda", route="cuda",
@@ -759,8 +768,9 @@ def phase_kernels():
 
 
 def _dense_tc_ms(m, rows, features, num_bins):
-    """K1's product W[M, B] @ onehot[B, F*nbins] done densely on the tensor
-    cores at their peak: the time the tensor-core formulation needs."""
+    """A product [M, B] x onehot[B, F*nbins] (K1's W; K3's g/h columns,
+    M = N x node blocks) done densely on the tensor cores at their peak:
+    the time the tensor-core formulation needs."""
     return 1e3 * 2 * m * rows * features * num_bins / BF16_TC_OPS_PER_S
 
 
@@ -798,8 +808,8 @@ def _k1_ragged(F, gen):
 
 def _k3_ragged(F, gen):
     """K3 on shapes no tile divides (``K3_RAGGED``: node counts that fill
-    no m-tile or m-block, node ids and bins out of range, column windows,
-    tensors at an offset in their allocations), each against its plain
+    no node block, node ids and bins out of range, column windows, tensors
+    at an offset in their allocations), each against its plain
     version on a copy of the window, bitwise over two launches, and every
     launch counted."""
     from dmlc_core_tpu_torch.ops import hist_cuda

@@ -12,8 +12,9 @@
 //    outside [0, nbins) add nothing.
 //  * grad_hist_fused_kernel <- grad_hist_pallas_fused / _fused_kernel (K3):
 //      G[n, f, b] = sum_i bf16(g_i) * [node_i == n] * [bins[i, f] == b]
-//    (and H from h), with the weight rows [nodehot*g ; nodehot*h] built in
-//    registers from 12 B of node/g/h per row: no W matrix exists.
+//    (and H from h), as a product transposed onto Hopper's wgmma: the bin
+//    one-hot is A, built in registers, and the node-masked g/h rows are
+//    B, built once a stage in shared memory: no W matrix exists.
 //
 // grad_hist_pallas (K2) computes K3's function from a W built in XLA and
 // runs K1 over it, sweeping node blocks at deep levels.  It has no kernel of
@@ -97,70 +98,9 @@
 // byte of the array lies in the array's allocation, so the copy may read a
 // few bytes beside the window but never outside mapped memory.
 //
-// K3 on Hopper's tensor cores.  K3 replaces grad_hist_pallas_fused
-// (_fused_kernel, hist_pallas.py:236-291), which builds the weight tile
-// [nodehot*g ; nodehot*h] in VMEM from node/g/h and runs K1's MXU product.
-// Here the same product runs on mma.sync with both operands built in
-// registers.  Bounds on an H100 at chip_smoke.py's shape (B = 2,000,000,
-// F = 28, 256 bins):
-//   * bytes: the bins (56 MB), 12 B of node/g/h a row (24 MB) and the output
-//     (2 * n * F * nbins f32) once each: 0.024 ms at n = 32, 3.35 TB/s;
-//   * the dense product over M = 16 * m-tiles * m-blocks A rows (G and H of
-//     8 nodes per m-tile): 1.86 ms at n = 32 (M = 64), 0.46 ms at n = 1
-//     (M = 16) and 14.8 ms at n = 256 (8 m-blocks of M = 64), 989 TFLOP/s.
-// The one-hots are mostly zeros, so the dense product is the price of the
-// tensor cores, as for K1; deep levels pay it once per m-block.
-//
-// The design.  K1's units, warps and CTA groups; what changes is where the
-// operands come from:
-//   * Each tile of 256 rows is packed once for the whole CTA: thread x
-//     loads row x of the next tile (node, g, h and the bins of the CTA's
-//     columns) into registers before the warps start on this tile, so the
-//     loads' latency hides behind the products, and then packs it into
-//     the tile's stage: per row pair one 16-byte word {node pair as f16
-//     (local to the m-block), g pair and h pair rounded to bf16 by
-//     __float2bfloat16_rn}, and per column a bf16 pattern 0x3F80 + bin per
-//     row (normal numbers, distinct for bins < 1024).  So the conversions
-//     and the one-hot's per-row work are done once a tile, not once per
-//     feature or per warp.
-//   * A, no W anywhere: m-tile t of an m-block of 32 nodes (grid z) holds
-//     nodes n0 + 8t .. n0 + 8t + 7, A rows 0-7 their G rows and rows 8-15
-//     their H rows.  So lane (grp, tig) serves one node, 8t + grp, in all
-//     four A registers: a0 = G and a1 = H of data rows 2 tig, 2 tig + 1; a2
-//     = G and a3 = H of rows 2 tig + 8, 2 tig + 9.  One set.eq.u32.f16x2 of
-//     a row pair's nodes against the lane's gives a 0xFFFF mask per
-//     matching row, which ANDs both the g and the h pair: 2 compares and 4
-//     ANDs per m-tile per k-step.  MT = ceil(min(n, 32) / 8) m-tiles (a
-//     template parameter, as K1's) make n <= 8 one m-tile.
-//   * B, the bin one-hot: one set.eq.bf16x2 of a row pair's patterns
-//     against the pattern of the lane's bin in n-tile j gives bf16 1.0 or 0
-//     per row, the B register itself: one instruction (K1 spends an AND and
-//     a multiply, after building one bit per row and n-tile in each lane).
-//   * One barrier a tile: stages alternate, and the stage a thread packs
-//     after its warp's products of tile k was last read for tile k - 1.
-//   * The epilogue un-interleaves: accumulator (t, row) of a lane goes to
-//     (s = row >= 8, node = n0 + 8t + row % 8), written for nodes below
-//     num_nodes only.
-// Hazards:
-//   * Node ids are int32 and may be -1 or >= num_nodes.  A row's id is
-//     made local to the m-block with unsigned arithmetic and packed only
-//     when it lies in [0, nodes of this block); every other id becomes
-//     kNoNode, an f16 NaN, which equals no node.  So no id aliases a live
-//     node in 16 bits (the wrapper also keeps num_nodes below 65,535).
-//   * Rows past the chunk's end are not read: their node is kNoNode, g = h
-//     = 0 and their bins kNoBin, so they add exactly 0.  (A zero-filled
-//     copy would give node 0, a live node.)
-//   * Bins outside [0, nbins) (int32 bins may be negative) pack as kNoBin,
-//     a bf16 NaN, which equals no pattern; n-tiles past nbins are skipped
-//     (n_live, kFull) and their columns never written.  Windows and row
-//     strides need nothing more: each thread reads its row's columns.
-// What bounds it now is instruction issue and latency: the mma, the A and B
-// builds and the k-step's loads come to more than the tensor cores' time,
-// with one CTA of 8 warps per SM at 4 m-tiles (the accumulators take 128
-// registers a thread).  Numbers in PERF.md, from tools/k3_variants.py.
+// K3's design, bounds and hazards: the note above grad_hist_fused_kernel.
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -178,16 +118,14 @@ constexpr int kWarps = 8;              // (feature, slice) units per CTA
 constexpr int kWPitch = kTile + 8;     // bf16 per staged W row (528 B)
 constexpr int kWStageBytes = kMBlock * kWPitch * 2;
 
-// K3's launch plan: K1's units, warps and groups (grad_hist_fused_plan in
-// ops/hist_cuda.py computes the same), 32-node m-blocks on grid z
-constexpr int kNodeTile = 8;                     // nodes per m-tile
-constexpr int kNodeBlock = 4 * kNodeTile;        // nodes per CTA
-constexpr int kPairBytes = 16;   // packed node, g and h of a row pair
-// one stage: the packed row pairs, then the one-hot patterns of each of the
-// CTA's (at most kWarps) feature columns, a u16 per row
-constexpr int kK3StageBytes = kTile / 2 * kPairBytes + kWarps * kTile * 2;
-constexpr int kK3Smem = 2 * kK3StageBytes;
-constexpr unsigned short kNoNode = 0x7FFF;       // f16 NaN: equals no node
+// K3's launch plan (grad_hist_fused_plan in ops/hist_cuda.py computes the
+// same): K1's 64-bin slices as units, 1 to 4 a consumer warpgroup; node
+// blocks of a power of two nodes (wgmma's N = 2 * nodes, 8 to 64) on grid z
+constexpr int kK3MaxCols = 64;       // wgmma's largest N here: 32 nodes
+constexpr int kK3Consumers = 4;      // consumer warpgroups a CTA
+constexpr int kK3RawStages = 2;      // stages of raw rows in flight
+constexpr int kK3BStages = 2;        // stages of built B and patterns
+constexpr int kK3BulkSlab = 32768;   // most bins bytes a stage copies whole
 constexpr unsigned short kNoBin = 0x7FFF;        // bf16 NaN: equals no bin
 
 struct MatmulPlan {
@@ -252,13 +190,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 0xFFFF in each half where the f16 halves of a and b are equal, else 0
-__device__ __forceinline__ unsigned f16x2_eq_mask(unsigned a, unsigned b) {
-  unsigned d;
-  asm("set.eq.u32.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
 // bf16 1.0 in each half where the bf16 halves of a and b are equal, else 0
 __device__ __forceinline__ unsigned bf16x2_eq_one(unsigned a, unsigned b) {
   unsigned d;
@@ -309,48 +240,166 @@ __device__ __forceinline__ void k1_tile(float (&acc)[MT][kNTiles][4],
   }
 }
 
-// K3's k-steps of one packed tile for one warp: MT m-tiles of A built from
-// the row pairs' node/g/h against the first n_live n-tiles of the warp's
-// bin slice (all of them when kFull), B built from the rows' one-hot
-// patterns.  node2[mt] is this lane's node in m-tile mt (8 mt + grp of the
-// m-block) and bin2[j] its bin in n-tile j (base + 8 j + grp) as
-// patterns, each in both halves.  The k-step loop is unrolled 4 times at
-// 1-2 m-tiles and not at 3-4, the fastest of 1, 2 and 4 for each
-// (tools/k3_variants.py).
-template <int MT, bool kFull>
-__device__ __forceinline__ void k3_tile(float (&acc)[MT][kNTiles][4],
-                                        const uint4* pairs,
-                                        const uint2* patterns,
-                                        const unsigned (&node2)[MT],
-                                        const unsigned (&bin2)[kNTiles],
-                                        int k_steps, int n_live, int tig) {
-#pragma unroll (MT >= 3 ? 1 : 4)
-  for (int ks = 0; ks < k_steps; ++ks) {
-    // data rows 2 tig, 2 tig + 1 (lo) and 2 tig + 8, 2 tig + 9 (hi)
-    const uint2 pat = patterns[4 * ks + tig];
-    const uint4 lo = pairs[8 * ks + tig];
-    const uint4 hi = pairs[8 * ks + 4 + tig];
-    unsigned a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const unsigned in_lo = f16x2_eq_mask(lo.x, node2[mt]);
-      const unsigned in_hi = f16x2_eq_mask(hi.x, node2[mt]);
-      a[mt][0] = in_lo & lo.y;   // G row of the lane's node
-      a[mt][1] = in_lo & lo.z;   // its H row
-      a[mt][2] = in_hi & hi.y;
-      a[mt][3] = in_hi & hi.z;
-    }
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      if (!kFull && j >= n_live) break;
-      const unsigned b0 = bf16x2_eq_one(pat.x, bin2[j]);
-      const unsigned b1 = bf16x2_eq_one(pat.y, bin2[j]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b0, b1);
-    }
-  }
+// -- Hopper's barriers, bulk copies and warpgroup products (K3) -----------
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
+// makes the barriers' initialisation visible to the async proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies to complete
+__device__ __forceinline__ void mbar_arrive_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile("{\n.reg .pred done;\n"
+               "K3_WAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+               "@!done bra K3_WAIT;\n}\n"
+               :: "r"(bar), "r"(parity) : "memory");
+}
+
+// global -> shared bulk copy (16-byte aligned ends, a multiple of 16 bytes)
+// completing `bytes` on the barrier
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+// one arrival on the barrier once this thread's cp.async copies land
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// orders this thread's shared-memory accesses before the async proxy's
+// (wgmma's reads of B, the bulk copies' writes)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: the start address, the leading
+// and the stride byte offsets (each in 16-byte units) and the layout type
+// (0 no swizzle, 1 128-byte, 2 64-byte, 3 32-byte swizzle)
+__device__ __forceinline__ unsigned long long smem_desc(unsigned addr,
+                                                        unsigned lbo,
+                                                        unsigned sbo,
+                                                        unsigned layout) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4)
+         | static_cast<unsigned long long>(lbo >> 4) << 16
+         | static_cast<unsigned long long>(sbo >> 4) << 32
+         | static_cast<unsigned long long>(layout) << 62;
+}
+
+// d (64 x N f32, accumulated) += a (64 x 16 bf16, registers) * b (16 x N
+// bf16, shared memory, N-major: imm-trans-b = 1) for one warpgroup
+template <int N>
+struct Wgmma;
+
+#define K3_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define K3_D8(i) K3_D4(i), K3_D4(i + 4)
+#define K3_D32(i) K3_D8(i), K3_D8(i + 8), K3_D8(i + 16), K3_D8(i + 24)
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        : K3_D4(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : K3_D8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : K3_D8(0), K3_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : K3_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+#undef K3_D32
+#undef K3_D8
+#undef K3_D4
 // K1.  Grid (unit group, row chunk, m-block); block = 32 * warps threads.
 // Warp v of group g owns unit u = 8g + v: feature u / slices, bins
 // [64 (u % slices), +64), for weight rows [64 m-block, +64) and the rows of
@@ -501,165 +550,440 @@ hist_matmul_kernel(const __nv_bfloat16* __restrict__ w, long long ld_w,
       }
 }
 
-// K3.  Grid (unit group, row chunk, m-block); block = 256 threads.  Warp v
-// of group g owns unit u = 8g + v as in K1 (warps past the last unit only
-// pack), for the 32 nodes [32 m-block, +32) as MT m-tiles of 8 (MT =
-// ceil(min(num_nodes, 32) / 8); a ragged last m-block computes nodes it
-// does not write, whose rows all carry kNoNode).  Shared memory: two
-// stages (kK3StageBytes each) of packed rows.  The launch bounds ask for
-// 3 CTAs an SM at 1 m-tile and 2 at 2 (so at most 85 and 128 registers a
-// thread), for more warps to hide latency; 4 m-tiles take one.
-template <typename BinT, int MT>
-__global__ void __launch_bounds__(kWarps * 32,
-                                  MT == 1 ? 3 : MT == 2 ? 2 : 1)
+// K3 on Hopper's warpgroup products.  K3 replaces grad_hist_pallas_fused
+// (_fused_kernel, dmlc_core_tpu/ops/hist_pallas.py:236-291), which builds
+// the weight tile [nodehot*g ; nodehot*h] in VMEM from node/g/h and runs
+// K1's MXU product with the bin one-hot.  Bounds on an H100 at
+// chip_smoke.py's shape (B = 2,000,000, F = 28, 256 bins):
+//   * bytes: the bins (56 MB), 12 B of node/g/h a row (24 MB) and the output
+//     (2 * n * F * nbins f32) once each: 0.024 ms at n = 32, 3.35 TB/s;
+//   * the product done densely on the tensor cores, 2 * 64 * N * B * F *
+//     slices per node block (N below): 1.855 ms at n = 32 (N = 64), 0.232 ms
+//     at n = 1 (N = 8) and 14.8 ms at n = 256 (eight blocks of N = 64), at
+//     989 TFLOP/s.
+// The one-hots are mostly zeros, so the dense product is the price of the
+// tensor cores; the design's job is to keep them fed, so that building the
+// operands costs less than the products.
+//
+// The design: the product is transposed.  For one (feature, 64-bin slice)
+// unit and a block of nodes, out^T[bin, (node, G|H)] = onehot[bin, row] x
+// rows[row, (node, G|H)], one wgmma.mma_async.m64nNk16 (bf16 in, f32 sums
+// in registers) per 16 rows:
+//   * M = the unit's 64 bins.  A, the one-hot, is built in registers: the
+//     thread of warp w of a warpgroup, lane (g, t), holds bins 16w + g and
+//     16w + g + 8 of rows 2t, 2t + 1, 2t + 8 and 2t + 9, so four
+//     set.eq.bf16x2 of the rows' patterns (bf16 0x3F80 + bin; kNoBin, a
+//     NaN, for a bin outside [0, num_bins)) against its bins' patterns give
+//     its four A registers, whatever N is.
+//   * N = 2 * the nodes of the CTA's node block (a power of two, 8 to 64):
+//     column 2 node + s holds G (s = 0) or H (s = 1) of a node.  B, the
+//     node-masked g/h rows [16 rows x N] bf16, lives in shared memory and is
+//     built once a stage for every unit of the CTA: a row's B row is zero
+//     but for the word (bf16 g, bf16 h) at its node's columns, so the node
+//     masking is done once per row and block, not once per feature.  Rows
+//     of other blocks and rows past the chunk's end are zero rows.  Blocks
+//     of 64 and 128 nodes (N = 128, 256: fewer passes over the rows at deep
+//     levels) measured slower on an H100 at n = 256 (29.6 and 30.3 ms
+//     against 25.9 for blocks of 32), so a block holds at most 32 nodes.
+//   * B's layout is N-major (imm-trans-b = 1) and swizzled as wide as N
+//     allows: atoms of 8 rows x W 16-byte chunks (8 W columns), W = 8 at N
+//     = 64 (the descriptor's 128-byte swizzle), 4 at N = 32 (64-byte), 2
+//     at N = 16 (32-byte), 1 at N = 8 (no swizzle, one core matrix).  Row k
+//     of an atom is 16 W bytes at (k % 8) * 16 W; its chunk c lands at c ^
+//     ((k % 8) >> (3 - log2 W)) (address bits 4.. XOR bits 7..).  Atoms
+//     along N follow each other (128 W bytes: the leading byte offset),
+//     groups of 8 rows follow those (16 N bytes: the stride byte offset;
+//     without swizzle the two swap roles), so a k-step's B starts 32 N
+//     bytes after the last's.  The B stages start 1024-byte aligned.  A
+//     warp's 16-byte stores of one chunk over 8 rows hit 8 distinct bank
+//     groups, and so do the tensor cores' reads of a row.
+//   * Feeding: a producer warpgroup keeps kK3RawStages stages of raw rows
+//     in flight: node, g and h of the stage's rows, and the bins rows, each
+//     by one cp.async.bulk where its base is 16-byte aligned (a stage of whole
+//     ld_bins-wide rows is contiguous and a multiple of 16 bytes), else by
+//     cp.async (a value of 4 bytes a copy; the bins as the 16-byte granules
+//     over the CTA's columns of each row, as K1 stages them, which also
+//     serves rows too wide for a stage), completing on the stage's
+//     mbarrier.  From each raw stage its 128 threads build B and the
+//     one-hot patterns of the CTA's columns (a row or two each) into one of
+//     kK3BStages built stages, meet at a named barrier of their own, and
+//     one arrives on the stage's full barrier and refills the raw stage;
+//     the consumers arrive on its empty barrier once the wgmmas that read it
+//     have retired.  No CTA-wide barrier after set-up.  (A single producer
+//     warp was the bottleneck: on an H100 at n = 1 the kernel took 2.9 ms
+//     with its wgmmas and 2.6 ms without them.)
+//   * Consumers: warpgroup v of C = 4 owns units C U blockIdx.x + U v .. +
+//     U - 1 (U = 4 at N <= 16, 2 at N = 32, 1 at N = 64: U N / 2 f32
+//     accumulators a thread) for its whole row chunk.  More units a
+//     warpgroup mean fewer CTAs, so less of the producer's work and fewer
+//     raw copies, which are repeated in every CTA.  Each k-step:
+//     wgmma.fence, a wgmma per unit on the same B, commit, then wait until
+//     one group is in flight, so a k-step's A is built while the last one
+//     multiplies.  A wgmma reads its A registers until it retires, so the
+//     even and odd k-steps build A at two call sites (two register sets)
+//     and each overwrites its set only after the wait has retired the
+//     wgmma that read it; waiting for two groups instead gave wrong sums.
+//     The stage a warpgroup last read is released after the first k-step
+//     of the next, whose wait leaves that k-step's group alone in flight.
+//     A stage holds 512 rows (a B stage of at most 64 KB): each stage costs
+//     its CTA a fixed ~1,000 cycles of barrier round trips and copies, so
+//     long stages pay.
+//   * Epilogue: accumulator e of a unit, in warp w, lane (g, t), holds bin
+//     16w + g + 8 ((e >> 1) & 1) of the unit's slice and column 8 (e >> 2)
+//     + 2t + (e & 1): s = e & 1 of node 4 (e >> 2) + t of the block.  It is
+//     written to the chunk's partial when the unit, node and bin lie in
+//     range.
+// Hazards:
+//   * Node ids are int32 and may be -1 or >= num_nodes: a row's id is made
+//     local to the block with unsigned arithmetic and placed only when it
+//     lies in [0, nodes of this block).
+//   * Bins outside [0, num_bins) (int32 bins may be negative) become kNoBin,
+//     which equals no pattern; A rows of bins past num_bins are all zero,
+//     and the epilogue does not write them.  Windows and row strides need
+//     nothing more: the producer reads each row's columns where they landed.
+//   * Rows past the chunk's end are not read: their B rows are zero and
+//     their patterns kNoBin, so they add exactly 0.  A bulk copy rounded up
+//     to 16 bytes reads at most the aligned granule that holds the last
+//     byte, which lies in the array's allocation.
+//   * g or h NaN or infinite spreads over every bin of its node's column, as
+//     in the TPU kernel's product (W times a one-hot).
+template <int N>
+struct K3Shape {
+  static_assert(N == 8 || N == 16 || N == 32 || N == kK3MaxCols,
+                "N: the G and H columns of 4 to 32 nodes");
+  static constexpr int kUnits = N <= 16 ? 4 : N == 32 ? 2 : 1;  // a warpgroup
+  static constexpr int kPerCta = kK3Consumers * kUnits;  // units a CTA
+  // the consumers and one producer warpgroup
+  static constexpr int kThreads = 128 * (kK3Consumers + 1);
+  static constexpr int kRows = 2 * kTile;   // a stage
+  // B's swizzle: W 16-byte chunks a row of an atom, 2^kSwz = W
+  static constexpr int kW = N / 8;
+  static constexpr int kSwz = kW == 8 ? 3 : kW == 4 ? 2 : kW == 2 ? 1 : 0;
+  static constexpr unsigned kLayout = kW == 8 ? 1 : kW == 4 ? 2 : kW == 2 ? 3
+                                                                        : 0;
+  static constexpr unsigned kLbo = kW == 1 ? 16 * N : 128 * kW;
+  static constexpr unsigned kSbo = kW == 1 ? 128 : 16 * N;
+};
+
+// byte offset of B's 16-byte chunk c (columns 8c .. 8c + 7) of row k in a
+// stage
+template <int N>
+__device__ __forceinline__ int b_chunk(int k, int c) {
+  using S = K3Shape<N>;
+  return (k >> 3) * (16 * N) + (c >> S::kSwz) * (128 * S::kW)
+         + (k & 7) * (16 * S::kW)
+         + (((c & (S::kW - 1)) ^ ((k & 7) >> (3 - S::kSwz))) << 4);
+}
+
+// One k-step of a consumer warpgroup for each of its U units: A from the
+// patterns of the unit's row pairs (lo: rows 2t, 2t + 1; hi: rows 2t + 8,
+// 2t + 9) against this thread's two bins of the unit (m0, m1 as
+// patterns), times the B at b_addr; returns with one wgmma group, this
+// one, in flight
+template <int N, int U>
+__device__ __forceinline__ void k3_step(float (&acc)[U][N / 2],
+                                        const unsigned (&lo)[U],
+                                        const unsigned (&hi)[U],
+                                        const unsigned (&m0)[U],
+                                        const unsigned (&m1)[U],
+                                        unsigned b_addr) {
+  unsigned a[U][4];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    a[k][0] = bf16x2_eq_one(lo[k], m0[k]);
+    a[k][1] = bf16x2_eq_one(lo[k], m1[k]);
+    a[k][2] = bf16x2_eq_one(hi[k], m0[k]);
+    a[k][3] = bf16x2_eq_one(hi[k], m1[k]);
+  }
+  const unsigned long long desc = smem_desc(
+      b_addr, K3Shape<N>::kLbo, K3Shape<N>::kSbo, K3Shape<N>::kLayout);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < U; ++k) Wgmma<N>::mma(acc[k], a[k], desc);
+  wgmma_commit();
+  wgmma_wait<1>();
+}
+
+// Shared memory of one K3 CTA, from a 1024-byte aligned base (allocated
+// with 1024 bytes to spare): kK3BStages stages of B and of patterns,
+// kK3RawStages stages of raw rows (node, g, h as 4 B a row, then the bins
+// slab), then the barriers (raw full, built full, built empty).
+struct K3Layout {
+  int b_stage, pat_stage, raw_stage;   // bytes of one stage of each
+  int off_pat, off_raw, off_bar, smem;
+};
+
+__host__ __device__ inline K3Layout k3_layout(int cols, int rows, int span,
+                                              int slab_pitch) {
+  K3Layout l;
+  l.b_stage = rows * cols * 2;
+  l.pat_stage = span * rows * 2;
+  l.raw_stage = rows * 12 + rows * slab_pitch;
+  l.off_pat = kK3BStages * l.b_stage;
+  l.off_raw = l.off_pat + kK3BStages * l.pat_stage;
+  l.off_bar = l.off_raw + kK3RawStages * l.raw_stage;
+  l.smem = 1024 + l.off_bar + 8 * (kK3RawStages + 2 * kK3BStages);
+  return l;
+}
+
+// K3.  Grid (unit group, row chunk, node block); block = K3Shape<N>::
+// kThreads: C consumer warpgroups, then the producer warpgroup.  bins_bulk
+// says that the bins come as whole rows by bulk copy (slab_pitch = the
+// row's bytes), else as granules over the CTA's span of columns
+// (slab_pitch a multiple of 16).
+template <typename BinT, int N>
+__global__ void __launch_bounds__(K3Shape<N>::kThreads, 1)
 grad_hist_fused_kernel(const BinT* __restrict__ bins,
                        const int* __restrict__ node,
                        const float* __restrict__ grad,
                        const float* __restrict__ hess, long long num_rows,
                        int num_feature, int ld_bins, int f_offset,
                        int num_nodes, int num_bins, long long rows_per_chunk,
-                       int slices, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+                       int slices, int span, int bins_bulk, int slab_pitch,
+                       float* __restrict__ partial) {
+  constexpr int C = kK3Consumers;
+  constexpr int U = K3Shape<N>::kUnits;
+  constexpr int R = K3Shape<N>::kRows;
+  constexpr int kBinBytes = sizeof(BinT);
+  extern __shared__ __align__(16) unsigned char k3_smem_raw[];
+  const K3Layout lay = k3_layout(N, R, span, slab_pitch);
+  const unsigned sbase = (smem_u32(k3_smem_raw) + 1023) & ~1023u;
+  unsigned char* k3_smem = k3_smem_raw + (sbase - smem_u32(k3_smem_raw));
+  const unsigned raw_full = sbase + lay.off_bar;         // kK3RawStages
+  const unsigned b_full = raw_full + 8 * kK3RawStages;   // kK3BStages
+  const unsigned b_empty = b_full + 8 * kK3BStages;      // kK3BStages
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int grp = lane >> 2;   // mma fragment row / column group
-  const int tig = lane & 3;    // thread in group
 
   const long long units = static_cast<long long>(num_feature) * slices;
-  const long long u0 = static_cast<long long>(blockIdx.x) * kWarps;
-  const long long u_last = min(units, u0 + kWarps) - 1;
+  const long long u0 = static_cast<long long>(blockIdx.x) * (C * U);
+  const int live = static_cast<int>(min(static_cast<long long>(C * U),
+                                        units - u0));   // units
+  const int live_wg = (live + U - 1) / U;               // their warpgroups
   const int feat_lo = static_cast<int>(u0 / slices);
-  const int nf = static_cast<int>(u_last / slices) - feat_lo + 1;
-  const long long unit = u0 + warp;
-  const bool active = unit < units;
-  const int f = active ? static_cast<int>(unit / slices) : feat_lo;
-  const int base = active ? static_cast<int>(unit % slices) * kSlice : 0;
-
+  const int nf = static_cast<int>((u0 + live - 1) / slices) - feat_lo + 1;
   const long long chunk = blockIdx.y;
-  const int n0 = blockIdx.z * kNodeBlock;
-  const unsigned n_count =
-      static_cast<unsigned>(min(kNodeBlock, num_nodes - n0));
-  const int n_live = min(kNTiles, (num_bins - base + 7) >> 3);
-
-  // this lane's node in each m-tile and bin in each n-tile, as the
-  // patterns the packed rows carry, in both halves
-  unsigned node2[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    node2[mt] = 0x10001u * __half_as_ushort(__uint2half_rn(
-                               static_cast<unsigned>(kNodeTile * mt + grp)));
-  unsigned bin2[kNTiles];
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j)
-    bin2[j] = 0x10001u * (0x3F80u + base + 8 * j + grp);
-
+  const int n0 = blockIdx.z * (N / 2);
   const long long r_begin = chunk * rows_per_chunk;
   const long long r_end = min(num_rows, r_begin + rows_per_chunk);
-  const int n_tiles =
-      r_end > r_begin ? static_cast<int>((r_end - r_begin + kTile - 1) / kTile)
-                      : 0;
+  const int n_stages =
+      r_end > r_begin ? static_cast<int>((r_end - r_begin + R - 1) / R) : 0;
 
-  // thread x owns row x of every tile: its node, g, h and bins of the CTA's
-  // nf columns, loaded into registers one tile ahead (rows past the
-  // chunk's end: no node, g = h = 0, no bin) ...
-  const BinT* cols = bins + f_offset + feat_lo;
-  int row_node = -1;
-  float row_g = 0.f, row_h = 0.f;
-  int row_bin[kWarps];
-  auto load_row = [&](int k) {
-    const long long i =
-        r_begin + static_cast<long long>(k) * kTile + threadIdx.x;
-    const bool in = i < r_end;
-    row_node = in ? node[i] : -1;
-    row_g = in ? grad[i] : 0.f;
-    row_h = in ? hess[i] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kWarps; ++c)
-      if (c < nf) row_bin[c] = in ? static_cast<int>(cols[i * ld_bins + c])
-                                  : -1;
-  };
-  // ... and packed into tile k's stage, in the order the lanes read it:
-  // the row pair {node, g, h} (node local to the m-block as an f16, kNoNode
-  // outside it; g and h rounded to bf16 as the TPU kernel does before its
-  // MXU dot), and per column the bf16 pattern 0x3F80 + bin (kNoBin for a
-  // bin outside [0, num_bins)) at the slot of k-step x / 16, tig, lo/hi and
-  // half of the row
-  auto pack_row = [&](int k) {
-    unsigned char* st = smem_raw + (k & 1) * kK3StageBytes;
-    unsigned short* pk = reinterpret_cast<unsigned short*>(st)
-        + (threadIdx.x >> 1) * (kPairBytes / 2) + (threadIdx.x & 1);
-    const unsigned loc =
-        static_cast<unsigned>(row_node) - static_cast<unsigned>(n0);
-    pk[0] = loc < n_count ? __half_as_ushort(__uint2half_rn(loc)) : kNoNode;
-    pk[2] = __bfloat16_as_ushort(__float2bfloat16_rn(row_g));
-    pk[4] = __bfloat16_as_ushort(__float2bfloat16_rn(row_h));
-    const int r = threadIdx.x & 15;
-    unsigned short* pt = reinterpret_cast<unsigned short*>(
-        st + kTile / 2 * kPairBytes)
-        + (threadIdx.x & ~15) + ((r & 7) >> 1) * 4 + (r >> 3) * 2 + (r & 1);
-#pragma unroll
-    for (int c = 0; c < kWarps; ++c)
-      if (c < nf)
-        pt[c * kTile] = static_cast<unsigned>(row_bin[c])
-                                < static_cast<unsigned>(num_bins)
-                            ? static_cast<unsigned short>(0x3F80 + row_bin[c])
-                            : kNoBin;
-  };
-
-  float acc[MT][kNTiles][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  if (n_tiles > 0) {
-    load_row(0);
-    pack_row(0);
-  }
-  // one barrier a tile: the stage a thread packs after computing tile k was
-  // last read for tile k - 1, which every warp finished before this barrier
-  for (int k = 0; k < n_tiles; ++k) {
-    if (k + 1 < n_tiles) load_row(k + 1);
-    __syncthreads();   // tile k is packed
-    if (active) {
-      const long long t0 = r_begin + static_cast<long long>(k) * kTile;
-      const int k_steps = static_cast<int>(
-          (min(static_cast<long long>(kTile), r_end - t0) + 15) >> 4);
-      const unsigned char* st = smem_raw + (k & 1) * kK3StageBytes;
-      const uint4* pairs = reinterpret_cast<const uint4*>(st);
-      const uint2* patterns = reinterpret_cast<const uint2*>(
-          st + kTile / 2 * kPairBytes + (f - feat_lo) * kTile * 2);
-      if (n_live == kNTiles)
-        k3_tile<MT, true>(acc, pairs, patterns, node2, bin2, k_steps, n_live,
-                          tig);
-      else
-        k3_tile<MT, false>(acc, pairs, patterns, node2, bin2, k_steps,
-                           n_live, tig);
+  if (threadIdx.x == 0) {
+    // a raw stage completes on the producer's first thread's expect-tx
+    // arrival and one cp.async arrival from each producer thread; a built
+    // stage on that first thread (full) and the live consumers' warps
+    // (empty)
+    for (int s = 0; s < kK3RawStages; ++s) mbar_init(raw_full + 8 * s, 129);
+    for (int s = 0; s < kK3BStages; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, 4 * live_wg);
     }
-    if (k + 1 < n_tiles) pack_row(k + 1);
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  if (!active) return;
-  // accumulator e of m-tile mt holds row grp + 8 (e >> 1) of the m-tile:
-  // G (e < 2) or H of node n0 + 8 mt + grp, bin column 2 tig + (e & 1)
-  const long long row_len = static_cast<long long>(num_feature) * num_bins;
-  float* out = partial + chunk * 2 * num_nodes * row_len
-               + static_cast<long long>(f) * num_bins;
+  if (warp >= 4 * C) {
+    // ---- producer: raw rows in, B and the patterns out ----
+    const int pt = threadIdx.x - 128 * C;   // producer thread
+    const char* bins_b = reinterpret_cast<const char*>(bins);
+    const long long ld_s = static_cast<long long>(ld_bins) * kBinBytes;
+    const int col_bytes = (f_offset + feat_lo) * kBinBytes;
+    const int seg_bytes = nf * kBinBytes;
+    // granules: row r's columns start (lead + r * ld_mod) mod 16 bytes into
+    // its first granule (a stage starts a multiple of 256 rows, so of 16
+    // bytes, after the first row of the array)
+    const int lead = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(bins) + col_bytes) & 15);
+    const int ld_mod = static_cast<int>(ld_s & 15);
+    const int granules = slab_pitch >> 4;
+    const char* vec[3] = {reinterpret_cast<const char*>(node),
+                          reinterpret_cast<const char*>(grad),
+                          reinterpret_cast<const char*>(hess)};
+    bool vec_bulk[3];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int nd = n0 + kNodeTile * mt + grp;
-    if (nd >= num_nodes) continue;
+    for (int v = 0; v < 3; ++v)
+      vec_bulk[v] = (reinterpret_cast<uintptr_t>(vec[v]) & 15) == 0;
+
+    // the copies of stage i into its raw stage
+    auto issue = [&](int i) {
+      const int slot = i % kK3RawStages;
+      const long long t0 = r_begin + static_cast<long long>(i) * R;
+      const int tn = static_cast<int>(min(static_cast<long long>(R),
+                                          r_end - t0));
+      const unsigned raw = sbase + lay.off_raw + slot * lay.raw_stage;
+      const unsigned bar = raw_full + 8 * slot;
+      const unsigned vec_bytes = (4u * tn + 15) & ~15u;
+      const unsigned slab_bytes =
+          static_cast<unsigned>((tn * ld_s + 15) & ~15LL);
+      if (pt == 0) {
+        unsigned tx = bins_bulk ? slab_bytes : 0u;
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
+        for (int v = 0; v < 3; ++v)
+          if (vec_bulk[v]) tx += vec_bytes;
+        mbar_arrive_tx(bar, tx);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = base + 8 * j + 2 * tig + (e & 1);
-        if (col < num_bins)
-          out[(static_cast<long long>(e >> 1) * num_nodes + nd) * row_len
-              + col] = acc[mt][j][e];
+        for (int v = 0; v < 3; ++v)
+          if (vec_bulk[v])
+            bulk_copy(raw + v * 4 * R, vec[v] + 4 * t0, vec_bytes, bar);
+        if (bins_bulk)
+          bulk_copy(raw + 12 * R, bins_b + t0 * ld_s, slab_bytes, bar);
       }
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+        if (!vec_bulk[v])
+          for (int r = pt; r < tn; r += 128)
+            cp_async4(raw + v * 4 * R + 4 * r, vec[v] + 4 * (t0 + r));
+      if (!bins_bulk) {
+        for (int idx = pt; idx < tn * granules; idx += 128) {
+          const int r = idx / granules;
+          const int gi = idx - r * granules;
+          const int shift = (lead + r * ld_mod) & 15;
+          if (gi < (shift + seg_bytes + 15) >> 4)
+            cp_async16(raw + 12 * R + r * slab_pitch + 16 * gi,
+                       bins_b + (t0 + r) * ld_s + col_bytes - shift + 16 * gi,
+                       16);
+        }
+      }
+      cp_async_arrive(bar);
+    };
+
+    const unsigned n_count =
+        static_cast<unsigned>(min(N / 2, num_nodes - n0));
+    for (int i = 0; i < n_stages && i < kK3RawStages; ++i) issue(i);
+    for (int i = 0; i < n_stages; ++i) {
+      const int rs = i % kK3RawStages;
+      const int bs = i % kK3BStages;
+      const long long t0 = r_begin + static_cast<long long>(i) * R;
+      const int tn = static_cast<int>(min(static_cast<long long>(R),
+                                          r_end - t0));
+      mbar_wait(raw_full + 8 * rs, (i / kK3RawStages) & 1);
+      // a fresh barrier passes parity 1: the first round finds B free
+      mbar_wait(b_empty + 8 * bs, ((i / kK3BStages) & 1) ^ 1);
+      const unsigned char* raw = k3_smem + lay.off_raw + rs * lay.raw_stage;
+      const int* r_node = reinterpret_cast<const int*>(raw);
+      const float* r_g = reinterpret_cast<const float*>(raw + 4 * R);
+      const float* r_h = reinterpret_cast<const float*>(raw + 8 * R);
+      const unsigned char* r_bins = raw + 12 * R;
+      unsigned char* b_st = k3_smem + bs * lay.b_stage;
+      unsigned short* pat = reinterpret_cast<unsigned short*>(
+          k3_smem + lay.off_pat + bs * lay.pat_stage);
+#pragma unroll
+      for (int r = pt; r < R; r += 128) {
+        const bool in = r < tn;
+        const unsigned loc =
+            in ? static_cast<unsigned>(r_node[r]) - static_cast<unsigned>(n0)
+               : 0xFFFFFFFFu;
+        // B row r: zero, then (g, h) as bf16 at columns 2 loc, 2 loc + 1
+#pragma unroll
+        for (int q = 0; q < N / 8; ++q)
+          *reinterpret_cast<uint4*>(b_st + b_chunk<N>(r, q)) =
+              make_uint4(0, 0, 0, 0);
+        if (loc < n_count)
+          *reinterpret_cast<__nv_bfloat162*>(
+              b_st + b_chunk<N>(r, loc >> 2) + 4 * (loc & 3)) =
+              __halves2bfloat162(__float2bfloat16_rn(r_g[r]),
+                                 __float2bfloat16_rn(r_h[r]));
+        // the row's pattern in each column: in the uint4 of k-step pair
+        // ks / 2 and lane t = (r % 8) / 2, the u16 of (ks odd, row >= 8 in
+        // its k-step, odd row)
+        const int rr = r & 15;
+        const int ks = r >> 4;
+        const int slot = ((ks >> 1) * 4 + ((rr & 7) >> 1)) * 8
+                         + (ks & 1) * 4 + (rr >> 3) * 2 + (rr & 1);
+        const unsigned char* cols =
+            r_bins + r * slab_pitch
+            + (bins_bulk ? col_bytes : (lead + r * ld_mod) & 15);
+        for (int c = 0; c < nf; ++c) {
+          unsigned short p = kNoBin;
+          if (in) {
+            const unsigned b = static_cast<unsigned>(static_cast<int>(
+                *reinterpret_cast<const BinT*>(cols + c * kBinBytes)));
+            if (b < static_cast<unsigned>(num_bins))
+              p = static_cast<unsigned short>(0x3F80u + b);
+          }
+          pat[c * R + slot] = p;
+        }
+      }
+      fence_async_smem();   // B is read by wgmma, in the async proxy
+      // the producer's threads only: B is built and the raw stage read
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (pt == 0) mbar_arrive(b_full + 8 * bs);
+      if (i + kK3RawStages < n_stages) issue(i + kK3RawStages);
+    }
+  } else if (warp < 4 * live_wg) {
+    // ---- consumers: U units a warpgroup ----
+    const int wl = warp & 3;   // A rows 16 wl .. 16 wl + 15 of each slice
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int unit0 = static_cast<int>(u0) + (warp >> 2) * U;
+    // this thread's bins 16 wl + g and + 8 of each unit, as patterns
+    unsigned m0[U], m1[U];
+    int pcol[U];      // the unit's pattern column in a stage, lane t's uint4
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      // a unit past the last computes the first one's slice, unwritten
+      const int u = unit0 + k < units ? unit0 + k : unit0;
+      m0[k] = 0x10001u * (0x3F80u + (u % slices) * kSlice + 16 * wl + g);
+      m1[k] = m0[k] + 0x80008u;
+      pcol[k] = (u / slices - feat_lo) * R * 2 + 16 * t;
+    }
+    float acc[U][N / 2];
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[k][e] = 0.f;
+    for (int i = 0; i < n_stages; ++i) {
+      const int bs = i % kK3BStages;
+      const long long t0 = r_begin + static_cast<long long>(i) * R;
+      const int tn = static_cast<int>(min(static_cast<long long>(R),
+                                          r_end - t0));
+      mbar_wait(b_full + 8 * bs, (i / kK3BStages) & 1);
+      // lane t's patterns of k-steps 2j and 2j + 1: one uint4 a pair
+      const unsigned char* pst = k3_smem + lay.off_pat + bs * lay.pat_stage;
+      const unsigned b0 = sbase + bs * lay.b_stage;
+      for (int j = 0; j < (tn + 31) >> 5; ++j) {
+        unsigned lo[U], hi[U], lo2[U], hi2[U];
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+          const uint4 p =
+              *reinterpret_cast<const uint4*>(pst + pcol[k] + 64 * j);
+          lo[k] = p.x;
+          hi[k] = p.y;
+          lo2[k] = p.z;
+          hi2[k] = p.w;
+        }
+        k3_step<N, U>(acc, lo, hi, m0, m1, b0 + 64 * N * j);
+        if (j == 0 && i > 0) {
+          // one wgmma group in flight, of this stage: the last stage's
+          // wgmmas have retired
+          if (lane == 0) mbar_arrive(b_empty + 8 * ((i - 1) % kK3BStages));
+          __syncwarp();
+        }
+        k3_step<N, U>(acc, lo2, hi2, m0, m1, b0 + 64 * N * j + 32 * N);
+      }
+    }
+    wgmma_wait<0>();
+    if (n_stages > 0 && lane == 0)
+      mbar_arrive(b_empty + 8 * ((n_stages - 1) % kK3BStages));
+
+    const long long row_len = static_cast<long long>(num_feature) * num_bins;
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = unit0 + k;
+      if (u >= units) continue;
+      const int base = (u % slices) * kSlice;
+      float* out = partial + chunk * 2 * num_nodes * row_len
+                   + static_cast<long long>(u / slices) * num_bins;
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) {
+        const int nd = n0 + 4 * (e >> 2) + t;
+        const int bin = base + 16 * wl + g + 8 * ((e >> 1) & 1);
+        if (nd < num_nodes && bin < num_bins)
+          out[(static_cast<long long>(e & 1) * num_nodes + nd) * row_len
+              + bin] = acc[k][e];
+      }
+    }
   }
 }
 
@@ -723,6 +1047,52 @@ cudaError_t launch_hist_matmul(const void* w, long long ld_w,
                     n_chunks, out, stream);
 }
 
+// wgmma's N for a launch: twice the nodes, as a power of two in [8, 256]
+int k3_cols(int num_nodes) {
+  int cols = 8;
+  while (cols < 2 * num_nodes && cols < kK3MaxCols) cols *= 2;
+  return cols;
+}
+
+template <typename BinT, int N>
+cudaError_t launch_k3(const void* bins, const void* node, const void* grad,
+                      const void* hess, long long num_rows, int num_feature,
+                      int ld_bins, int f_offset, int num_nodes, int num_bins,
+                      long long rows_per_chunk, int n_chunks, float* partial,
+                      cudaStream_t stream) {
+  using S = K3Shape<N>;
+  const int slices = (num_bins + kSlice - 1) / kSlice;
+  const long long units = static_cast<long long>(num_feature) * slices;
+  const int per_cta = static_cast<int>(
+      units < S::kPerCta ? units : S::kPerCta);
+  const long long groups = (units + S::kPerCta - 1) / S::kPerCta;
+  // `per_cta` consecutive units starting anywhere in a feature touch at
+  // most this many features
+  int span = (per_cta + slices - 2) / slices + 1;
+  if (span > num_feature) span = num_feature;
+  const long long ld_s = static_cast<long long>(ld_bins) * sizeof(BinT);
+  const int bulk = (reinterpret_cast<uintptr_t>(bins) & 15) == 0
+                   && S::kRows * ld_s <= kK3BulkSlab;
+  // granules: a row's columns start anywhere in a 16-byte granule
+  const int slab_pitch =
+      bulk ? static_cast<int>(ld_s)
+           : 16 * ((15 + span * static_cast<int>(sizeof(BinT)) + 15) / 16);
+  const K3Layout lay = k3_layout(N, S::kRows, span, slab_pitch);
+  if (lay.smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = grad_hist_fused_kernel<BinT, N>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(groups), n_chunks,
+                  (num_nodes + N / 2 - 1) / (N / 2));
+  kernel<<<grid, S::kThreads, lay.smem, stream>>>(
+      static_cast<const BinT*>(bins), static_cast<const int*>(node),
+      static_cast<const float*>(grad), static_cast<const float*>(hess),
+      num_rows, num_feature, ld_bins, f_offset, num_nodes, num_bins,
+      rows_per_chunk, slices, span, bulk, slab_pitch, partial);
+  return cudaGetLastError();
+}
+
 template <typename BinT>
 cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                                    const void* grad, const void* hess,
@@ -732,23 +1102,18 @@ cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                                    long long rows_per_chunk, int n_chunks,
                                    float* partial, float* out,
                                    cudaStream_t stream) {
-  const MatmulPlan p = matmul_plan(num_feature, num_bins, sizeof(BinT));
-  // m-tiles per warp from the nodes of one m-block
-  auto kernel = grad_hist_fused_kernel<BinT, 4>;
-  switch ((min(num_nodes, kNodeBlock) + kNodeTile - 1) / kNodeTile) {
-    case 1: kernel = grad_hist_fused_kernel<BinT, 1>; break;
-    case 2: kernel = grad_hist_fused_kernel<BinT, 2>; break;
-    case 3: kernel = grad_hist_fused_kernel<BinT, 3>; break;
+  auto launch = launch_k3<BinT, kK3MaxCols>;
+  switch (k3_cols(num_nodes)) {
+    case 8: launch = launch_k3<BinT, 8>; break;
+    case 16: launch = launch_k3<BinT, 16>; break;
+    case 32: launch = launch_k3<BinT, 32>; break;
+    case 64: launch = launch_k3<BinT, 64>; break;
     default: break;
   }
-  const dim3 grid(static_cast<unsigned>(p.groups), n_chunks,
-                  (num_nodes + kNodeBlock - 1) / kNodeBlock);
-  kernel<<<grid, kWarps * 32, kK3Smem, stream>>>(
-      static_cast<const BinT*>(bins), static_cast<const int*>(node),
-      static_cast<const float*>(grad), static_cast<const float*>(hess),
-      num_rows, num_feature, ld_bins, f_offset, num_nodes, num_bins,
-      rows_per_chunk, p.slices, partial);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch(bins, node, grad, hess, num_rows,
+                                 num_feature, ld_bins, f_offset, num_nodes,
+                                 num_bins, rows_per_chunk, n_chunks, partial,
+                                 stream);
   if (err != cudaSuccess) return err;
   return sum_chunks(partial,
                     2LL * num_nodes * num_feature * num_bins, n_chunks, out,
@@ -819,7 +1184,7 @@ int dmlc_grad_hist_fused(const void* bins, int bins_u8, const void* node,
                          long long rows_per_chunk, int n_chunks,
                          void* partial, void* out, void* stream) {
   if (bad_shape(num_rows, num_feature, ld_bins, f_offset, num_nodes,
-                num_bins, kNodeBlock, rows_per_chunk, n_chunks)
+                num_bins, kK3MaxCols / 2, rows_per_chunk, n_chunks)
       || n_chunks > 65535 || num_nodes >= 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -12,8 +12,10 @@ Counterpart of ``dmlc_core_tpu/ops/hist_pallas.py``.  The kernels live in
   launch, so no W is built (the TPU built W outside the kernel only where
   Mosaic could not lower the fused build; the card has no such limit);
 - :func:`grad_hist_fused_cuda` replaces ``grad_hist_pallas_fused`` (K3):
-  the same (G, H) with the weight rows ``[nodehot*g ; nodehot*h]`` built
-  in registers inside the kernel, so no W matrix is materialised;
+  the same (G, H) as a product transposed onto Hopper's ``wgmma``: the
+  bin one-hot is A, built in registers, and the node-masked g/h rows are
+  B, built once a stage in shared memory for every feature, so no W
+  matrix is materialised;
 - :func:`grad_hist_sharded_cuda` replaces ``grad_hist_pallas_sharded``
   (K4): on a rank at mesh coordinate ``(d, m)``, K3's kernel over the rank's
   window of ``F/mp`` feature columns (read in place: the kernels take a
@@ -34,11 +36,12 @@ all-gather hands each rank 1.84 MB.
 
 Numerics are the TPU kernels': g and h rounded to bf16 (nearest even),
 sums in f32, rows whose node id lies outside ``[0, num_nodes)`` dropped.
-K1 and K3 run the TPU's formulation, W times a one-hot built in
-registers, on the tensor cores (``mma.sync``); K3 builds W's fragments
-from node/g/h in registers too, so no W exists.  The note in
-``hist.cu`` gives each kernel's bounds.  Every sum is free of atomics, so
-outputs are bitwise identical from launch to launch.
+K1 runs the TPU's formulation, W times a one-hot built in registers, on
+``mma.sync``; K3 runs it transposed on ``wgmma``, one-hot times the g/h
+rows, so no W exists.  The notes in ``hist.cu`` give each kernel's
+bounds; ``tools/k3_variants.py`` times K3 beside copies with a part
+removed.  Every sum is free of atomics, so outputs are bitwise identical
+from launch to launch.
 
 Beside each kernel sits its plain PyTorch version (``*_ref``): bf16
 rounding, then f32 sums over flat ids (:func:`segment_sum`, which is
@@ -86,12 +89,12 @@ _SLICE = 64              # bins per warp: 8 mma n-tiles of 8
 _WARPS = 8               # (feature, bin slice) units per CTA
 _K_STEP = 16             # data rows per mma (m16n8k16)
 _W_PITCH = TILE + 8      # bf16 per staged W row
-# K3 (K1's units and warps, and these)
-_NODE_TILE = 8           # nodes per mma m-tile: their G rows, then H rows
-_NODE_M_BLOCK = 32       # nodes per CTA (grid z): 4 m-tiles
-# two stages of packed rows: per row pair {node, g, h} in 16 bytes, per row
-# and column of the CTA (at most _WARPS) a 2-byte one-hot pattern
-_FUSED_SMEM = 2 * (TILE // 2 * 16 + _WARPS * TILE * 2)
+# K3 (hist.cu's K3Shape and k3_layout): K1's 64-bin slices as units
+_K3_MAX_COLS = 64        # wgmma's largest N here: 2 x 32 nodes per CTA
+_K3_CONSUMERS = 4        # consumer warpgroups per CTA
+_K3_RAW_STAGES = 2       # stages of raw rows in flight
+_K3_B_STAGES = 2         # stages of built B and one-hot patterns
+_K3_BULK_SLAB = 32768    # most bins bytes a stage copies as whole rows
 
 # the reference's per-sweep budget of its K2's [2*n_pad, F*nbins] f32
 # accumulator (hist_pallas._ACC_BYTES_LIMIT); the port's kernels need none,
@@ -300,14 +303,14 @@ class MatmulPlan(NamedTuple):
     grid: Tuple[int, int, int]   # (groups, n_chunks, m_blocks)
 
 
-def _unit_plan(num_feature: int, num_bins: int):
+def _unit_plan(num_feature: int, num_bins: int, per_cta: int = _WARPS):
     """(slices, units, warps, groups, span): the (feature, 64-bin slice)
-    units K1 and K3 give their warps, 8 to a CTA, and the most feature
-    columns one CTA's units touch."""
+    units K1 gives its warps and K3 its consumer warpgroups, ``per_cta``
+    to a CTA, and the most feature columns one CTA's units touch."""
     slices = -(-num_bins // _SLICE)
     units = num_feature * slices
-    warps = min(units, _WARPS)
-    groups = -(-units // _WARPS)
+    warps = min(units, per_cta)
+    groups = -(-units // per_cta)
     # `warps` consecutive units starting anywhere in a feature touch at
     # most this many features
     span = min(num_feature, (warps + slices - 2) // slices + 1)
@@ -334,36 +337,65 @@ def hist_matmul_plan(m: int, num_rows: int, num_feature: int,
 
 
 class FusedPlan(NamedTuple):
-    """K3's launch: row chunks, warps, CTAs, node blocks, shared memory."""
+    """K3's launch: row chunks, node blocks, warpgroups, stages, shared
+    memory."""
     n_chunks: int
     rows_per_chunk: int
+    cols: int            # wgmma's N: the G and H columns of a node block
+    node_block: int      # nodes per CTA (cols / 2)
+    m_blocks: int        # node blocks (grid z)
     slices: int          # 64-bin slices per feature
-    units: int           # (feature, slice) pairs, one warp each
-    warps: int           # warps that compute per CTA (all 8 pack rows)
-    groups: int          # CTAs per (row chunk, m-block)
-    m_blocks: int        # 32-node blocks (grid z)
-    m_tiles: int         # 8-node m-tiles a warp computes (kernel template)
-    span: int            # most feature columns one CTA packs
+    units: int           # (feature, 64-bin slice) pairs
+    consumers: int       # consumer warpgroups per CTA
+    units_per_wg: int    # units a consumer warpgroup owns
+    groups: int          # CTAs per (row chunk, node block)
+    span: int            # most feature columns one CTA reads
+    stage_rows: int      # rows a stage holds
+    bins_bulk: bool      # bins as whole rows by one bulk copy a stage
+    slab_pitch: int      # bytes per staged bins row
     smem: int            # dynamic shared memory per CTA
-    threads: int         # per CTA: one per row of a packed tile
+    threads: int         # per CTA: the consumers and one producer warpgroup
     grid: Tuple[int, int, int]   # (groups, n_chunks, m_blocks)
 
 
 def grad_hist_fused_plan(num_nodes: int, num_rows: int, num_feature: int,
-                         num_bins: int, bin_bytes: int) -> FusedPlan:
-    """K3's launch plan, from the shapes alone; ``hist.cu``'s
-    ``launch_grad_hist_fused`` computes the same.  K1's units, warps and
-    CTA groups; each CTA covers one m-block of 32 nodes as ``m_tiles``
-    m-tiles of 8 (A rows 0-7 the nodes' G rows, 8-15 their H rows).  Its
-    256 threads pack each tile once, a row each, into one of two stages
-    (``bin_bytes`` does not change the plan)."""
-    slices, units, warps, groups, span = _unit_plan(num_feature, num_bins)
-    m_blocks = -(-num_nodes // _NODE_M_BLOCK)
-    m_tiles = -(-min(num_nodes, _NODE_M_BLOCK) // _NODE_TILE)
+                         num_bins: int, bin_bytes: int,
+                         ld_bins: Optional[int] = None,
+                         aligned: bool = True) -> FusedPlan:
+    """K3's launch plan, from the shapes alone; ``hist.cu``'s ``launch_k3``
+    computes the same.  A node block holds ``cols / 2`` nodes (twice the
+    nodes as a power of two, 8 to 64 columns: G and H of each); a CTA's 4
+    consumer warpgroups each own ``units_per_wg`` (feature, 64-bin slice)
+    units (4 up to 16 columns, 2 at 32, 1 at 64), and its producer
+    warpgroup stages ``stage_rows`` = 512 rows at a time.  The bins come as
+    whole rows of ``ld_bins`` columns (``num_feature`` by default) by bulk
+    copy when the array is 16-byte ``aligned`` and a stage of them fits
+    ``_K3_BULK_SLAB``, else as the 16-byte granules over the CTA's span."""
+    cols = 8
+    while cols < 2 * num_nodes and cols < _K3_MAX_COLS:
+        cols *= 2
+    units_per_wg = 4 if cols <= 16 else 2 if cols <= 32 else 1
+    slices, units, _, groups, span = _unit_plan(
+        num_feature, num_bins, _K3_CONSUMERS * units_per_wg)
+    node_block = cols // 2
+    m_blocks = -(-num_nodes // node_block)
+    rows = 2 * TILE
+    ld = (num_feature if ld_bins is None else ld_bins) * bin_bytes
+    bulk = aligned and rows * ld <= _K3_BULK_SLAB
+    # granules: a row's columns start anywhere in a 16-byte granule
+    slab_pitch = ld if bulk else 16 * ((15 + span * bin_bytes + 15) // 16)
+    # 1024 bytes to align the B stages, then B and the patterns, the raw
+    # rows, and an 8-byte mbarrier a stage of each ring (built: full and
+    # empty)
+    smem = (1024 + _K3_B_STAGES * (rows * cols * 2 + span * rows * 2)
+            + _K3_RAW_STAGES * (rows * 12 + rows * slab_pitch)
+            + 8 * (_K3_RAW_STAGES + 2 * _K3_B_STAGES))
     n_chunks, rows_per_chunk = _chunks(num_rows, groups * m_blocks,
                                        round_down=True)
-    return FusedPlan(n_chunks, rows_per_chunk, slices, units, warps, groups,
-                     m_blocks, m_tiles, span, _FUSED_SMEM, _WARPS * 32,
+    return FusedPlan(n_chunks, rows_per_chunk, cols, node_block, m_blocks,
+                     slices, units, _K3_CONSUMERS, units_per_wg, groups,
+                     span, rows, bulk, slab_pitch, smem,
+                     128 * (_K3_CONSUMERS + 1),
                      (groups, n_chunks, m_blocks))
 
 
@@ -459,11 +491,11 @@ def grad_hist_cuda(bins, node_ids, grad, hess, num_nodes: int,
 
     K2 and K3 compute one function.  The reference's K2 builds W in XLA
     and sweeps node blocks for deep levels; on the card the fastest kernel
-    for the function is K3's, which builds W's fragments in registers, so
-    a CUDA tensor takes :func:`grad_hist_fused_cuda`'s kernel over every
-    node in one launch (counted under ``LAUNCHES["grad_hist_fused_cuda"]``)
-    and K2 and K3 give the same bits.  CPU tensors take
-    :func:`grad_hist_ref` on a copy of the window."""
+    for the function is K3's, which needs no W, so a CUDA tensor takes
+    :func:`grad_hist_fused_cuda`'s kernel over every node in one launch
+    (counted under ``LAUNCHES["grad_hist_fused_cuda"]``) and K2 and K3
+    give the same bits.  CPU tensors take :func:`grad_hist_ref` on a copy
+    of the window."""
     return grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
                                 num_bins, f_offset, f_count)
 
@@ -472,15 +504,16 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
                          num_bins: int, f_offset: int = 0,
                          f_count: Optional[int] = None):
     """K3: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
-    f_count`` columns from ``f_offset`` (all by default), on the tensor
-    cores: the kernel builds the weight fragments ``[nodehot*g ;
-    nodehot*h]`` (g and h rounded to bf16) in registers from node/g/h, 8
-    nodes per m-tile and 32 per CTA (:func:`grad_hist_fused_plan`), and
-    multiplies them with the bin one-hot, also built in registers.  It
-    allocates only ``out`` and the row chunks' partials; no W exists.  Rows
-    whose node lies outside ``[0, num_nodes)`` add nothing, nor do bins
-    outside ``[0, num_bins)``.  CPU tensors take :func:`grad_hist_fused_ref`
-    on a copy of the window."""
+    f_count`` columns from ``f_offset`` (all by default), on Hopper's
+    ``wgmma``, transposed: per (feature, 64-bin slice) unit and node block,
+    the bin one-hot (A, built in registers) times the node-masked g/h rows
+    (B, g and h rounded to bf16, built once a stage in shared memory for
+    every unit of the CTA), up to 32 nodes per CTA
+    (:func:`grad_hist_fused_plan`; ``tools/k3_variants.py`` times its
+    parts).  It allocates only ``out`` and the row chunks' partials; no W
+    exists.  Rows whose node lies outside ``[0, num_nodes)`` add nothing,
+    nor do bins outside ``[0, num_bins)``.  CPU tensors take
+    :func:`grad_hist_fused_ref` on a copy of the window."""
     _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
     B = bins.shape[0]
     F = _window(bins, f_offset, f_count)
@@ -488,7 +521,6 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
         return grad_hist_fused_ref(_columns(bins, f_offset, F), node_ids,
                                    grad, hess, num_nodes, num_bins)
     _check_cuda(bins)
-    # the kernel packs node ids local to a 32-node block in 16 bits
     CHECK(num_nodes < 65535, f"at most 65534 nodes per launch, got "
                              f"{num_nodes}")
     out = torch.empty(2, num_nodes, F, num_bins, dtype=torch.float32,
@@ -497,7 +529,8 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
         out.zero_()
         return out[0], out[1]
     plan = grad_hist_fused_plan(num_nodes, B, F, num_bins,
-                                bins.element_size())
+                                bins.element_size(), bins.shape[1],
+                                bins.data_ptr() % 16 == 0)
     partial = out if plan.n_chunks == 1 else torch.empty(
         plan.n_chunks * out.numel(), dtype=torch.float32, device=bins.device)
     lib = _library()

@@ -10,28 +10,25 @@ is), built by its own ``nvcc`` (all started together) into
 ``build/k3_variants/``:
 
 - ``kernel``: the source as it is;
-- ``no_mma``: each ``mma`` replaced by one XOR of its operands into the
-  accumulator's bits, so the A and B builds and the staging remain;
-- ``no_a_build``: A taken from the packed g and h words as they are, with
-  no node compare and no mask, so every m-tile multiplies the same A;
-- ``no_b_build``: B taken from the packed one-hot patterns as they are,
-  with no ``set.eq.bf16x2``;
-- ``no_compute``: the row loads and the packing alone;
-- ``unroll_1``, ``unroll_2``, ``unroll_4``: the k-step loop unrolled
-  once, twice or four times at every m-tile count (the kernel: four times
-  at 1-2 m-tiles, once at 3-4);
-- ``blocks_1``: launch bounds asking for one CTA an SM at every m-tile
-  count (the kernel: 3 at 1 m-tile, 2 at 2), so more registers a thread
-  and fewer warps to hide latency.
+- ``no_wgmma``: each ``wgmma`` replaced by one XOR of its A registers into
+  an accumulator's bits, so the A build, the B build and the copies remain;
+- ``no_a_build``: A taken from the one-hot patterns as they are, with no
+  ``set.eq.bf16x2``;
+- ``no_b_build``: the producer writes no B rows (the copies and the
+  patterns remain), so the wgmmas read whatever the stage holds;
+- ``no_compute``: the consumers build no A and run no wgmma (they wait
+  for each stage and release it), so the copies and the producer's builds
+  alone.
 
-At 2,000,000 rows x 28 uint8 features x 256 bins and n = 1, 16 and 32
-nodes (one m-tile, two and four), it prints CUDA-event milliseconds per launch beside
-the dense tensor-core time, the registers a thread of each K3 instance
-uses (``ptxas -v``), and the card's name and power limit.  Only
+At 2,000,000 rows x 28 uint8 features x 256 bins and n = 1, 8, 16, 32 and
+256 nodes it prints CUDA-event milliseconds per launch beside the dense
+tensor-core time (``2 * 64 * N * blocks * B * F * slices / 989e12``), the
+registers and spill bytes of each K3 instance (``ptxas -v``), any
+``ptxas`` warning about K3, and the card's name and power limit.  Only
 ``kernel`` computes the histogram; it is held against the plain
-version.  ``--sass DIR`` writes the SASS of
-``kernel`` there.  The time a part takes is about ``kernel`` less the
-variant without it.
+version.  ``--sass DIR`` writes the SASS of ``kernel`` there and prints
+the count of ``HGMMA`` and ``HMMA`` instructions in each K3 instance.  The
+time a part takes is about ``kernel`` less the variant without it.
 """
 
 import argparse
@@ -51,40 +48,32 @@ from dmlc_core_tpu_torch.ops import _build, hist_cuda  # noqa: E402
 from dmlc_core_tpu_torch.utils.timer import cuda_event_ms  # noqa: E402
 
 # where each edit applies: the first match after its anchor
-K3_TILE = "// K3's k-steps of one packed tile"
+K3_STEP = "__device__ __forceinline__ void k3_step("
 K3_KERNEL = "grad_hist_fused_kernel(const BinT* __restrict__ bins,"
-K3_DOC = "// K3.  Grid (unit group"
-UNROLL = "#pragma unroll (MT >= 3 ? 1 : 4)"
-BOUNDS = """__launch_bounds__(kWarps * 32,
-                                  MT == 1 ? 3 : MT == 2 ? 2 : 1)"""
-MMA = ("for (int mt = 0; mt < MT; ++mt) "
-       "mma_bf16(acc[mt][j], a[mt], b0, b1);")
-A_BUILD = """      const unsigned in_lo = f16x2_eq_mask(lo.x, node2[mt]);
-      const unsigned in_hi = f16x2_eq_mask(hi.x, node2[mt]);
-      a[mt][0] = in_lo & lo.y;   // G row of the lane's node
-      a[mt][1] = in_lo & lo.z;   // its H row
-      a[mt][2] = in_hi & hi.y;
-      a[mt][3] = in_hi & hi.z;"""
-B_SET = """      const unsigned b0 = bf16x2_eq_one(pat.x, bin2[j]);
-      const unsigned b1 = bf16x2_eq_one(pat.y, bin2[j]);"""
+MMA = "for (int k = 0; k < U; ++k) Wgmma<N>::mma(acc[k], a[k], desc);"
+A_SET = """    a[k][0] = bf16x2_eq_one(lo[k], m0[k]);
+    a[k][1] = bf16x2_eq_one(lo[k], m1[k]);
+    a[k][2] = bf16x2_eq_one(hi[k], m0[k]);
+    a[k][3] = bf16x2_eq_one(hi[k], m1[k]);"""
+B_BUILD = """#pragma unroll
+        for (int q = 0; q < N / 8; ++q)
+          *reinterpret_cast<uint4*>(b_st + b_chunk<N>(r, q)) =
+              make_uint4(0, 0, 0, 0);
+        if (loc < n_count)"""
+STEP_LO = "k3_step<N, U>(acc, lo, hi, m0, m1, b0 + 64 * N * j);"
+STEP_HI = "k3_step<N, U>(acc, lo2, hi2, m0, m1, b0 + 64 * N * j + 32 * N);"
 EDITS = {
     "kernel": [],
-    # one 3-input XOR into the accumulator's bits in place of each mma
-    "no_mma": [(K3_TILE, MMA,
-                "for (int mt = 0; mt < MT; ++mt) acc[mt][j][0] = "
-                "__uint_as_float(__float_as_uint(acc[mt][j][0]) ^ b0 ^ b1 "
-                "^ a[mt][j & 3]);")],
-    "no_a_build": [(K3_TILE, A_BUILD,
-                    "      a[mt][0] = lo.y;\n      a[mt][1] = lo.z;\n"
-                    "      a[mt][2] = hi.y;\n      a[mt][3] = hi.z;")],
-    "no_b_build": [(K3_TILE, B_SET,
-                    "      const unsigned b0 = pat.x, b1 = pat.y;")],
-    "no_compute": [(K3_KERNEL, "    if (active) {",
-                    "    if (active && k < 0) {")],
-    "unroll_1": [(K3_TILE, UNROLL, "#pragma unroll 1")],
-    "unroll_2": [(K3_TILE, UNROLL, "#pragma unroll 2")],
-    "unroll_4": [(K3_TILE, UNROLL, "#pragma unroll 4")],
-    "blocks_1": [(K3_DOC, BOUNDS, "__launch_bounds__(kWarps * 32, 1)")],
+    # one 3-input XOR of the A registers into an accumulator's bits
+    "no_wgmma": [(K3_STEP, MMA,
+                  "for (int k = 0; k < U; ++k) acc[k][0] = __uint_as_float("
+                  "__float_as_uint(acc[k][0]) ^ a[k][0] ^ a[k][1] ^ a[k][2] "
+                  "^ a[k][3]);")],
+    "no_a_build": [(K3_STEP, A_SET,
+                    "    a[k][0] = lo[k];\n    a[k][1] = lo[k];\n"
+                    "    a[k][2] = hi[k];\n    a[k][3] = hi[k];")],
+    "no_b_build": [(K3_KERNEL, B_BUILD, "        if (false)")],
+    "no_compute": [(K3_KERNEL, STEP_LO, ""), (K3_KERNEL, STEP_HI, "")],
 }
 EXACT = ("kernel",)
 
@@ -124,15 +113,23 @@ def build_all(out_dir):
     return libs, logs
 
 
+def _instance(line):
+    """(bins dtype, N) of a K3 instance named in a ptxas or SASS line."""
+    m = re.search(r"grad_hist_fused_kernelI([hi])Li(\d+)E", line)
+    return (("uint8" if m.group(1) == "h" else "int32"),
+            int(m.group(2))) if m else None
+
+
 def k3_registers(log):
-    """{(bins dtype, m-tiles): (registers, spill store bytes)} of K3's
-    instances in a ptxas -v log."""
-    out, entry, spill = {}, None, 0
+    """{(bins dtype, N): (registers, spill store bytes)} of K3's instances
+    in a ptxas -v log, and the log's warnings that name K3 or wgmma."""
+    out, entry, spill, warnings = {}, None, 0, []
     for line in log.splitlines():
-        m = re.search(r"grad_hist_fused_kernelI([hi])Li(\d)E", line)
+        if "warning" in line and ("grad_hist_fused" in line
+                                  or "wgmma" in line):
+            warnings.append(line.strip())
         if "Compiling entry" in line:
-            entry = (("uint8" if m.group(1) == "h" else "int32"),
-                     int(m.group(2))) if m else None
+            entry = _instance(line)
             spill = 0
         elif entry and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores",
@@ -141,7 +138,23 @@ def k3_registers(log):
             out[entry] = (int(re.search(r"Used (\d+) registers",
                                         line).group(1)), spill)
             entry = None
-    return out
+    return out, warnings
+
+
+def sass_counts(sass):
+    """{(bins dtype, N): (HGMMA count, HMMA count)} of K3's instances."""
+    out, entry = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            entry = _instance(line)
+            if entry:
+                out[entry] = [0, 0]
+        elif entry:
+            if "HGMMA" in line:
+                out[entry][0] += 1
+            elif re.search(r"\bHMMA\b", line):
+                out[entry][1] += 1
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def main():
@@ -155,6 +168,7 @@ def main():
                           text=True).stdout.strip().splitlines()[0]
     out_dir = os.path.join(ROOT, "build", "k3_variants")
     libs, logs = build_all(out_dir)
+    print(card)
     if args.sass:
         os.makedirs(args.sass, exist_ok=True)
         cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -164,12 +178,15 @@ def main():
         with open(os.path.join(args.sass, "k3_sass.txt"), "w",
                   encoding="utf-8") as f:
             f.write(sass)
-    print(card)
+        for (dt, n), (hg, hm) in sorted(sass_counts(sass).items()):
+            print(f"SASS {dt} N={n}: HGMMA {hg}, HMMA {hm}")
     for name in EDITS:
-        regs = k3_registers(logs[name])
-        print(f"{name:10s} registers a thread (spill stores): " + ", ".join(
-            f"{dt} MT={mt}: {r} ({sp} B)"
-            for (dt, mt), (r, sp) in sorted(regs.items())))
+        regs, warnings = k3_registers(logs[name])
+        print(f"{name:13s} registers a thread (spill stores): " + ", ".join(
+            f"{dt} N={n}: {r} ({sp} B)"
+            for (dt, n), (r, sp) in sorted(regs.items())))
+        for w in warnings:
+            print(f"{name:13s} {w}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, F, nb = 2_000_000, 28, 256
@@ -178,15 +195,15 @@ def main():
     grad = torch.randn(B, device=dev, generator=gen)
     hess = torch.rand(B, device=dev, generator=gen)
     stream = torch.cuda.current_stream().cuda_stream
-    for n in (1, 16, 32):
+    for n in (1, 8, 16, 32, 256):
         node = torch.randint(-1, n, (B,), device=dev, generator=gen,
                              dtype=torch.int32)
-        plan = hist_cuda.grad_hist_fused_plan(n, B, F, nb, 1)
         out = torch.empty(2, n, F, nb, device=dev)
-        part = torch.empty(plan.n_chunks * out.numel(), device=dev)
-        m_rows = 16 * plan.m_tiles * plan.m_blocks
-        dense = 1e3 * 2 * m_rows * B * F * nb / 989e12
         want = hist_cuda.grad_hist_fused_ref(bins, node, grad, hess, n, nb)
+        plan = hist_cuda.grad_hist_fused_plan(n, B, F, nb, 1)
+        part = torch.empty(plan.n_chunks * out.numel(), device=dev)
+        dense = (1e3 * 2 * 64 * plan.cols * plan.m_blocks * B * F
+                 * plan.slices / 989e12)
         for name, lib in libs.items():
             def launch():
                 rc = lib.dmlc_grad_hist_fused(
@@ -196,8 +213,8 @@ def main():
                 if rc != 0:
                     raise SystemExit(f"{name}: launch failed ({rc})")
             ms = cuda_event_ms(launch, iters=10, warmup=2)
-            line = (f"n={n:2d} M={m_rows} {name:10s} ms={ms:.3f} "
-                    f"dense_tc_ms={dense:.3f}")
+            line = (f"n={n:3d} N={plan.cols}x{plan.m_blocks} {name:13s} "
+                    f"ms={ms:.3f} dense_tc_ms={dense:.3f}")
             if name in EXACT:
                 launch()
                 if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-3)

@@ -10,6 +10,7 @@ order) and need a card; the CPU path is held against the Pallas kernel in
 interpret mode (rtol/atol 1e-5: the same bf16 inputs, f32 sums).
 """
 
+import functools
 import os
 
 import numpy as np
@@ -84,38 +85,84 @@ def test_hist_matmul_plan_window(bin_bytes):
 
 def test_k1_chunking_rounds_down_k3_keeps_its_own():
     """K1 stays within the CTA target; K3 has its own plan, which rounds
-    down over its m-blocks too (one at 32 nodes, eight at 256)."""
+    down over its node blocks too (one block of 64 columns at 32 nodes,
+    eight at 256 nodes; four units a consumer warpgroup at 1 node)."""
     plan = hist_cuda.hist_matmul_plan(64, 2_000_000, 28, 256, 1)
     assert plan.groups == 14 and plan.n_chunks == 75
     k3 = hist_cuda.grad_hist_fused_plan(32, 2_000_000, 28, 256, 1)
-    assert (k3.groups, k3.m_blocks, k3.m_tiles, k3.n_chunks) == (14, 1, 4, 75)
+    assert (k3.groups, k3.m_blocks, k3.cols, k3.n_chunks) == (28, 1, 64, 37)
+    assert (k3.consumers, k3.threads, k3.stage_rows) == (4, 640, 512)
+    assert k3.bins_bulk and k3.slab_pitch == 28
+    mid = hist_cuda.grad_hist_fused_plan(16, 2_000_000, 28, 256, 1)
+    assert (mid.groups, mid.units_per_wg, mid.cols, mid.n_chunks) == (
+        14, 2, 32, 75)
     deep = hist_cuda.grad_hist_fused_plan(256, 2_000_000, 28, 256, 1)
-    assert (deep.m_blocks, deep.m_tiles, deep.n_chunks) == (8, 4, 9)
-    assert hist_cuda.grad_hist_fused_plan(1, 2_000_000, 28, 256,
-                                          1).m_tiles == 1
+    assert (deep.m_blocks, deep.cols, deep.n_chunks) == (8, 64, 4)
+    root = hist_cuda.grad_hist_fused_plan(1, 2_000_000, 28, 256, 1)
+    assert (root.cols, root.units_per_wg, root.groups, root.stage_rows) == (
+        8, 4, 7, 512)
 
 
-def _epilogue_writes(plan, num_nodes):
-    """K3's epilogue as a map: A row ``r`` of m-tile ``t`` of m-block ``z``
-    holds ``s = r >= 8`` (G, then H) of node ``32 z + 8 t + r % 8``, and is
-    written when that node lies below ``num_nodes``.  Returns the count of
-    writes of each (s, node)."""
-    writes = {}
-    for z in range(plan.m_blocks):
-        for t in range(plan.m_tiles):
-            for r in range(16):
-                node = (z * hist_cuda._NODE_M_BLOCK + t * hist_cuda._NODE_TILE
-                        + r % 8)
-                if node < num_nodes:
-                    key = (int(r >= 8), node)
-                    writes[key] = writes.get(key, 0) + 1
-    return writes
+def _epilogue_map(plan, group, block, num_nodes, num_bins):
+    """K3's epilogue as a map over (consumer warpgroup, its unit, thread,
+    accumulator) of the CTA (group, any chunk, block): accumulator ``e`` of
+    unit ``k`` in warp ``w``, lane (``g``, ``t``) of warpgroup ``v`` holds
+    bin ``16 w + g + 8 ((e >> 1) & 1)`` of unit ``consumers * units_per_wg
+    * group + units_per_wg * v + k``'s slice and column ``8 (e >> 2) + 2 t
+    + (e & 1)``: ``s = e & 1`` (G, then H) of node ``4 (e >> 2) + t`` of the
+    block.  Returns (s, node, feature, bin, written), each [consumers *
+    units_per_wg, 128, cols / 2]."""
+    per_wg = plan.units_per_wg
+    v = np.arange(plan.consumers)[:, None, None, None]
+    k = np.arange(per_wg)[None, :, None, None]
+    thread = np.arange(128)[None, None, :, None]
+    e = np.arange(plan.cols // 2)[None, None, None, :]
+    warp, lane = thread // 32, thread % 32
+    g, t = lane // 4, lane % 4
+    unit = (group * plan.consumers + v) * per_wg + k
+    feature = unit // plan.slices
+    b = (unit % plan.slices) * hist_cuda._SLICE + 16 * warp + g \
+        + 8 * ((e >> 1) & 1)
+    node = block * plan.node_block + 4 * (e >> 2) + t
+    s = e & 1
+    written = (unit < plan.units) & (node < num_nodes) & (b < num_bins)
+    shape = (plan.consumers * per_wg, 128, plan.cols // 2)
+    return tuple(np.broadcast_to(a, (plan.consumers, per_wg) + shape[1:])
+                 .reshape(shape) for a in (s, node, feature, b, written))
+
+
+@functools.lru_cache(maxsize=None)
+def _epilogue_misses(num_nodes, num_feature, num_bins):
+    """How many (s, node, feature, bin) of the output K3's epilogue writes
+    other than exactly once over all CTAs of a launch (row chunks write
+    partials alike), from :func:`_epilogue_map`, one feature at a time.
+    The map's ``written`` is the kernel's guard, so nothing out of range
+    is written."""
+    plan = hist_cuda.grad_hist_fused_plan(num_nodes, 1, num_feature,
+                                          num_bins, 1)
+    misses = 0
+    for f in range(num_feature):
+        flat = []
+        # the groups whose units hold a slice of feature f
+        per_cta = plan.consumers * plan.units_per_wg
+        for grp in range(f * plan.slices // per_cta,
+                         ((f + 1) * plan.slices - 1) // per_cta + 1):
+            for z in range(plan.m_blocks):
+                s, node, feat, b, w = _epilogue_map(plan, grp, z, num_nodes,
+                                                    num_bins)
+                mine = w & (feat == f)
+                flat.append(((s * num_nodes + node) * num_bins + b)[mine])
+        counts = np.bincount(np.concatenate(flat),
+                             minlength=2 * num_nodes * num_bins)
+        misses += int((counts != 1).sum())
+    return misses
 
 
 @pytest.mark.parametrize("num_bins", [2, 255, 256, 1024])
 @pytest.mark.parametrize("num_feature", [1, 14, 28])
 @pytest.mark.parametrize("num_rows", [1, 700, 2_000_000])
-@pytest.mark.parametrize("num_nodes", [1, 5, 8, 13, 16, 32, 37, 256, 1000])
+@pytest.mark.parametrize("num_nodes", [1, 5, 8, 13, 16, 32, 37, 64, 128, 129,
+                                       256, 1000])
 def test_grad_hist_fused_plan(num_nodes, num_rows, num_feature, num_bins):
     for bin_bytes in (1, 4):
         plan = hist_cuda.grad_hist_fused_plan(num_nodes, num_rows,
@@ -124,40 +171,65 @@ def test_grad_hist_fused_plan(num_nodes, num_rows, num_feature, num_bins):
         # a function of the shapes alone
         assert plan == hist_cuda.grad_hist_fused_plan(
             num_nodes, num_rows, num_feature, num_bins, bin_bytes)
-        # row chunks of whole tiles cover every row once
+        # row chunks of whole tiles cover every row (a chunk's last stage
+        # may be short)
         rpc = plan.rows_per_chunk
-        assert rpc % hist_cuda.TILE == 0 and rpc % hist_cuda._K_STEP == 0
+        assert rpc % hist_cuda.TILE == 0
         assert plan.n_chunks * rpc >= num_rows > (plan.n_chunks - 1) * rpc
         ctas = plan.groups * plan.m_blocks * plan.n_chunks
         assert plan.n_chunks == 1 or ctas <= hist_cuda._TARGET_CTAS
-        # m-blocks of 32 nodes cover the nodes, and one m-block's m-tiles
-        # cover its nodes: n <= 8 takes one m-tile
-        assert plan.m_blocks * hist_cuda._NODE_M_BLOCK >= num_nodes
-        assert (plan.m_blocks - 1) * hist_cuda._NODE_M_BLOCK < num_nodes
-        assert plan.m_tiles * hist_cuda._NODE_TILE >= min(num_nodes, 32)
-        assert plan.m_tiles == 1 or num_nodes > 8
-        # the epilogue writes every (s, node < num_nodes) exactly once
-        writes = _epilogue_writes(plan, num_nodes)
-        assert sorted(writes) == [(s, n) for s in (0, 1)
-                                  for n in range(num_nodes)]
-        assert set(writes.values()) == {1}
-        # K1's units: every (feature, bin) once, within the staged span
+        # wgmma's N: G and H of each node of a block, a power of two in
+        # [8, 64], no wider than twice the nodes (or 8)
+        assert plan.cols == 2 * plan.node_block
+        assert plan.cols in (8, 16, 32, 64)
+        assert plan.cols >= 2 * min(num_nodes, 32)
+        assert plan.cols == 8 or plan.cols < 4 * num_nodes
+        # node blocks cover the nodes
+        assert plan.m_blocks * plan.node_block >= num_nodes
+        assert (plan.m_blocks - 1) * plan.node_block < num_nodes
+        # four consumer warpgroups of 1 to 4 units (at most 32 accumulators
+        # a thread) and a producer warpgroup; a stage is whole tiles, and
+        # its B at most 64 KB
+        assert plan.consumers == 4
+        assert plan.units_per_wg == {8: 4, 16: 4, 32: 2}.get(plan.cols, 1)
+        assert plan.units_per_wg * plan.cols // 2 <= 32
+        assert plan.threads == 128 * (plan.consumers + 1)
+        assert plan.stage_rows % hist_cuda.TILE == 0
+        assert plan.stage_rows * plan.cols * 2 <= 65536
+        # the units: every (feature, bin) once, within the span a CTA reads
         seen = np.zeros((num_feature, num_bins), np.int32)
-        for g in range(plan.groups):
-            units = _units_of(plan, g)
-            assert 1 <= len(units) <= plan.warps
+        per_cta = plan.consumers * plan.units_per_wg
+        for grp in range(plan.groups):
+            lo = grp * per_cta
+            units = [(u // plan.slices, (u % plan.slices) * hist_cuda._SLICE)
+                     for u in range(lo, min(plan.units, lo + per_cta))]
+            assert units
             feats = {f for f, _ in units}
             assert max(feats) - min(feats) + 1 <= plan.span
             for f, b0 in units:
                 seen[f, b0:b0 + hist_cuda._SLICE] += 1
         assert (seen == 1).all()
-        # one thread per row of a tile packs it, with a register and a
-        # pattern row for each of the CTA's columns
-        assert plan.threads == hist_cuda.TILE
-        assert plan.span <= hist_cuda._WARPS
-        assert plan.smem <= SMEM_LIMIT
+        # the bins slab: whole rows by bulk copy when aligned and a stage
+        # fits, else 16-byte granules over the span; shared memory fits
+        # a block on every path, for windows of wider rows too
+        assert plan.bins_bulk == (plan.stage_rows * num_feature * bin_bytes
+                                  <= hist_cuda._K3_BULK_SLAB)
+        for ld, aligned in ((num_feature, True), (num_feature, False),
+                            (3 * num_feature + 5, True),
+                            (40_000, True)):
+            other = hist_cuda.grad_hist_fused_plan(
+                num_nodes, num_rows, num_feature, num_bins, bin_bytes, ld,
+                aligned)
+            assert other.smem <= SMEM_LIMIT
+            if other.bins_bulk:
+                assert aligned and other.slab_pitch == ld * bin_bytes
+            else:
+                assert other.slab_pitch % 16 == 0
+                assert other.slab_pitch >= 15 + other.span * bin_bytes
         assert all(1 <= d <= GRID_LIMIT for d in plan.grid)
         assert plan.grid == (plan.groups, plan.n_chunks, plan.m_blocks)
+    # the epilogue writes every (G|H, node, feature, bin) exactly once
+    assert _epilogue_misses(num_nodes, num_feature, num_bins) == 0
 
 
 def test_hist_matmul_cpu_window_matches_pallas(monkeypatch):
@@ -231,6 +303,14 @@ FUSED_CARD_CASES = [
     (256, 1_000_003, 28, 255, torch.uint8, (0, 256), 0, None, 5),
     (3, 700, 1, 2, torch.int32, (-1, 4), 0, None, 0),
     (40, 5000, 14, 1024, torch.int32, (-5, 1100), 0, None, 2),
+    # four full 32-node blocks (64 columns each), and one node past them
+    (128, 100_003, 28, 255, torch.uint8, (0, 256), 0, None, 0),
+    (129, 100_003, 28, 256, torch.int32, (-3, 260), 14, 14, 3),
+    # the dryrun's K4 shapes: 16 bins, 4 nodes, a window of 4 of 8 columns
+    (4, 64, 8, 16, torch.int32, (0, 16), 4, 4, 0),
+    (4, 70_001, 8, 16, torch.int32, (-1, 17), 4, 4, 1),
+    # rows too wide for a bulk stage (80 int32 columns): granules, aligned
+    (33, 20_001, 80, 64, torch.int32, (-1, 65), 8, 40, 0),
 ]
 
 
