@@ -1,0 +1,7 @@
+"""The sampled training cells' ``device_idle_frac.train``: the same reader,
+moving ``train_row_rounds_per_s.sampled``, the rate those cells report
+(their host waits spread its runs wider than the unsampled cells')."""
+
+from portbench.harness import load_metric
+
+read = load_metric("device_idle_frac.train").read
