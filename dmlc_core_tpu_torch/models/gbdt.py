@@ -29,6 +29,14 @@ the fit's device.  Under a mesh a rank draws its own slice of the one
 draw over the global rows, so a sampled distributed fit grows the trees
 of the single-process fit.
 
+Each round records telemetry spans (:mod:`..telemetry`, also profiler
+annotations while ``torch.profiler`` records): ``gbdt.round`` around
+:meth:`GBDT._round`; in every tree ``gbdt.hist``, ``gbdt.split_scan`` and
+``gbdt.route`` per level, ``gbdt.leaf`` once, and ``gbdt.draw`` around
+each sampling draw (per tree, and per level inside ``gbdt.split_scan``);
+``gbdt.predict`` around :meth:`GBDT.predict_margin`.  Their attributes are
+host ints and strings: no span reads the device.
+
 Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``
 [2**d].
@@ -46,6 +54,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.bridge.checkpoint import (host_array,
                                                    load_checkpoint,
                                                    save_checkpoint)
@@ -272,121 +281,134 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     for depth in range(max_depth):
         n_nodes = 2 ** depth
         level_off = n_nodes - 1
-        G, H = grad_histogram(bins, node, g, h, n_nodes, num_bins,
-                              model_axis=model_axis, method=method,
-                              onehot=onehot, device=dev)  # [n, F, nbins]
-        GL = torch.cumsum(G, dim=-1)
-        HL = torch.cumsum(H, dim=-1)
-        GT = GL[..., -1:]
-        HT = HL[..., -1:]
+        with telemetry.span("gbdt.hist", depth=depth, nodes=n_nodes,
+                            method=method):
+            G, H = grad_histogram(bins, node, g, h, n_nodes, num_bins,
+                                  model_axis=model_axis, method=method,
+                                  onehot=onehot, device=dev)  # [n, F, nbins]
+        with telemetry.span("gbdt.split_scan", depth=depth, nodes=n_nodes):
+            GL = torch.cumsum(G, dim=-1)
+            HL = torch.cumsum(H, dim=-1)
+            GT = GL[..., -1:]
+            HT = HL[..., -1:]
 
-        def _gain(GLv, HLv):
-            GRv = GT - GLv
-            HRv = HT - HLv
-            gn = _score(GLv, HLv) + _score(GRv, HRv) - _score(GT, HT)
-            ok = (HLv >= min_child_weight) & (HRv >= min_child_weight)
-            if monotone is not None:
-                wl, wr = _opt_w(GLv, HLv), _opt_w(GRv, HRv)
-                c = mono[None, :, None]
-                ok = ok & ~(c * (wl - wr) > 0)           # violating splits
-            return gn, ok
+            def _gain(GLv, HLv):
+                GRv = GT - GLv
+                HRv = HT - HLv
+                gn = _score(GLv, HLv) + _score(GRv, HRv) - _score(GT, HT)
+                ok = (HLv >= min_child_weight) & (HRv >= min_child_weight)
+                if monotone is not None:
+                    wl, wr = _opt_w(GLv, HLv), _opt_w(GRv, HRv)
+                    c = mono[None, :, None]
+                    ok = ok & ~(c * (wl - wr) > 0)       # violating splits
+                return gn, ok
 
-        gain, valid = _gain(GL, HL)
-        if missing:
-            # default-right is scored above; default-left moves the missing
-            # bin's mass into the left sums
-            gain_l, valid_l = _gain(GL + G[..., miss_id:miss_id + 1],
-                                    HL + H[..., miss_id:miss_id + 1])
-            gain = torch.where(valid, gain, -float("inf"))
-            gain_l = torch.where(valid_l, gain_l, -float("inf"))
-            go_left_default = gain_l > gain
-            gain = torch.maximum(gain, gain_l)
-            valid = valid | valid_l
-        # splitting on the last bin sends everything left: never valid
-        valid = valid & (torch.arange(num_bins, device=dev)
-                         < num_bins - 1)[None, None, :]
-        if level_mask_fn is not None:
-            # the level/node draw consumes the tree mask (nested sampling)
-            valid = valid & level_mask_fn(depth, n_nodes,
-                                          feat_mask)[:, :, None]
-        elif feat_mask is not None:
-            valid = valid & feat_mask[None, :, None]
-        gain = torch.where(valid, gain, -float("inf"))
-        flat = gain.reshape(n_nodes, F * num_bins)
-        best = torch.argmax(flat, dim=-1)                # first maximum
-        best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
-        bf = (best // num_bins).to(torch.int32)
-        bb = (best % num_bins).to(torch.int32)
-        do_split = best_gain > min_split_loss
-        sf = torch.where(do_split, bf, -1).to(torch.int32)
-        if missing:
-            dl = torch.gather(go_left_default.reshape(n_nodes, F * num_bins),
-                              1, best[:, None])[:, 0] & do_split
-        else:
-            dl = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
-        lvl = slice(level_off, level_off + n_nodes)
-        split_feat[lvl] = sf
-        split_bin[lvl] = bb
-        default_left[lvl] = dl
-        split_gain[lvl] = torch.where(do_split, best_gain, 0.0)
-        split_cover[lvl] = torch.where(do_split, HT[:, 0, 0], 0.0)
-        if monotone is not None:
-            def _at_best(a):
-                return torch.gather(a.reshape(n_nodes, F * num_bins), 1,
-                                    best[:, None])[:, 0]
-
-            GLb, HLb = _at_best(GL), _at_best(HL)
+            gain, valid = _gain(GL, HL)
             if missing:
-                GLb = torch.where(
-                    dl, _at_best(GL + G[..., miss_id:miss_id + 1]), GLb)
-                HLb = torch.where(
-                    dl, _at_best(HL + H[..., miss_id:miss_id + 1]), HLb)
-            GTn, HTn = GT[:, 0, 0], HT[:, 0, 0]
-            wl = _clip(_opt_w(GLb, HLb), node_lo, node_hi)
-            wr = _clip(_opt_w(GTn - GLb, HTn - HLb), node_lo, node_hi)
-            mid = 0.5 * (wl + wr)
-            c_node = torch.where(do_split, mono[bf.to(torch.int64)], 0)
-            # c=+1: left subtree weights <= mid <= right subtree weights
-            lo_l = node_lo.expand(n_nodes)
-            hi_r = node_hi.expand(n_nodes)
-            hi_l = torch.where(c_node > 0, torch.minimum(node_hi, mid),
-                               node_hi)
-            lo_r = torch.where(c_node > 0, torch.maximum(node_lo, mid),
-                               node_lo)
-            lo_l = torch.where(c_node < 0, torch.maximum(node_lo, mid), lo_l)
-            hi_r = torch.where(c_node < 0, torch.minimum(node_hi, mid), hi_r)
-            node_lo = torch.stack([lo_l, lo_r], dim=1).reshape(-1)
-            node_hi = torch.stack([hi_l, hi_r], dim=1).reshape(-1)
-        # advance every row one level
-        nf = sf.to(torch.int64)[node]                    # [B]
-        row_bin = torch.gather(bins, 1, nf.clamp(min=0)[:, None])[:, 0]
-        row_bin = row_bin.to(torch.int32)
-        go_right = (row_bin > bb[node]) & (nf >= 0)
-        if missing:
-            # missing rows sit above every threshold; default-left overrides
-            go_right = go_right & ~((row_bin == miss_id) & dl[node])
-        node = node * 2 + go_right.to(torch.int64)
+                # default-right is scored above; default-left moves the
+                # missing bin's mass into the left sums
+                gain_l, valid_l = _gain(GL + G[..., miss_id:miss_id + 1],
+                                        HL + H[..., miss_id:miss_id + 1])
+                gain = torch.where(valid, gain, -float("inf"))
+                gain_l = torch.where(valid_l, gain_l, -float("inf"))
+                go_left_default = gain_l > gain
+                gain = torch.maximum(gain, gain_l)
+                valid = valid | valid_l
+            # splitting on the last bin sends everything left: never valid
+            valid = valid & (torch.arange(num_bins, device=dev)
+                             < num_bins - 1)[None, None, :]
+            if level_mask_fn is not None:
+                # the level/node draw consumes the tree mask (nested
+                # sampling)
+                with telemetry.span("gbdt.draw", scope="level", depth=depth):
+                    level_mask = level_mask_fn(depth, n_nodes, feat_mask)
+                valid = valid & level_mask[:, :, None]
+            elif feat_mask is not None:
+                valid = valid & feat_mask[None, :, None]
+            gain = torch.where(valid, gain, -float("inf"))
+            flat = gain.reshape(n_nodes, F * num_bins)
+            best = torch.argmax(flat, dim=-1)                # first maximum
+            best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
+            bf = (best // num_bins).to(torch.int32)
+            bb = (best % num_bins).to(torch.int32)
+            do_split = best_gain > min_split_loss
+            sf = torch.where(do_split, bf, -1).to(torch.int32)
+            if missing:
+                dl = torch.gather(
+                    go_left_default.reshape(n_nodes, F * num_bins), 1,
+                    best[:, None])[:, 0] & do_split
+            else:
+                dl = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
+            lvl = slice(level_off, level_off + n_nodes)
+            split_feat[lvl] = sf
+            split_bin[lvl] = bb
+            default_left[lvl] = dl
+            split_gain[lvl] = torch.where(do_split, best_gain, 0.0)
+            split_cover[lvl] = torch.where(do_split, HT[:, 0, 0], 0.0)
+            if monotone is not None:
+                def _at_best(a):
+                    return torch.gather(a.reshape(n_nodes, F * num_bins), 1,
+                                        best[:, None])[:, 0]
+
+                GLb, HLb = _at_best(GL), _at_best(HL)
+                if missing:
+                    GLb = torch.where(
+                        dl, _at_best(GL + G[..., miss_id:miss_id + 1]), GLb)
+                    HLb = torch.where(
+                        dl, _at_best(HL + H[..., miss_id:miss_id + 1]), HLb)
+                GTn, HTn = GT[:, 0, 0], HT[:, 0, 0]
+                wl = _clip(_opt_w(GLb, HLb), node_lo, node_hi)
+                wr = _clip(_opt_w(GTn - GLb, HTn - HLb), node_lo, node_hi)
+                mid = 0.5 * (wl + wr)
+                c_node = torch.where(do_split, mono[bf.to(torch.int64)], 0)
+                # c=+1: left subtree weights <= mid <= right subtree weights
+                lo_l = node_lo.expand(n_nodes)
+                hi_r = node_hi.expand(n_nodes)
+                hi_l = torch.where(c_node > 0, torch.minimum(node_hi, mid),
+                                   node_hi)
+                lo_r = torch.where(c_node > 0, torch.maximum(node_lo, mid),
+                                   node_lo)
+                lo_l = torch.where(c_node < 0, torch.maximum(node_lo, mid),
+                                   lo_l)
+                hi_r = torch.where(c_node < 0, torch.minimum(node_hi, mid),
+                                   hi_r)
+                node_lo = torch.stack([lo_l, lo_r], dim=1).reshape(-1)
+                node_hi = torch.stack([hi_l, hi_r], dim=1).reshape(-1)
+        with telemetry.span("gbdt.route", depth=depth):
+            # advance every row one level
+            nf = sf.to(torch.int64)[node]                    # [B]
+            row_bin = torch.gather(bins, 1, nf.clamp(min=0)[:, None])[:, 0]
+            row_bin = row_bin.to(torch.int32)
+            go_right = (row_bin > bb[node]) & (nf >= 0)
+            if missing:
+                # missing rows sit above every threshold; default-left
+                # overrides
+                go_right = go_right & ~((row_bin == miss_id) & dl[node])
+            node = node * 2 + go_right.to(torch.int64)
 
     n_leaf = 2 ** max_depth
-    if method in ("onehot", "pallas", "pallas_fused"):
-        # leaf sums as a small f32 matmul, as the reference does for its
-        # matmul-shaped methods (deterministic on the card, unlike float
-        # atomics)
-        leafhot = (node[:, None] == torch.arange(n_leaf, device=dev)
-                   ).to(torch.float32)                   # [B, n_leaf]
-        sums = torch.matmul(leafhot.t(), torch.stack([g, h], dim=1))
-    else:
-        # the reference's segment_sum, atomics-free on the card too
-        sums = hist_cuda.segment_sum(torch.stack([g, h], dim=1), node,
-                                     n_leaf)
-    Gl, Hl = data_allreduce(sums[:, 0], sums[:, 1])  # every data shard's rows
-    leaf_w = -_l1_threshold(Gl, reg_alpha) / (Hl + reg_lambda)
-    if max_delta_step > 0.0:
-        leaf_w = torch.clamp(leaf_w, -max_delta_step, max_delta_step)
-    if monotone is not None:
-        leaf_w = _clip(leaf_w, node_lo, node_hi)
-    leaf_value = leaf_w * learning_rate
-    margin_delta = leaf_value[node]
+    with telemetry.span("gbdt.leaf", leaves=n_leaf, method=method):
+        if method in ("onehot", "pallas", "pallas_fused"):
+            # leaf sums as a small f32 matmul, as the reference does for its
+            # matmul-shaped methods (deterministic on the card, unlike float
+            # atomics)
+            leafhot = (node[:, None] == torch.arange(n_leaf, device=dev)
+                       ).to(torch.float32)                   # [B, n_leaf]
+            sums = torch.matmul(leafhot.t(), torch.stack([g, h], dim=1))
+        else:
+            # the reference's segment_sum, atomics-free on the card too
+            sums = hist_cuda.segment_sum(torch.stack([g, h], dim=1), node,
+                                         n_leaf)
+        # every data shard's rows
+        Gl, Hl = data_allreduce(sums[:, 0], sums[:, 1])
+        leaf_w = -_l1_threshold(Gl, reg_alpha) / (Hl + reg_lambda)
+        if max_delta_step > 0.0:
+            leaf_w = torch.clamp(leaf_w, -max_delta_step, max_delta_step)
+        if monotone is not None:
+            leaf_w = _clip(leaf_w, node_lo, node_hi)
+        leaf_value = leaf_w * learning_rate
+        margin_delta = leaf_value[node]
+
     return (split_feat, split_bin, leaf_value, default_left, split_gain,
             split_cover, margin_delta)
 
@@ -404,9 +426,10 @@ def _tree_sampling(p, rnd: int, B: int, F: int, class_index: int = 0,
     reference keys it: each of a softmax round's K trees draws its own
     rows and columns.  ``offset`` is the global index of the first row
     (a rank's place under a mesh); the draw of a row depends only on it."""
-    row_w = None
-    fmask = None
-    if p.subsample < 1.0 or p.colsample_bytree < 1.0:
+    if p.subsample >= 1.0 and p.colsample_bytree >= 1.0:
+        return None, None
+    row_w = fmask = None
+    with telemetry.span("gbdt.draw", scope="tree"):
         key = threefry.fold_in(threefry.prng_key(p.seed), rnd)
         if class_index:
             key = threefry.fold_in(key, class_index)
@@ -626,28 +649,31 @@ class GBDT:
         """Round ``rnd``: its draws, then its tree (K trees for softmax).
         ``offset`` is this rank's first global row (:meth:`_row_offset`)."""
         p = self.param
-        level_mask_fn = _level_mask_fn(p, rnd, bins.shape[1], self.device)
+        B, F = bins.shape
+        with telemetry.span("gbdt.round", round=int(rnd), rows=B, features=F):
+            level_mask_fn = _level_mask_fn(p, rnd, F, self.device)
 
-        def grow(bins_, g, h, fmask):
-            return _build_tree(
-                bins_, g, h, p.max_depth, p.num_bins, p.reg_lambda,
-                p.min_child_weight, p.learning_rate, self.model_axis,
-                method=method, onehot=onehot, min_split_loss=p.min_split_loss,
-                feat_mask=fmask, missing=p.handle_missing,
-                reg_alpha=p.reg_alpha, monotone=self._monotone,
-                level_mask_fn=level_mask_fn, max_delta_step=p.max_delta_step)
+            def grow(bins_, g, h, fmask):
+                return _build_tree(
+                    bins_, g, h, p.max_depth, p.num_bins, p.reg_lambda,
+                    p.min_child_weight, p.learning_rate, self.model_axis,
+                    method=method, onehot=onehot,
+                    min_split_loss=p.min_split_loss, feat_mask=fmask,
+                    missing=p.handle_missing, reg_alpha=p.reg_alpha,
+                    monotone=self._monotone, level_mask_fn=level_mask_fn,
+                    max_delta_step=p.max_delta_step)
 
-        if p.objective == "softmax":
-            return _softmax_round(p, bins, margin, label, weight, rnd, grow,
-                                  offset)
-        row_w, fmask = _tree_sampling(p, rnd, bins.shape[0], bins.shape[1],
-                                      device=self.device, offset=offset)
-        if row_w is not None:
-            weight = weight * row_w
-        g, h = _grad_hess(margin, label, p.objective)
-        sf, sb, lv, dl, sg, sc, delta = grow(bins, g * weight, h * weight,
-                                             fmask)
-        return margin + delta, (sf, sb, lv, dl, sg, sc)
+            if p.objective == "softmax":
+                return _softmax_round(p, bins, margin, label, weight, rnd,
+                                      grow, offset)
+            row_w, fmask = _tree_sampling(p, rnd, B, F, device=self.device,
+                                          offset=offset)
+            if row_w is not None:
+                weight = weight * row_w
+            g, h = _grad_hess(margin, label, p.objective)
+            sf, sb, lv, dl, sg, sc, delta = grow(bins, g * weight,
+                                                 h * weight, fmask)
+            return margin + delta, (sf, sb, lv, dl, sg, sc)
 
     def _k(self) -> int:
         return self.param.num_class if self.param.objective == "softmax" \
@@ -766,13 +792,15 @@ class GBDT:
         multiclass = trees[0].dim() == 3
         shape = (bins.shape[0], trees[0].shape[1]) if multiclass \
             else (bins.shape[0],)
-        out = torch.full(shape, self.param.base_score, dtype=torch.float32,
-                         device=self.device)
-        for t in range(trees[0].shape[0]):
-            out = out + _per_tree(
-                lambda sf, sb, lv, dl: _predict_tree(sf, sb, lv, dl, bins,
-                                                     d, miss_id),
-                [a[t] for a in trees], multiclass)
+        with telemetry.span("gbdt.predict", trees=trees[0].shape[0],
+                            rows=bins.shape[0]):
+            out = torch.full(shape, self.param.base_score,
+                             dtype=torch.float32, device=self.device)
+            for t in range(trees[0].shape[0]):
+                out = out + _per_tree(
+                    lambda sf, sb, lv, dl: _predict_tree(sf, sb, lv, dl, bins,
+                                                         d, miss_id),
+                    [a[t] for a in trees], multiclass)
         return out
 
     def predict(self, ensemble: TreeEnsemble, bins):

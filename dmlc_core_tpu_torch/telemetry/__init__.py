@@ -29,12 +29,25 @@ Enable explicitly via :func:`enable`, or by environment:
 Spans carry distributed trace identity when a trace context is active
 (:mod:`.tracecontext`); :mod:`.traceview` merges the per-process span files
 and crash dumps into one Perfetto trace with per-trace critical paths.
+
+**Profiler bridge**: while a ``torch.profiler`` capture is recording,
+every :func:`span` also opens a ``torch.profiler.record_function`` of the
+same name, whether collection is on or off, so the span appears in the
+profiler's Chrome trace as a ``user_annotation`` on the profiler's clock,
+on the thread that ran it, where the device's kernels can be laid against
+it (:mod:`.clock` converts between the two clocks).  The check is the
+profiler module's own flag, looked up in ``sys.modules`` (telemetry imports
+nothing heavier than the standard library): with collection off and no
+profiler recording, :func:`span` is two flag checks and returns the shared
+no-op, reading no clock and entering no ``record_function`` (which costs
+microseconds even with no profiler running).
 """
 
 from __future__ import annotations
 
 import atexit
 import os
+import sys
 import threading
 from typing import Any, Dict, Iterable, Optional
 
@@ -79,6 +92,35 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` capture is recording (torch's own flag;
+    False where torch's profiler module was never imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+class _AnnotatedSpan:
+    """``inner`` (a tracer span or the no-op) inside a profiler
+    ``record_function`` of the same name; ``with`` yields ``inner``."""
+
+    __slots__ = ("_inner", "_annotation")
+
+    def __init__(self, name: str, inner: Any):
+        self._inner = inner
+        self._annotation = sys.modules[
+            "torch.autograd.profiler"].record_function(name)
+
+    def __enter__(self) -> Any:
+        self._annotation.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc: Any) -> None:
+        try:
+            self._inner.__exit__(*exc)
+        finally:
+            self._annotation.__exit__(*exc)
 
 
 # -- switch ------------------------------------------------------------------
@@ -151,10 +193,13 @@ def observe(name: str, value: float, /, *,
 
 
 def span(name: str, /, **attrs: Any):
-    """Context manager tracing one span (shared no-op when disabled)."""
+    """Context manager tracing one span (shared no-op when disabled), also a
+    profiler annotation while ``torch.profiler`` records."""
     if not _enabled:
-        return _NULL_SPAN
-    return _tracer.span(name, **attrs)
+        return _AnnotatedSpan(name, _NULL_SPAN) if _profiling() \
+            else _NULL_SPAN
+    inner = _tracer.span(name, **attrs)
+    return _AnnotatedSpan(name, inner) if _profiling() else inner
 
 
 def record_span(name: str, start: float, end: float, /, *,

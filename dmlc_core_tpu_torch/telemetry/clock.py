@@ -16,6 +16,19 @@ process' monotonic timestamps onto one shared axis; NTP-grade skew (ms)
 is fine for eyeballing a merged timeline, and no *measurement* ever reads
 the wall clock.
 
+The same anchor lays a span file against a ``torch.profiler`` Chrome trace
+of the same process (where the spans also appear as ``user_annotation``
+events, :mod:`dmlc_core_tpu_torch.telemetry`).  The profiler writes its
+events' ``ts`` in microseconds after the trace's top-level
+``baseTimeNanoseconds``, itself nanoseconds of the wall clock; a span
+file's ``ts`` is microseconds after its ``clock_sync`` event's
+``wall_epoch_s``.  So one instant has::
+
+    profiler_ts = telemetry_ts + (wall_epoch_s - baseTimeNanoseconds / 1e9) * 1e6
+
+to within the skew of the two wall-clock reads (microseconds, unless the
+wall clock is stepped in between).
+
 Counterpart of ``dmlc_core_tpu/telemetry/clock.py`` (a copy).
 """
 
