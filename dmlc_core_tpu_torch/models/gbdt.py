@@ -6,7 +6,10 @@ same split scan (cumsum over bins, gain, first-maximum argmax), missing
 values, monotone constraints, L1 and ``max_delta_step``.  Where the
 reference compiles a round into one XLA program and scans over rounds, the
 port runs eagerly: a Python loop over rounds and levels, each level one
-histogram (the CUDA kernel on the card) plus a few tensor ops.
+histogram (the CUDA kernel on the card) plus a few tensor ops.  Below the
+root a level histograms only the smaller child of each node split above it
+and takes the other child as the parent's histogram less the built one
+(sibling subtraction): the same trees, at half the kernel's nodes.
 
 Distributed training follows the reference's mesh semantics with one
 process per rank (:mod:`..parallel.mesh`): under ``with mesh:`` each rank
@@ -34,8 +37,11 @@ annotations while ``torch.profiler`` records): ``gbdt.round`` around
 :meth:`GBDT._round`; in every tree ``gbdt.hist``, ``gbdt.split_scan`` and
 ``gbdt.route`` per level, ``gbdt.leaf`` once, and ``gbdt.draw`` around
 each sampling draw (per tree, and per level inside ``gbdt.split_scan``);
-``gbdt.predict`` around :meth:`GBDT.predict_margin`.  Their attributes are
-host ints and strings: no span reads the device.
+``gbdt.predict`` around :meth:`GBDT.predict_margin`.  ``gbdt.hist``
+holds the ``grad_histogram`` call alone; its ``nodes`` is the level's node
+count and ``built`` the count the kernel histograms (1 at the root, half
+the level's below).  Their attributes are host ints and strings: no span
+reads the device.
 
 Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``
@@ -220,6 +226,20 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
+def _children(parent, built, build_right):
+    """The [2n, F, nbins] histograms of the children of ``n`` nodes, in
+    node order, from the parents' and the built children's ([n, F, nbins]
+    each; ``build_right`` [n] bool says which side was built): the other
+    child is parent - built.  ``parent`` is overwritten."""
+    other = parent.sub_(built)
+    br = build_right[:, None, None]
+    out = torch.empty((built.shape[0], 2) + tuple(built.shape[1:]),
+                      dtype=built.dtype, device=built.device)
+    torch.where(br, other, built, out=out[:, 0])
+    torch.where(br, built, other, out=out[:, 1])
+    return out.reshape((-1,) + tuple(built.shape[1:]))
+
+
 def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                 min_child_weight: float, learning_rate: float,
                 model_axis: Optional[str] = None, method: str = "scatter",
@@ -242,10 +262,22 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     masks violating splits, carries a [lower, upper] weight interval per
     node split at the clamped midpoint, and clamps leaves into it.
 
+    Below the root each level histograms half its nodes (sibling
+    subtraction, as XGBoost's hist updater does): of the two children of
+    every node split at the level above, ``grad_histogram`` builds the one
+    with the smaller hessian sum (``HL`` at the best split against ``HT -
+    HL``, the missing bin counted where it goes by default), as the parent's
+    id over ``2**(d-1)`` nodes with every other row's id at -1, and the
+    other child is the parent's histogram less the built one.  A node left
+    unsplit sends every row left, so its empty right child is the one built
+    and its left child is the parent's histogram exactly.  The choice is
+    made on the device, with no host sync; the larger child carries the f32
+    cancellation, small against its own sums.
+
     Under an ambient mesh the histograms and leaf sums cover every rank's
     rows (``model_axis`` shards the histogram's features), so the split
-    scan sees the same sums, and picks the same splits, on every rank;
-    rows are routed locally.
+    scan sees the same sums, picks the same splits and builds the same
+    children on every rank; rows are routed locally.
     """
     dev = bins.device
     B, F = bins.shape
@@ -256,6 +288,9 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     split_gain = torch.zeros((n_internal,), dtype=torch.float32, device=dev)
     split_cover = torch.zeros((n_internal,), dtype=torch.float32, device=dev)
     node = torch.zeros((B,), dtype=torch.int64, device=dev)
+    # parent ids of the built children, int32 as the kernels take ids
+    parent_id = torch.arange(max(2 ** (max_depth - 1), 1),
+                             dtype=torch.int32, device=dev)
     miss_id = num_bins - 1
     lam = reg_lambda
     mds = max_delta_step
@@ -278,14 +313,23 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
         return (-(2.0 * Gv * w + (Hv + lam) * w * w)
                 - 2.0 * reg_alpha * torch.abs(w))
 
+    hist_node = node    # the rows of the nodes built, by parent id
     for depth in range(max_depth):
         n_nodes = 2 ** depth
         level_off = n_nodes - 1
+        built = max(n_nodes // 2, 1)
         with telemetry.span("gbdt.hist", depth=depth, nodes=n_nodes,
-                            method=method):
-            G, H = grad_histogram(bins, node, g, h, n_nodes, num_bins,
-                                  model_axis=model_axis, method=method,
-                                  onehot=onehot, device=dev)  # [n, F, nbins]
+                            built=built, method=method):
+            Gb, Hb = grad_histogram(bins, hist_node, g, h, built, num_bins,
+                                    model_axis=model_axis, method=method,
+                                    onehot=onehot, device=dev)
+        if depth == 0:
+            G, H = Gb, Hb                                    # [n, F, nbins]
+        else:
+            G = _children(G, Gb, build_right)
+            H = _children(H, Hb, build_right)
+        # freed before the split scan's temporaries and the leaf sums
+        del Gb, Hb, hist_node
         with telemetry.span("gbdt.split_scan", depth=depth, nodes=n_nodes):
             GL = torch.cumsum(G, dim=-1)
             HL = torch.cumsum(H, dim=-1)
@@ -329,7 +373,8 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
             flat = gain.reshape(n_nodes, F * num_bins)
             best = torch.argmax(flat, dim=-1)                # first maximum
             best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
-            bf = (best // num_bins).to(torch.int32)
+            fb = best // num_bins
+            bf = fb.to(torch.int32)
             bb = (best % num_bins).to(torch.int32)
             do_split = best_gain > min_split_loss
             sf = torch.where(do_split, bf, -1).to(torch.int32)
@@ -339,6 +384,24 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                     best[:, None])[:, 0] & do_split
             else:
                 dl = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
+
+            def _at_best(a):
+                return torch.gather(a.reshape(n_nodes, F * num_bins), 1,
+                                    best[:, None])[:, 0]
+
+            def _left_at_best(A, AL):
+                # the left child's sum of the best split; default-left
+                # adds the missing bin
+                s = _at_best(AL)
+                if missing:
+                    miss = A[torch.arange(n_nodes, device=dev), fb, miss_id]
+                    s = torch.where(dl, s + miss, s)
+                return s
+
+            HLb = _left_at_best(H, HL)
+            # the next level builds the child of smaller hessian sum
+            HTb = torch.gather(HT[:, :, 0], 1, fb[:, None])[:, 0]
+            build_right = torch.where(do_split, HTb - HLb <= HLb, True)
             lvl = slice(level_off, level_off + n_nodes)
             split_feat[lvl] = sf
             split_bin[lvl] = bb
@@ -346,16 +409,7 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
             split_gain[lvl] = torch.where(do_split, best_gain, 0.0)
             split_cover[lvl] = torch.where(do_split, HT[:, 0, 0], 0.0)
             if monotone is not None:
-                def _at_best(a):
-                    return torch.gather(a.reshape(n_nodes, F * num_bins), 1,
-                                        best[:, None])[:, 0]
-
-                GLb, HLb = _at_best(GL), _at_best(HL)
-                if missing:
-                    GLb = torch.where(
-                        dl, _at_best(GL + G[..., miss_id:miss_id + 1]), GLb)
-                    HLb = torch.where(
-                        dl, _at_best(HL + H[..., miss_id:miss_id + 1]), HLb)
+                GLb = _left_at_best(G, GL)
                 GTn, HTn = GT[:, 0, 0], HT[:, 0, 0]
                 wl = _clip(_opt_w(GLb, HLb), node_lo, node_hi)
                 wr = _clip(_opt_w(GTn - GLb, HTn - HLb), node_lo, node_hi)
@@ -385,6 +439,13 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                 # overrides
                 go_right = go_right & ~((row_bin == miss_id) & dl[node])
             node = node * 2 + go_right.to(torch.int64)
+            if depth + 1 < max_depth:
+                # each child's parent id where it is built, else -1: the
+                # next histogram's ids in one gather
+                built_id = torch.where(
+                    torch.stack([~build_right, build_right], dim=1),
+                    parent_id[:n_nodes, None], -1).reshape(-1)
+                hist_node = built_id[node]
 
     n_leaf = 2 ** max_depth
     with telemetry.span("gbdt.leaf", leaves=n_leaf, method=method):

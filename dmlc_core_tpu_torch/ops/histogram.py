@@ -14,6 +14,13 @@ are a numpy copy of the reference's; the device half runs on tensors:
   wrappers of :mod:`.hist_cuda` (K2 and K3; on the card both launch the
   hand-written kernel that builds the node weights in registers).
 
+``models.gbdt._build_tree`` calls :func:`grad_histogram` once a tree
+level: at the root over every row with one node, below it over half the
+level's nodes, the smaller child of each parent (by hessian sum) with the
+parent's id and every other row's id at -1, which adds nothing; it takes
+the larger child as the parent's histogram less the built one (sibling
+subtraction), outside the call.
+
 Under an ambient mesh (``with mesh:``) each rank holds its own rows.
 ``grad_histogram(model_axis=...)`` then takes K4 where the reference's
 ``sharded_hist_plan`` gives a plan, and every other method sums its

@@ -102,6 +102,10 @@ def test_fit_records_the_round_spans_nested(collection, sampled):
                                     "gbdt.route")]
         assert [e["args"]["nodes"] for e in inside
                 if e["name"] == "gbdt.hist"] == [2 ** d for d in range(DEPTH)]
+        # below the root the kernel builds one child of each parent
+        assert [e["args"]["built"] for e in inside
+                if e["name"] == "gbdt.hist"] == [1] + [
+                    2 ** (d - 1) for d in range(1, DEPTH)]
         leaf, = [e for e in inside if e["name"] == "gbdt.leaf"]
         assert leaf["args"]["leaves"] == 2 ** DEPTH
         assert leaf["ts"] >= max(e["ts"] + e["dur"] for e in inside

@@ -196,17 +196,101 @@ def test_handle_missing_model_with_nans(tmp_path):
         _bits(body["predictions"]), _bits(np.asarray(jax_rt.predict(dense))))
 
 
-@pytest.mark.parametrize("seed", [0, 5])
+def _tree_ties(port_tree, jax_tree, bins, g, h, depth):
+    """The nodes where two trees grown from the same margin split apart.
+
+    The port's histograms below the root come by sibling subtraction, with
+    float32 rounding of their own; so where two candidate splits of a node
+    give children of the same sums, a tie in exact arithmetic, rounding
+    picks either.  At such a node both trees must split, and their
+    children must hold the same float64 (G, H) sums in either order:
+    nothing but an exact tie may set them apart.  Every node not below
+    one must split alike, every leaf not below one must hold the same
+    value, and the leaves below one the same values in some order."""
+    p_sf, p_sb, p_lv = (np.asarray(port_tree[i]) for i in range(3))
+    j_sf, j_sb, j_lv = (np.asarray(jax_tree[i]) for i in range(3))
+    rows = np.arange(bins.shape[0])
+    node = np.zeros(bins.shape[0], np.int64)      # by the port's splits
+    below = np.zeros(2 ** (depth + 1) - 1, bool)  # level-order, leaves too
+    ties = []
+    for d in range(depth):
+        for k in range(2 ** d):
+            i = 2 ** d - 1 + k
+            if below[i]:
+                below[2 * i + 1:2 * i + 3] = True
+                continue
+            if p_sf[i] == j_sf[i] and (j_sf[i] < 0 or p_sb[i] == j_sb[i]):
+                continue
+            assert p_sf[i] >= 0 and j_sf[i] >= 0, i
+            held = node == k
+            sums = []
+            for f, b in ((p_sf[i], p_sb[i]), (j_sf[i], j_sb[i])):
+                right = bins[held, f] > b
+                sums.append(sorted((g[held][side].sum(), h[held][side].sum())
+                                   for side in (~right, right)))
+            np.testing.assert_allclose(sums[0], sums[1], rtol=1e-9,
+                                       atol=1e-12, err_msg=str(i))
+            ties.append(i)
+            below[2 * i + 1:2 * i + 3] = True
+        at = 2 ** d - 1 + node
+        node = node * 2 + ((p_sf[at] >= 0)
+                           & (bins[rows, np.maximum(p_sf[at], 0)] > p_sb[at]))
+    leaf = below[2 ** depth - 1:]
+    np.testing.assert_allclose(p_lv[~leaf], j_lv[~leaf], rtol=1e-5,
+                               atol=1e-6)
+    for i in ties:
+        lo = hi = i
+        while lo < 2 ** depth - 1:
+            lo, hi = 2 * lo + 1, 2 * hi + 2
+        span = slice(lo - (2 ** depth - 1), hi - (2 ** depth - 1) + 1)
+        np.testing.assert_allclose(np.sort(p_lv[span]), np.sort(j_lv[span]),
+                                   rtol=1e-5, atol=1e-6)
+    return ties
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 5])
 def test_seeded_runtime_grows_the_jax_trees(seed):
     port = build_runtime("gbdt", 8, seed=seed, device="cpu")
     ref = jax_build_runtime("gbdt", 8, seed=seed)
     np.testing.assert_array_equal(port.gbdt.boundaries, ref.gbdt.boundaries)
-    sf = np.asarray(ref.ensemble.split_feat)
-    np.testing.assert_array_equal(port.ensemble.split_feat.numpy(), sf)
-    np.testing.assert_array_equal(port.ensemble.split_bin.numpy()[sf >= 0],
-                                  np.asarray(ref.ensemble.split_bin)[sf >= 0])
-    np.testing.assert_allclose(port.ensemble.leaf_value.numpy(),
-                               np.asarray(ref.ensemble.leaf_value),
+    # the training rows, drawn as both packages' build_runtime draws them
+    x = np.random.RandomState(seed).normal(size=(256, 8)).astype(np.float32)
+    label = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.float32)
+    weight = np.ones(256, np.float32)
+    bins = port.gbdt.bin_features(x)
+    names = ("split_feat", "split_bin", "leaf_value", "default_left",
+             "split_gain", "split_cover")
+    # every round, from the port's own margin: the JAX package grows the
+    # same tree from it (but at an exact tie) and the same next margin
+    margin = port.gbdt._base_margin(256)
+    ties = {}
+    for t in range(port.ensemble.split_feat.shape[0]):
+        nxt, tree = port.gbdt.boost_round(margin, bins, label, weight)
+        for name, a in zip(names, tree):      # the seeded fit's tree t
+            assert torch.equal(a, getattr(port.ensemble, name)[t]), name
+        j_nxt, j_tree = ref.gbdt.boost_round(margin.numpy(), bins.numpy(),
+                                             label, weight)
+        p = 1.0 / (1.0 + np.exp(-margin.numpy().astype(np.float64)))
+        g, h = p - label, p * (1.0 - p)
+        tied = _tree_ties(tree, j_tree, bins.numpy(), g, h, depth=3)
+        if tied:
+            ties[t] = tied
+        else:
+            np.testing.assert_allclose(nxt.numpy(), np.asarray(j_nxt),
+                                       rtol=1e-5, atol=1e-6)
+        margin = nxt
+    # the one exact tie of these seeds: tree 1's node 6 at seed 0, where
+    # two 5-row children of other rows hold the same gradients
+    assert ties == ({1: [6]} if seed == 0 else {})
+    # both packages' seeded ensembles: every tree before the first tie
+    T = min(ties, default=ref.ensemble.split_feat.shape[0])
+    sf = np.asarray(ref.ensemble.split_feat)[:T]
+    np.testing.assert_array_equal(port.ensemble.split_feat.numpy()[:T], sf)
+    np.testing.assert_array_equal(
+        port.ensemble.split_bin.numpy()[:T][sf >= 0],
+        np.asarray(ref.ensemble.split_bin)[:T][sf >= 0])
+    np.testing.assert_allclose(port.ensemble.leaf_value.numpy()[:T],
+                               np.asarray(ref.ensemble.leaf_value)[:T],
                                rtol=1e-5, atol=1e-6)
 
 

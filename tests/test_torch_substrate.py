@@ -208,7 +208,12 @@ def test_json_object_read_helper_matches_jax():
         assert str(perr.value) == str(jerr.value)
 
 
-def test_json_any_types_byte_equal_in_separate_registries():
+def test_json_any_types_byte_equal_in_separate_registries(monkeypatch):
+    # empty registries for this test alone: test_json_io registers its own
+    # "point" class in the JAX package's, and a worker may run both files
+    for mod in (j_json, p_json):
+        monkeypatch.setattr(mod, "_ANY_BY_NAME", {})
+        monkeypatch.setattr(mod, "_ANY_BY_TYPE", {})
     j_json.register_any_type("point", _JPoint,
                              to_json=lambda p: {"x": p.x, "y": p.y},
                              from_json=lambda d: _JPoint(d["x"], d["y"]))
