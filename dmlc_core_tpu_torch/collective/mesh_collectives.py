@@ -29,6 +29,20 @@ The rows of a fit are split over the ambient mesh's row axes
 (``Mesh.row_axes``: ``("data",)`` on a mesh with a ``data`` axis, or
 what ``with data_sharding(mesh, axis=...)`` names), which
 :func:`data_parallel` and :func:`data_allreduce` read.
+
+Every :class:`MeshCollective` op records the span ``collective.<op>``,
+named as :mod:`.api` names its own: ``collective.sum`` (``max``,
+``min``) for :meth:`~MeshCollective.allreduce` and
+:meth:`~MeshCollective.psum`, ``collective.gather``,
+``collective.reduce_scatter``, ``collective.broadcast``,
+``collective.ppermute`` and ``collective.all_to_all``, with the host
+attributes ``payload_bytes`` (this rank's tensor), ``axis`` and ``ranks``
+(the line's length), and counts ``dmlc_collective_ops_total`` and
+``dmlc_collective_payload_bytes_total`` labelled ``op``.  A fit's
+histogram all-reduce is a ``collective.sum`` inside its level's
+``gbdt.hist`` span, its leaf-sum all-reduce one inside ``gbdt.leaf``
+(:mod:`..models.gbdt`).  With telemetry off and no profiler recording
+an op costs one branch.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.parallel.mesh import Axes, ambient_mesh
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
@@ -67,6 +82,7 @@ class MeshCollective:
         self._ranks = mesh.line_ranks(axis)
         self._via_host = (self._group is not None
                           and dist.get_backend(self._group) == "gloo")
+        self._axis_name = axis if isinstance(axis, str) else ",".join(axis)
 
     def _send(self, x: torch.Tensor) -> torch.Tensor:
         """A private contiguous copy of ``x`` where the backend takes it."""
@@ -74,10 +90,33 @@ class MeshCollective:
             return x.detach().to("cpu", copy=True).contiguous()
         return x.detach().clone().contiguous()
 
+    def _run(self, opname: str, fn, x: torch.Tensor, *args):
+        """``fn(x, *args)`` inside the span ``collective.<opname>`` (host
+        attributes ``payload_bytes``: this rank's ``x``, ``axis``,
+        ``ranks``) with the ``dmlc_collective_ops_total`` and
+        ``dmlc_collective_payload_bytes_total`` counters labelled
+        ``op=opname``; with telemetry off and no profiler recording, one
+        branch and the call.  No latency series: under ``nccl`` the op
+        runs on the card after the call returns, so its time is read from
+        a device trace."""
+        if not telemetry.active():
+            return fn(x, *args)
+        nbytes = x.numel() * x.element_size()
+        with telemetry.span(f"collective.{opname}", payload_bytes=nbytes,
+                            axis=self._axis_name, ranks=self.axis_size):
+            out = fn(x, *args)
+        telemetry.count("dmlc_collective_ops_total", op=opname)
+        telemetry.count("dmlc_collective_payload_bytes_total", nbytes,
+                        op=opname)
+        return out
+
     def allreduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """This rank's shard of the reduction (every shard holds the same
         reduced value): ``op`` in {sum, max, min}."""
         CHECK(op in _OPS, f"unknown op {op!r}")
+        return self._run(op, self._allreduce, x, op)
+
+    def _allreduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         t = self._send(x)
         if self._group is not None:
             dist.all_reduce(t, op=_OPS[op], group=self._group)
@@ -90,6 +129,9 @@ class MeshCollective:
     def allgather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every shard concatenated along ``dim`` in axis-coordinate order
         (the JAX ``all_gather(tiled=True)`` on ``dim``)."""
+        return self._run("gather", self._allgather, x, dim)
+
+    def _allgather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         t = self._send(x)
         if self._group is None:
             return t.to(x.device)
@@ -104,14 +146,21 @@ class MeshCollective:
         CHECK(x.dim() >= 1 and x.shape[0] % self.axis_size == 0,
               f"reduce_scatter needs dim 0 divisible by {self.axis_size}, "
               f"got {tuple(x.shape)}")
+        return self._run("reduce_scatter", self._reduce_scatter, x)
+
+    def _reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         k = x.shape[0] // self.axis_size
-        return self.psum(x)[self.index * k:(self.index + 1) * k].clone()
+        return self._allreduce(x, "sum")[self.index * k:
+                                         (self.index + 1) * k].clone()
 
     def broadcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
         """The shard of the rank at axis coordinate ``root``, on every
         rank."""
         CHECK(0 <= root < self.axis_size,
               f"root {root} out of range for axis size {self.axis_size}")
+        return self._run("broadcast", self._broadcast, x, root)
+
+    def _broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
         t = self._send(x)
         if self._group is not None:
             dist.broadcast(t, src=self._ranks[root], group=self._group)
@@ -122,6 +171,9 @@ class MeshCollective:
         sends ``x`` to coordinate ``(index + shift) % n`` and receives from
         ``(index - shift) % n`` (the JAX ``ppermute`` with the permutation
         ``i -> i + shift``), in one batch of point-to-point ops."""
+        return self._run("ppermute", self._ppermute, x, shift)
+
+    def _ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         n = self.axis_size
         if self._group is None or shift % n == 0:
             return self._send(x).to(x.device)
@@ -142,13 +194,18 @@ class MeshCollective:
         tiled=True)``: ``x`` cut into ``n`` blocks along ``split_dim``,
         block ``j`` sent to coordinate ``j``, and the blocks received
         concatenated along ``concat_dim`` in coordinate order."""
-        n = self.axis_size
-        CHECK(x.shape[split_dim] % n == 0,
+        CHECK(x.shape[split_dim] % self.axis_size == 0,
               f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not "
-              f"split into {n} blocks")
+              f"split into {self.axis_size} blocks")
+        return self._run("all_to_all", self._all_to_all, x, split_dim,
+                         concat_dim)
+
+    def _all_to_all(self, x: torch.Tensor, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
         if self._group is None:
             return self._send(x).to(x.device)
-        src = self._send(torch.stack(torch.chunk(x, n, dim=split_dim)))
+        src = self._send(torch.stack(torch.chunk(x, self.axis_size,
+                                                 dim=split_dim)))
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self._group)
         return torch.cat(out.to(x.device).unbind(0), dim=concat_dim)

@@ -40,8 +40,12 @@ each sampling draw (per tree, and per level inside ``gbdt.split_scan``);
 ``gbdt.predict`` around :meth:`GBDT.predict_margin`.  ``gbdt.hist``
 holds the ``grad_histogram`` call alone; its ``nodes`` is the level's node
 count and ``built`` the count the kernel histograms (1 at the root, half
-the level's below).  Their attributes are host ints and strings: no span
-reads the device.
+the level's below).  Under a mesh whose row axes span more than one rank,
+``gbdt.hist`` also holds the level's histogram all-reduce, and
+``gbdt.leaf`` the leaf sums' all-reduce, each in its own inner
+``collective.sum`` span (:mod:`..collective.mesh_collectives`), so a span's
+self time leaves the all-reduce out.  Their attributes are host ints and
+strings: no span reads the device.
 
 Trees are stored level-order as in the reference: ``split_feat`` /
 ``split_bin`` [2**d - 1] with -1 marking "no split", ``leaf_value``

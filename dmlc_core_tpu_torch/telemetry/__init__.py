@@ -59,7 +59,7 @@ from dmlc_core_tpu_torch.telemetry.registry import (DEFAULT_BUCKETS, Counter, Ga
 from dmlc_core_tpu_torch.telemetry.spans import Span, SpanTracer
 
 __all__ = [
-    "enabled", "enable", "disable", "reset",
+    "enabled", "active", "enable", "disable", "reset",
     "count", "gauge_set", "gauge_add", "observe", "span", "record_span",
     "event",
     "get_registry", "get_tracer",
@@ -127,6 +127,13 @@ class _AnnotatedSpan:
 
 def enabled() -> bool:
     return _enabled
+
+
+def active() -> bool:
+    """Whether a :func:`span` records anything: collection is on, or a
+    ``torch.profiler`` capture is recording.  Sites that compute span
+    attributes check it first, so that both off costs one branch."""
+    return _enabled or _profiling()
 
 
 def enable(flush_dir: Optional[str] = None) -> None:
