@@ -38,13 +38,22 @@ Phases (any failure exits non-zero and prints no result line):
    launches and with its launches counted; the K1, K2 and K3 lines also
    give the dense tensor-core time 2*M*B*F*nbins at 989 TFLOP/s beside
    the bound (for K2 and K3, M = wgmma's N columns of each node block);
+   last, the traversal kernel behind ``GBDT.predict_margin``
+   (``predict_margin_cuda``, ``csrc/predict.cu``) at ``higgs.score``'s
+   shape (4,194,304 rows x 28 uint8 features, 500 full trees of depth 8,
+   256 bins, 5% of nodes unsplit): one launch a call, bitwise equal to its
+   plain version ``predict_margin_ref`` on the same card tensors and over
+   two launches, and its CUDA-event time beside the plain version's and
+   the bound (rows x trees x depth compares at 67 T/s, or the bins read
+   and the scores written once);
 4. GBDT: ``fit_binned`` (10 rounds, depth 6, 256 bins, learning rate 0.3)
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, twice through
    ``hist_method="auto"`` (K2) and once through ``"pallas_fused"`` (K3),
    with launch counts read around that run: K3's kernel on every level of
    the three fits, K1 never, and the ``"auto"`` fit's ensemble and margin
    bitwise equal to the ``"pallas_fused"`` fit's; ``predict`` on 200,000
-   held-out rows; two ``"scatter"`` fits of the same rows (segment sums,
+   held-out rows, one call of the traversal kernel (counted with the
+   fits), its margin bitwise ``predict_margin_ref``'s on the card; two ``"scatter"`` fits of the same rows (segment sums,
    no kernel), bitwise equal; then a 200,000-row fit on the card against
    the same fit on the CPU with the plain versions;
 5. distributed GBDT: four worker processes of this script share the card
@@ -374,9 +383,11 @@ Phases (any failure exits non-zero and prints no result line):
    never synced in this run.
 
 The line before the last is a JSON object with one entry per kernel (K1,
-K3, K4; K2 has no kernel of its own).  Each ``launches`` is the count of
-the main path's run (phase 4 for K1 and K3, phase 5 for K4), with the
-counts set to 0 just before it: K1 is on no main path, so its count is 0
+K3, K4 and the traversal kernel; K2 has no kernel of its own).  Each
+``launches`` is the count of the main path's run (phase 4 for K1, K3 and
+the traversal kernel, phase 5 for K4), with the counts set to 0 just
+before it; the traversal kernel's ``ms``, ``plain_ms`` and ``bound_ms``
+are phase 3's, and no library call computes it (``library_ms`` null): K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
 those of the ingest path, phase 7 those of the serving path, phase 8
 those of the training paths, phase 9 those of the serving tier and
@@ -419,6 +430,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 RAGGED_ROWS = 1_000_003       # K1's and K3's ragged-shape checks
+SCORE_ROWS = 4_194_304        # phase 3's traversal kernel: higgs.score's
+SCORE_TREES = 500             # batch and model (full trees of depth 8)
+SCORE_DEPTH = 8
 N_INGEST = 500_000            # phase 6's libsvm rows (writing and parsing
 N_CSV = 200_000               # 2M rows twice would not fit its ~120 s)
 INGEST_BATCH = 8192
@@ -763,8 +777,68 @@ def phase_kernels():
     _k3_ragged(bins.shape[1], gen)
     print(f"hist_matmul_cuda launches in this phase's checks: "
           f"{hist_cuda.LAUNCHES['hist_matmul_cuda']}", flush=True)
+    del bins, grad, hess
+    torch.cuda.empty_cache()
+    scoring = _predict_kernel(gen)
     # the line reports the depth-6 main path's deepest level (32 nodes)
-    return entries[("K1", 32)], entries[("K3", 32)]
+    return entries[("K1", 32)], entries[("K3", 32)], scoring
+
+
+def _predict_kernel(gen):
+    """The traversal kernel at higgs.score's shape against its plain
+    version on the same card tensors: one launch a call, bitwise equal,
+    bitwise repeatable; its kernels-line entry (launches set by phase 4)."""
+    from dmlc_core_tpu_torch.ops import predict_cuda
+    from dmlc_core_tpu_torch.utils.timer import cuda_event_ms
+
+    dev = torch.device("cuda")
+    B, F, nb = SCORE_ROWS, N_FEATURES, NUM_BINS
+    T, d = SCORE_TREES, SCORE_DEPTH
+    inner = 2 ** d - 1
+    bins = torch.randint(0, nb, (B, F), device=dev, generator=gen,
+                         dtype=torch.int32).to(torch.uint8)
+    split_feat = torch.randint(0, F, (T, inner), device=dev, generator=gen,
+                               dtype=torch.int32)
+    split_feat[torch.rand((T, inner), device=dev, generator=gen) < 0.05] = -1
+    trees = (split_feat,
+             torch.randint(0, nb - 1, (T, inner), device=dev, generator=gen,
+                           dtype=torch.int32),
+             0.1 * torch.randn((T, inner + 1), device=dev, generator=gen),
+             torch.rand((T, inner), device=dev, generator=gen) < 0.5)
+
+    def score():
+        return predict_cuda.predict_margin_cuda(*trees, bins, d, -1, 0.0)
+
+    def score_plain():
+        return predict_cuda.predict_margin_ref(*trees, bins, d, -1, 0.0)
+
+    before = predict_cuda.LAUNCHES["predict_margin_cuda"]
+    got = score()
+    if predict_cuda.LAUNCHES["predict_margin_cuda"] != before + 1:
+        fail(f"predict_margin_cuda: launches went from {before} to "
+             f"{predict_cuda.LAUNCHES['predict_margin_cuda']}, expected one")
+    want = score_plain()
+    if not torch.equal(got, want):
+        fail(f"predict_margin_cuda differs from predict_margin_ref at "
+             f"higgs.score's shape: max abs err "
+             f"{(got - want).abs().max().item():.3g}")
+    if not _bitwise(score):
+        fail("predict_margin_cuda is not bitwise repeatable")
+    ms = cuda_event_ms(score, iters=20, warmup=3)
+    plain_ms = cuda_event_ms(score_plain, iters=2, warmup=1)
+    bound, by = _bound_ms(B * F + 4 * B, B * T * d)
+    plan = predict_cuda.predict_plan(F, d, T)
+    print(f"{'predict_margin_cuda':22s} rows={B} F={F} trees={T} depth={d} "
+          f"bitwise=True (and over two launches) ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
+          f"rows_per_s={B / ms * 1e3:.4e} plan={tuple(plan)}", flush=True)
+    return dict(
+        name="predict_margin_cuda", route="cuda",
+        source="dmlc_core_tpu_torch/csrc/predict.cu",
+        replaces="none (XLA ops: dmlc_core_tpu/models/gbdt.py _route_tree, "
+                 "_predict_fn)",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None)
 
 
 def _dense_tc_ms(m, rows, features, num_bins):
@@ -867,7 +941,7 @@ def _same_tree(a, b, t):
 def phase_gbdt(card):
     from dmlc_core_tpu_torch.bridge.binning import HostBinner
     from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
-    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.ops import hist_cuda, predict_cuda
     from dmlc_core_tpu_torch.ops.histogram import resolve_hist_method
     from dmlc_core_tpu_torch.utils.timer import device_time
 
@@ -894,13 +968,14 @@ def phase_gbdt(card):
 
     # the main path: counts set to 0 just before, read just after
     hist_cuda.reset_launches()
+    predict_cuda.reset_launches()
     fits = []
     for m in (model, model, fused):
         (ens, margin), sec = device_time(m.fit_binned, bins, y_tr)
         fits.append((ens, margin, sec))
     prob = model.predict(fits[1][0], held)
     torch.cuda.synchronize()
-    launches = dict(hist_cuda.LAUNCHES)
+    launches = dict(hist_cuda.LAUNCHES, **predict_cuda.LAUNCHES)
 
     need = ROUNDS * MAX_DEPTH
     print(f"hist method {method!r}; launches on the main path {launches} "
@@ -911,6 +986,9 @@ def phase_gbdt(card):
     if launches["hist_matmul_cuda"] != 0:
         fail(f"K1 launched {launches['hist_matmul_cuda']} times on the main "
              f"path, expected 0")
+    if launches["predict_margin_cuda"] != 1:
+        fail(f"predict launched the traversal kernel "
+             f"{launches['predict_margin_cuda']} times, expected once")
     for (ens, margin, sec), label in zip(
             fits, ("auto/K2 cold", "auto/K2 warm", "pallas_fused/K3")):
         if margin.shape != (N_ROWS,) or not torch.isfinite(margin).all():
@@ -931,6 +1009,14 @@ def phase_gbdt(card):
         fail("the auto fit differs from the pallas_fused fit")
     if prob.shape != (N_HELDOUT,) or not torch.isfinite(prob).all():
         fail("bad held-out predictions")
+    trees = [a.to(dt).contiguous() for a, dt in zip(
+        fits[1][0][:4], (torch.int32, torch.int32, torch.float32,
+                         torch.bool))]
+    plain = predict_cuda.predict_margin_ref(
+        *trees, held, MAX_DEPTH, -1, model.param.base_score)
+    if not torch.equal(model.predict_margin(fits[1][0], held), plain):
+        fail("the held-out margin differs from predict_margin_ref's")
+    print("held-out margin bitwise predict_margin_ref's on the card")
     held_acc = ((prob > 0.5).float() == y_te).float().mean().item()
     print(f"held-out accuracy {held_acc:.4f} on {N_HELDOUT} rows")
     if held_acc < 0.8:
@@ -5490,10 +5576,11 @@ def main():
         fail(f"no dmlc_core_tpu_torch package beside {__file__}")
     sys.path.insert(0, here)
     phase_build(card)
-    k1, k3 = phase_kernels()
+    k1, k3, kp = phase_kernels()
     launches, ref = phase_gbdt(card)
     k1["launches"] = launches["hist_matmul_cuda"]     # 0: K1 is off the path
     k3["launches"] = launches["grad_hist_fused_cuda"]
+    kp["launches"] = launches["predict_margin_cuda"]
     k4 = phase_distributed(card)
     phase_ingest(card, ref)
     serve_rate = phase_serve(card, ref)
@@ -5522,7 +5609,7 @@ def main():
         replaces="dmlc_core_tpu/ops/hist_pallas.py:350",
         launches=k4["launches"], max_abs_err=k4["max_abs_err"],
         ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-        bound_by=k4["bound_by"], library_ms=k4["library_ms"])]
+        bound_by=k4["bound_by"], library_ms=k4["library_ms"]), kp]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))

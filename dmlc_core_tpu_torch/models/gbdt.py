@@ -72,6 +72,9 @@ from dmlc_core_tpu_torch.collective.mesh_collectives import (MeshCollective,
                                                          data_allreduce,
                                                          data_parallel)
 from dmlc_core_tpu_torch.ops import hist_cuda
+from dmlc_core_tpu_torch.ops.predict_cuda import (per_tree,
+                                                  predict_margin_cuda,
+                                                  predict_tree, route_tree)
 from dmlc_core_tpu_torch.ops.histogram import (
     apply_bins, as_tensor, bin_onehot, distributed_quantile_boundaries,
     grad_histogram, resolve_hist_method)
@@ -82,6 +85,9 @@ from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
 __all__ = ["GBDTParam", "TreeEnsemble", "GBDT"]
+
+# the name portbench's reference tests route one tree by
+_route_tree = route_tree
 
 
 class GBDTParam(Parameter):
@@ -573,42 +579,6 @@ def _softmax_round(p, bins, margin, label, weight, rnd: int, grow,
         torch.stack([t[i] for t in trees]) for i in range(6))
 
 
-def _route_tree(split_feat, split_bin, default_left, bins, max_depth: int,
-                miss_id: int = -1):
-    """Leaf slot of every row in one tree.  ``miss_id >= 0`` sends rows
-    whose split feature carries that bin the node's default way."""
-    B = bins.shape[0]
-    node = torch.zeros((B,), dtype=torch.int64, device=bins.device)
-    for depth in range(max_depth):
-        idx = 2 ** depth - 1 + node
-        sf = split_feat[idx].to(torch.int64)
-        sb = split_bin[idx]
-        row_bin = torch.gather(bins, 1, sf.clamp(min=0)[:, None])[:, 0]
-        row_bin = row_bin.to(torch.int32)
-        go_right = (row_bin > sb) & (sf >= 0)
-        if miss_id >= 0:
-            go_right = go_right & ~((row_bin == miss_id) & default_left[idx])
-        node = node * 2 + go_right.to(torch.int64)
-    return node
-
-
-def _predict_tree(split_feat, split_bin, leaf_value, default_left, bins,
-                  max_depth: int, miss_id: int = -1):
-    """Route every row down one tree and read its leaf value."""
-    return leaf_value[_route_tree(split_feat, split_bin, default_left, bins,
-                                  max_depth, miss_id)]
-
-
-def _per_tree(fn, arrays, multiclass: bool):
-    """Apply a per-tree function over one round's arrays, stacking the K
-    class trees on axis 1 for softmax ensembles."""
-    if multiclass:
-        K = arrays[0].shape[0]
-        return torch.stack([fn(*(a[k] for a in arrays)) for k in range(K)],
-                           dim=1)
-    return fn(*arrays)
-
-
 class GBDT:
     """Histogram gradient-boosted trees over binned dense features.
 
@@ -848,25 +818,27 @@ class GBDT:
 
     def predict_margin(self, ensemble: TreeEnsemble, bins):
         """Sum of the trees' leaf values plus ``base_score`` per row
-        ([B], or [B, K] for softmax)."""
+        ([B], or [B, K] for softmax): on the card one call of the traversal
+        kernel (:func:`..ops.predict_cuda.predict_margin_cuda`), on the CPU
+        its plain version, tree by tree (``method`` on the span says
+        which)."""
         d = self.param.max_depth
         miss_id = self.param.num_bins - 1 if self.param.handle_missing \
             else -1
         bins = self._bins(bins)
-        trees = [as_tensor(a, self.device) for a in ensemble[:4]]
-        multiclass = trees[0].dim() == 3
-        shape = (bins.shape[0], trees[0].shape[1]) if multiclass \
-            else (bins.shape[0],)
+        # the kernel sends rows left at a split on a feature past the bins'
+        # width, where the plain version raises: hold the width first
+        CHECK(bins.dim() == 2 and bins.shape[1] == self.num_feature,
+              f"bins must be [B, {self.num_feature}] (the model's "
+              f"num_feature), got {list(bins.shape)}")
+        trees = [as_tensor(a, self.device, dt).contiguous() for a, dt in
+                 zip(ensemble[:4], (torch.int32, torch.int32, torch.float32,
+                                    torch.bool))]
+        method = "ref" if bins.device.type == "cpu" else "cuda"
         with telemetry.span("gbdt.predict", trees=trees[0].shape[0],
-                            rows=bins.shape[0]):
-            out = torch.full(shape, self.param.base_score,
-                             dtype=torch.float32, device=self.device)
-            for t in range(trees[0].shape[0]):
-                out = out + _per_tree(
-                    lambda sf, sb, lv, dl: _predict_tree(sf, sb, lv, dl, bins,
-                                                         d, miss_id),
-                    [a[t] for a in trees], multiclass)
-        return out
+                            rows=bins.shape[0], method=method):
+            return predict_margin_cuda(*trees, bins, d, miss_id,
+                                       self.param.base_score)
 
     def predict(self, ensemble: TreeEnsemble, bins):
         margin = self.predict_margin(ensemble, bins)
@@ -895,8 +867,8 @@ class GBDT:
             else -1
 
         def one_tree(sf, sb, lv, dl, bins):
-            return _predict_tree(sf, sb, lv, dl, self._bins(bins), d,
-                                 miss_id)
+            return predict_tree(sf, sb, lv, dl, self._bins(bins), d,
+                                miss_id)
 
         return one_tree
 
@@ -946,7 +918,7 @@ class GBDT:
                      "train_loss": float(_logloss(margin, label,
                                                   p.objective))}
             if eval_margin is not None:
-                eval_margin = eval_margin + _per_tree(
+                eval_margin = eval_margin + per_tree(
                     lambda sf, sb, lv, dl: tree_margin(sf, sb, lv, dl,
                                                        eval_bins),
                     tree[:4], K > 1)
@@ -975,7 +947,7 @@ class GBDT:
         margin = self._base_margin(bins.shape[0])
         losses = []
         for t in range(trees[0].shape[0]):
-            margin = margin + _per_tree(
+            margin = margin + per_tree(
                 lambda sf, sb, lv, dl: tree_margin(sf, sb, lv, dl, bins),
                 [a[t] for a in trees], trees[0].dim() == 3)
             losses.append(metric_fn(margin, label))
@@ -995,8 +967,8 @@ class GBDT:
                  (ensemble.split_feat, ensemble.split_bin,
                   ensemble.default_left)]
         multiclass = trees[0].dim() == 3
-        ids = [_per_tree(
-            lambda sf, sb, dl: _route_tree(sf, sb, dl, bins, d, miss_id),
+        ids = [per_tree(
+            lambda sf, sb, dl: route_tree(sf, sb, dl, bins, d, miss_id),
             [a[t] for a in trees], multiclass)
             for t in range(trees[0].shape[0])]
         if not ids:

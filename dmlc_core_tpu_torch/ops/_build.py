@@ -2,7 +2,10 @@
 
 The library is compiled at first use from every ``csrc/*.cu`` in the
 checkout (one ``nvcc`` call) into ``build/torch_kernels/libdmlc_hist.so``
-under the repository root (listed in ``.gitignore``), and rebuilt when any
+under the repository root (listed in ``.gitignore``; the name is the first
+kernel's, and the one library holds every source's entries, the traversal
+kernel's of ``predict.cu`` too, with one error-string entry,
+``dmlc_hist_error_string``, for all of them), and rebuilt when any
 ``csrc/*.cu`` or ``csrc/*.cuh`` is newer than the library.  The sources
 have a plain C interface and include no PyTorch header, so the build takes
 seconds.  Nothing here runs at import time: the CPU tests import
@@ -26,7 +29,7 @@ __all__ = ["load_library", "BUILD_INFO", "SOURCE", "LIBRARY", "sources",
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCE = os.path.join(CSRC, "hist.cu")     # the kernels and their C entries
+SOURCE = os.path.join(CSRC, "hist.cu")     # the histogram kernels
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libdmlc_hist.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,7 +50,7 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA histogram kernels cannot be built")
+                       "the CUDA kernels cannot be built")
 
 
 def sources(csrc: str = CSRC) -> List[str]:
@@ -103,6 +106,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, ll, i, i, i, i, i,
                                          ll, i, p, p, p]
     lib.dmlc_grad_hist_fused.restype = i
+    # predict.cu: dmlc_predict_margin(bins, bins_u8, num_rows, num_feature,
+    #   split_feat, split_bin, default_left, leaf_value, num_trees,
+    #   num_class, depth, miss_id, base, bins_smem, trees_per_tile, packed,
+    #   out, stream)
+    lib.dmlc_predict_rows.argtypes = []
+    lib.dmlc_predict_rows.restype = i
+    lib.dmlc_predict_margin.argtypes = [p, i, ll, i, p, p, p, p, i, i, i, i,
+                                        ctypes.c_float, i, i, p, p, p]
+    lib.dmlc_predict_margin.restype = i
     return lib
 
 

@@ -91,6 +91,8 @@ def build_all(out_dir):
     with open(_build.SOURCE, encoding="utf-8") as fh:
         src = fh.read()
     os.makedirs(out_dir, exist_ok=True)
+    # the other kernels, unchanged, so that the variant binds like the library
+    others = [f for f in _build.sources() if f != _build.SOURCE]
     procs = {}
     for name, edits in EDITS.items():
         text = src
@@ -100,7 +102,7 @@ def build_all(out_dir):
         with open(cu, "w", encoding="utf-8") as f:
             f.write(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-               os.path.join(out_dir, f"{name}.so"), cu]
+               os.path.join(out_dir, f"{name}.so"), cu, *others]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs, logs = {}, {}

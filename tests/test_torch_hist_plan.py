@@ -356,4 +356,5 @@ def test_build_compiles_every_source_and_tracks_headers(tmp_path):
     # an edited header alone makes the library stale
     os.utime(csrc / "c.cuh", (2_000_000_100, 2_000_000_100))
     assert _build.stale(str(lib), str(csrc))
-    assert _build.sources() == [_build.SOURCE]
+    assert _build.sources() == [
+        _build.SOURCE, os.path.join(_build.CSRC, "predict.cu")]
