@@ -22,7 +22,7 @@ Phases (any failure exits non-zero and prints no result line):
    against their plain PyTorch version on the card (rtol 1e-4, atol 1e-3:
    f32 sums in another order), bitwise repeatability of two launches (and
    of the plain version, whose segment sums are atomics-free), and
-   CUDA-event times beside the bound and one ``index_add_`` over
+   CUDA-event times beside one ``index_add_`` over
    precomputed flat ids (the scatter formulation); at 32 nodes also both
    on the column window 14..27 read in place (row stride 28, offset 14)
    against the plain version on a copy, bitwise over two launches; K1
@@ -35,17 +35,15 @@ Phases (any failure exits non-zero and prints no result line):
    16 bins with bins out of range in int32; windows 14..27, 2..4 and
    4..7; tensors at an offset in their allocations, so both the bulk and
    the cp.async copies), each against its plain version, bitwise over two
-   launches and with its launches counted; the K1, K2 and K3 lines also
-   give the dense tensor-core time 2*M*B*F*nbins at 989 TFLOP/s beside
-   the bound (for K2 and K3, M = wgmma's N columns of each node block);
-   last, the traversal kernel behind ``GBDT.predict_margin``
-   (``predict_margin_cuda``, ``csrc/predict.cu``) at ``higgs.score``'s
-   shape (4,194,304 rows x 28 uint8 features, 500 full trees of depth 8,
-   256 bins, 5% of nodes unsplit): one launch a call, bitwise equal to its
-   plain version ``predict_margin_ref`` on the same card tensors and over
-   two launches, and its CUDA-event time beside the plain version's and
-   the bound (rows x trees x depth compares at 67 T/s, or the bins read
-   and the scores written once);
+   launches and with its launches counted; last, the traversal kernel
+   behind ``GBDT.predict_margin`` (``predict_margin_cuda``,
+   ``csrc/predict.cu``) at ``higgs.score``'s shape (4,194,304 rows x 28
+   uint8 features, 500 full trees of depth 8, 256 bins, 5% of nodes
+   unsplit): one launch a call, bitwise equal to its plain version
+   ``predict_margin_ref`` on the same card tensors and over two launches,
+   and its CUDA-event time beside the plain version's
+   (``portbench/metrics/hist_roofline.py`` and ``score_mfu.py`` hold the
+   kernels' bounds);
 4. GBDT: ``fit_binned`` (10 rounds, depth 6, 256 bins, learning rate 0.3)
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, twice through
    ``hist_method="auto"`` (K2) and once through ``"pallas_fused"`` (K3),
@@ -68,7 +66,7 @@ Phases (any failure exits non-zero and prints no result line):
    launch on every level, the global accuracy must reach 0.8, and a
    single-process card fit with the same edges must grow the same first
    tree.  Inside the workers K4 at 32 nodes is held against the plain
-   histogram of the whole global array and timed beside its bound and the
+   histogram of the whole global array and timed beside the
    collectives.  Then one worker with world size 1 over NCCL fits 200,000
    rows with ``model_axis`` and must match the plain card fit bitwise;
 6. ingest: the first 500,000 of phase 4's training rows are written as
@@ -386,7 +384,7 @@ The line before the last is a JSON object with one entry per kernel (K1,
 K3, K4 and the traversal kernel; K2 has no kernel of its own).  Each
 ``launches`` is the count of the main path's run (phase 4 for K1, K3 and
 the traversal kernel, phase 5 for K4), with the counts set to 0 just
-before it; the traversal kernel's ``ms``, ``plain_ms`` and ``bound_ms``
+before it; the traversal kernel's ``ms`` and ``plain_ms``
 are phase 3's, and no library call computes it (``library_ms`` null): K1 is on no main path, so its count is 0
 (phase 3 prints its launches there on a line of their own, and phase 6
 those of the ingest path, phase 7 those of the serving path, phase 8
@@ -426,9 +424,6 @@ MESH = {"data": 2, "model": 2}
 QUANTILE_SAMPLE = 50_000      # rows per shard the bin edges are fit on
 WORKER_TIMEOUT_S = 420       # wall clock of each phase-5 launch
 COLLECTIVE_TIMEOUT_S = 300   # a dead peer fails the run after this
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
-BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 RAGGED_ROWS = 1_000_003       # K1's and K3's ragged-shape checks
 SCORE_ROWS = 4_194_304        # phase 3's traversal kernel: higgs.score's
 SCORE_TREES = 500             # batch and model (full trees of depth 8)
@@ -617,13 +612,6 @@ def phase_build(card):
           flush=True)
 
 
-def _bound_ms(nbytes, ops):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def _max_err(got, want):
     return max((a - b).abs().max().item() for a, b in zip(got, want))
 
@@ -659,7 +647,6 @@ def phase_kernels():
     for n in (1, 32, 256):
         node = torch.randint(-1, n, (B,), device=dev, generator=gen,
                              dtype=torch.int32)
-        live = int(((node >= 0) & (node < n)).sum().item())
         # the scatter formulation as one library call: flat ids for G and H
         ids = (node.long()[:, None] * (F * nb)
                + torch.arange(F, device=dev)[None, :] * nb + bins.long())
@@ -681,13 +668,6 @@ def phase_kernels():
                  f"repeatable at n={n}")
         # K2 and K3 compute one function: bins, node/g/h in, (G, H) out;
         # both run K3's kernel with one plan
-        nbytes = B * F + 12 * B + 2 * n * F * nb * 4
-        bound, by = _bound_ms(nbytes, 2 * live * F)
-        # K3's product: one-hot [64 slices bins, B] x rows [B, N] per node
-        # block, N = plan.cols (G and H of each node of a block)
-        plan = hist_cuda.grad_hist_fused_plan(n, B, F, nb, 1)
-        cols = plan.cols * plan.m_blocks
-        dense_tc = _dense_tc_ms(cols, B, F, 64 * plan.slices)
         cases = [("grad_hist_cuda", lambda: hist_cuda.grad_hist_cuda(*args),
                   lambda: hist_cuda.grad_hist_ref(*args)),
                  ("grad_hist_fused_cuda",
@@ -711,16 +691,15 @@ def phase_kernels():
             plain_ms = cuda_event_ms(ref, iters=3, warmup=1)
             print(f"{name:22s} n={n:3d} max_abs_err={err:.3g} (rtol {RTOL}, "
                   f"atol {ATOL}) bitwise={same} ms={ms:.3f} "
-                  f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
-                  f"dense_tc_ms={dense_tc:.4f} (N={plan.cols} x "
-                  f"{plan.m_blocks}) library_ms={library_ms:.3f}", flush=True)
+                  f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f}",
+                  flush=True)
             if name == "grad_hist_fused_cuda":
                 entries[("K3", n)] = dict(
                     name="grad_hist_fused_cuda", route="cuda",
                     source="dmlc_core_tpu_torch/csrc/hist.cu",
                     replaces="dmlc_core_tpu/ops/hist_pallas.py:250",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=library_ms)
+                    library_ms=library_ms)
         if n == 32:
             # the column window K4 hands the kernels: columns 14..27 of the
             # 28-column rows, read in place (row stride 28, offset 14)
@@ -757,19 +736,15 @@ def phase_kernels():
             plain_ms = cuda_event_ms(
                 lambda: hist_cuda.hist_matmul_ref(w, bins, nb), iters=3,
                 warmup=1)
-            nbytes = 2 * M * B + B * F + M * F * nb * 4
-            bound, by = _bound_ms(nbytes, M * B * F)
             print(f"{'hist_matmul_cuda':22s} n={n:3d} M={M} max_abs_err="
                   f"{err:.3g} bitwise=True ms={ms:.3f} plain_ms="
-                  f"{plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
-                  f"dense_tc_ms={_dense_tc_ms(M, B, F, nb):.4f} "
-                  f"library_ms={library_ms:.3f}", flush=True)
+                  f"{plain_ms:.3f} library_ms={library_ms:.3f}", flush=True)
             entries[("K1", n)] = dict(
                 name="hist_matmul_cuda", route="cuda",
                 source="dmlc_core_tpu_torch/csrc/hist.cu",
                 replaces="dmlc_core_tpu/ops/hist_pallas.py:148",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=library_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms)
             del w, got, ref_out
         del node, want
         torch.cuda.empty_cache()
@@ -826,26 +801,17 @@ def _predict_kernel(gen):
         fail("predict_margin_cuda is not bitwise repeatable")
     ms = cuda_event_ms(score, iters=20, warmup=3)
     plain_ms = cuda_event_ms(score_plain, iters=2, warmup=1)
-    bound, by = _bound_ms(B * F + 4 * B, B * T * d)
     plan = predict_cuda.predict_plan(F, d, T)
     print(f"{'predict_margin_cuda':22s} rows={B} F={F} trees={T} depth={d} "
           f"bitwise=True (and over two launches) ms={ms:.3f} "
-          f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}) "
-          f"rows_per_s={B / ms * 1e3:.4e} plan={tuple(plan)}", flush=True)
+          f"plain_ms={plain_ms:.3f} rows_per_s={B / ms * 1e3:.4e} "
+          f"plan={tuple(plan)}", flush=True)
     return dict(
         name="predict_margin_cuda", route="cuda",
         source="dmlc_core_tpu_torch/csrc/predict.cu",
         replaces="none (XLA ops: dmlc_core_tpu/models/gbdt.py _route_tree, "
                  "_predict_fn)",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=None)
-
-
-def _dense_tc_ms(m, rows, features, num_bins):
-    """A product [M, B] x onehot[B, F*nbins] (K1's W; K3's g/h columns,
-    M = N x node blocks) done densely on the tensor cores at their peak:
-    the time the tensor-core formulation needs."""
-    return 1e3 * 2 * m * rows * features * num_bins / BF16_TC_OPS_PER_S
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None)
 
 
 def _k1_ragged(F, gen):
@@ -1183,11 +1149,9 @@ def phase_distributed(card):
         correct = sum(f["correct"] for r, f in zip(ranks, fits)
                       if r["coord"]["model"] == 0)
         acc = correct / N_ROWS
-        stages = {k: round(v, 4) for k, v in fits[0]["stages"].items()}
         print(f"{method}: 4 ranks bitwise identical; rank 0 fit "
-              f"{fits[0]['seconds']:.3f} s (stages timed: {stages} s), "
-              f"launches {fits[0]['launches']}, global train acc "
-              f"{acc:.4f} [{card}]", flush=True)
+              f"{fits[0]['seconds']:.3f} s, launches {fits[0]['launches']}, "
+              f"global train acc {acc:.4f} [{card}]", flush=True)
         if acc < 0.8:
             fail(f"{method}: global train accuracy {acc:.4f} < 0.8")
         single = GBDT(GBDTParam(hist_method=method, **param),
@@ -1315,11 +1279,6 @@ def _k4_check(mesh, rank, lo, hi):
         res["library_ms"] = cuda_event_ms(lambda: acc.index_add_(0, flat,
                                                                  src),
                                           iters=5, warmup=1)
-        live = int((ln >= 0).sum().item())
-        nbytes = rows * f_count + 12 * rows + 2 * n * f_count * nb * 4
-        res["bound_ms"], res["bound_by"] = _bound_ms(nbytes,
-                                                     2 * live * f_count)
-        res["bound_bytes"] = nbytes
         return res
 
     res = _time_serially(rank, alone)
@@ -1365,15 +1324,13 @@ def worker_main(mode, outdir):
         model.set_boundaries(bounds)
         # the main path: counts set to 0 just before, read just after
         hist_cuda.reset_launches()
-        hist_cuda.STAGE_SECONDS = {}
         with mesh:
             (ens, margin), sec = device_time(model.fit_binned, bins, y_t)
-        stages, hist_cuda.STAGE_SECONDS = hist_cuda.STAGE_SECONDS, None
         launches = dict(hist_cuda.LAUNCHES)
         if launches["grad_hist_sharded_cuda"] < ROUNDS * MAX_DEPTH:
             fail(f"{method}: K4 launched {launches} times")
         result["fits"][method] = dict(
-            ensemble=_ensemble_arrays(ens), seconds=sec, stages=stages,
+            ensemble=_ensemble_arrays(ens), seconds=sec,
             launches=launches,
             correct=int(((margin > 0).float() == y_t).sum().item()))
         print(f"rank {rank} {method}: fit {sec:.3f} s, launches {launches}",
@@ -5608,10 +5565,10 @@ def main():
         source="dmlc_core_tpu_torch/csrc/hist.cu",
         replaces="dmlc_core_tpu/ops/hist_pallas.py:350",
         launches=k4["launches"], max_abs_err=k4["max_abs_err"],
-        ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-        bound_by=k4["bound_by"], library_ms=k4["library_ms"]), kp]
+        ms=k4["ms"], plain_ms=k4["plain_ms"], library_ms=k4["library_ms"]),
+        kp]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ recompiles on every request.
     ``.astype(np.float32)``, ``torch.as_tensor(..., dtype=...)``,
     ``np.asarray(..., dtype=...)``) and then reaches a copy to the card
     (or an accounted place function) within one function.  Ship the narrow
-    dtype and widen on the card (``models/gbdt.py _widen_bins``).
+    dtype and widen on the card (``ops/histogram.py kernel_bins``).
 
 ``torchbound-rebuilt-per-call``
     The counterpart of ``jit-in-hot-path``: ``torch.compile``,
@@ -327,7 +327,7 @@ def _check_wide_wire(ctx: FileContext, names: _Names,
                 f"{carried} carries binned (narrow-wire) data widened to "
                 "a float dtype before the copy to the card — this "
                 "re-inflates the wire ~4x; ship the narrow dtype and widen "
-                "on the card (models/gbdt.py _widen_bins)"))
+                "on the card (ops/histogram.py kernel_bins)"))
     return findings
 
 

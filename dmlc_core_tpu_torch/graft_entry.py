@@ -275,10 +275,10 @@ def _dryrun_rank(n: int, device) -> Dict[str, Any]:
                                     num_bins=num_bins, hist_method="pallas"),
                           num_feature=F, model_axis="model", device=dev)
             gbdt_p.set_boundaries(gbdt.boundaries)
-            method = gbdt_p._method(bins)
-            CHECK(method == "pallas",
+            plan = gbdt_p._fit_inputs(bins, label, weight)[3]
+            CHECK(plan.mesh is not None,
                   f"K4's plan refused {F // model_par} columns a shard at "
-                  f"{num_bins} bins (method {method!r})")
+                  f"{num_bins} bins (method {plan.method!r})")
             before = hist_cuda.LAUNCHES["grad_hist_sharded_cuda"]
             pm, _ = gbdt_p.boost_round(margin, bins, label, weight)
             CHECK(bool(torch.isfinite(pm).all()),

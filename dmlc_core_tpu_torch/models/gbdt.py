@@ -69,15 +69,13 @@ from dmlc_core_tpu_torch.bridge.checkpoint import (host_array,
                                                    load_checkpoint,
                                                    save_checkpoint)
 from dmlc_core_tpu_torch.collective.mesh_collectives import (MeshCollective,
-                                                         data_allreduce,
                                                          data_parallel)
-from dmlc_core_tpu_torch.ops import hist_cuda
 from dmlc_core_tpu_torch.ops.predict_cuda import (per_tree,
                                                   predict_margin_cuda,
                                                   predict_tree, route_tree)
 from dmlc_core_tpu_torch.ops.histogram import (
-    apply_bins, as_tensor, bin_onehot, distributed_quantile_boundaries,
-    grad_histogram, resolve_hist_method)
+    apply_bins, as_tensor, distributed_quantile_boundaries, grad_histogram,
+    hist_plan, kernel_bins, leaf_sums)
 from dmlc_core_tpu_torch.param import Parameter, field
 from dmlc_core_tpu_torch.parallel.mesh import ambient_mesh
 from dmlc_core_tpu_torch.utils import threefry
@@ -164,13 +162,6 @@ class TreeEnsemble(NamedTuple):
         return self.split_feat.shape[0]
 
 
-def _widen_bins(bins):
-    """uint8 bins stay narrow (the kernels load them natively); any other
-    integer dtype widens to int32 on the device."""
-    return bins if bins.dtype in (torch.uint8, torch.int32) \
-        else bins.to(torch.int32)
-
-
 def _grad_hess(margin, label, objective: str):
     if objective == "logistic":
         p = 1.0 / (1.0 + torch.exp(-margin))
@@ -252,19 +243,19 @@ def _children(parent, built, build_right):
 
 def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                 min_child_weight: float, learning_rate: float,
-                model_axis: Optional[str] = None, method: str = "scatter",
-                onehot=None,
-                min_split_loss: float = 0.0, feat_mask=None,
+                method="scatter", min_split_loss: float = 0.0, feat_mask=None,
                 missing: bool = False,
                 reg_alpha: float = 0.0, monotone=None, level_mask_fn=None,
                 max_delta_step: float = 0.0):
     """Grow one tree level by level; returns (split_feat, split_bin,
     leaf_value, default_left, split_gain, split_cover, margin_delta).
 
-    ``feat_mask`` ([F] bool) disables features for the whole tree
-    (colsample_bytree); ``level_mask_fn(depth, n_nodes, feat_mask)`` gives
-    the [n_nodes, F] mask of one level (colsample_bylevel/bynode), drawn
-    from the tree's survivors.
+    ``method`` is the call's :class:`..ops.histogram.HistPlan`, or a
+    method name, planned here without ``model_axis``.  ``feat_mask`` ([F]
+    bool) disables features for the whole tree (colsample_bytree);
+    ``level_mask_fn(depth, n_nodes, feat_mask)`` gives the [n_nodes, F]
+    mask of one level (colsample_bylevel/bynode), drawn from the tree's
+    survivors.
 
     ``missing=True`` scores every candidate twice from the same cumsums,
     with the missing bin (``num_bins - 1``) right and left, and stores the
@@ -285,12 +276,13 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     cancellation, small against its own sums.
 
     Under an ambient mesh the histograms and leaf sums cover every rank's
-    rows (``model_axis`` shards the histogram's features), so the split
-    scan sees the same sums, picks the same splits and builds the same
-    children on every rank; rows are routed locally.
+    rows (a plan with K4's mesh shards the histogram's features), so the
+    split scan sees the same sums, picks the same splits and builds the
+    same children on every rank; rows are routed locally.
     """
     dev = bins.device
     B, F = bins.shape
+    plan = hist_plan(method, bins, num_bins, num_nodes=2 ** (max_depth - 1))
     n_internal = 2 ** max_depth - 1
     split_feat = torch.full((n_internal,), -1, dtype=torch.int32, device=dev)
     split_bin = torch.zeros((n_internal,), dtype=torch.int32, device=dev)
@@ -329,10 +321,9 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
         level_off = n_nodes - 1
         built = max(n_nodes // 2, 1)
         with telemetry.span("gbdt.hist", depth=depth, nodes=n_nodes,
-                            built=built, method=method):
+                            built=built, method=plan.method):
             Gb, Hb = grad_histogram(bins, hist_node, g, h, built, num_bins,
-                                    model_axis=model_axis, method=method,
-                                    onehot=onehot, device=dev)
+                                    method=plan, device=dev)
         if depth == 0:
             G, H = Gb, Hb                                    # [n, F, nbins]
         else:
@@ -458,20 +449,8 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
                 hist_node = built_id[node]
 
     n_leaf = 2 ** max_depth
-    with telemetry.span("gbdt.leaf", leaves=n_leaf, method=method):
-        if method in ("onehot", "pallas", "pallas_fused"):
-            # leaf sums as a small f32 matmul, as the reference does for its
-            # matmul-shaped methods (deterministic on the card, unlike float
-            # atomics)
-            leafhot = (node[:, None] == torch.arange(n_leaf, device=dev)
-                       ).to(torch.float32)                   # [B, n_leaf]
-            sums = torch.matmul(leafhot.t(), torch.stack([g, h], dim=1))
-        else:
-            # the reference's segment_sum, atomics-free on the card too
-            sums = hist_cuda.segment_sum(torch.stack([g, h], dim=1), node,
-                                         n_leaf)
-        # every data shard's rows
-        Gl, Hl = data_allreduce(sums[:, 0], sums[:, 1])
+    with telemetry.span("gbdt.leaf", leaves=n_leaf, method=plan.method):
+        Gl, Hl = leaf_sums(plan, node, g, h, n_leaf)     # every rank's rows
         leaf_w = -_l1_threshold(Gl, reg_alpha) / (Hl + reg_lambda)
         if max_delta_step > 0.0:
             leaf_w = torch.clamp(leaf_w, -max_delta_step, max_delta_step)
@@ -642,23 +621,6 @@ class GBDT:
                           device=self.device)
 
     # -- internals -----------------------------------------------------------
-    def _method(self, bins) -> str:
-        """The histogram method of a fit, decided from the shapes and the
-        ambient mesh only, so every rank takes the same one.  With
-        ``model_axis`` the kernel methods keep the kernel (K4) where the
-        reference's sharded plan holds at the deepest level, and fall back
-        to ``"onehot"`` where it does not."""
-        method = resolve_hist_method(self.param.hist_method, bins)
-        if method in ("pallas", "pallas_fused") \
-                and self.model_axis is not None:
-            deepest = 2 ** (self.param.max_depth - 1)
-            mesh = hist_cuda.sharded_hist_plan(
-                self.model_axis, self.num_feature, deepest,
-                self.param.num_bins)
-            if mesh is None:
-                method = "onehot"
-        return method
-
     def _row_offset(self, rows: int) -> int:
         """Global index of this rank's first row: rows shard over the
         ambient mesh's row axes in coordinate order, so the offset is
@@ -672,17 +634,18 @@ class GBDT:
         return int(counts[:mesh.coord(mesh.row_axes)].sum())
 
     def _bins(self, bins):
-        return _widen_bins(as_tensor(bins, self.device)).contiguous()
+        return kernel_bins(as_tensor(bins, self.device))
 
     def _rows(self, v, n: int):
         if v is None:
             return torch.ones(n, dtype=torch.float32, device=self.device)
         return as_tensor(v, self.device, torch.float32)
 
-    def _round(self, margin, bins, label, weight, method: str, onehot,
-               rnd: int, offset: int = 0):
-        """Round ``rnd``: its draws, then its tree (K trees for softmax).
-        ``offset`` is this rank's first global row (:meth:`_row_offset`)."""
+    def _round(self, margin, bins, label, weight, plan, rnd: int,
+               offset: int = 0):
+        """Round ``rnd``: its draws, then its tree (K trees for softmax),
+        its histograms by ``plan``.  ``offset`` is this rank's first global
+        row (:meth:`_row_offset`)."""
         p = self.param
         B, F = bins.shape
         with telemetry.span("gbdt.round", round=int(rnd), rows=B, features=F):
@@ -691,8 +654,7 @@ class GBDT:
             def grow(bins_, g, h, fmask):
                 return _build_tree(
                     bins_, g, h, p.max_depth, p.num_bins, p.reg_lambda,
-                    p.min_child_weight, p.learning_rate, self.model_axis,
-                    method=method, onehot=onehot,
+                    p.min_child_weight, p.learning_rate, method=plan,
                     min_split_loss=p.min_split_loss, feat_mask=fmask,
                     missing=p.handle_missing, reg_alpha=p.reg_alpha,
                     monotone=self._monotone, level_mask_fn=level_mask_fn,
@@ -714,20 +676,24 @@ class GBDT:
         return self.param.num_class if self.param.objective == "softmax" \
             else 1
 
+    def _check_labels(self, label, what: str = "labels") -> None:
+        """Softmax labels lie in ``[0, num_class)`` (a host read)."""
+        if self.param.objective == "softmax":
+            _check_softmax_labels(label, self.param.num_class, what)
+
     def _fit_inputs(self, bins, label, weight):
-        """The tensors, method and bin one-hot every fit starts from."""
+        """What every training call starts from, made once a call: the
+        tensors, the weight, the histogram plan (decided from the shapes
+        and the ambient mesh only, so every rank takes the same one; K4's
+        gate is held at the deepest level) and this rank's row offset."""
         p = self.param
-        if p.objective == "softmax":
-            _check_softmax_labels(label, p.num_class)
         bins = self._bins(bins)
         label = as_tensor(label, self.device, torch.float32)
         weight = _apply_pos_weight(self._rows(weight, bins.shape[0]), label,
                                    p)
-        method = self._method(bins)
-        # the bin one-hot is invariant across rounds and levels
-        onehot = bin_onehot(bins, p.num_bins) if method == "onehot" else None
-        return (bins, label, weight, method, onehot,
-                self._row_offset(bins.shape[0]))
+        plan = hist_plan(p.hist_method, bins, p.num_bins, self.model_axis,
+                         2 ** (p.max_depth - 1))
+        return bins, label, weight, plan, self._row_offset(bins.shape[0])
 
     def _base_margin(self, rows: int):
         K = self._k()
@@ -738,16 +704,11 @@ class GBDT:
     # -- public API ----------------------------------------------------------
     def fit_binned(self, bins, label, weight=None
                    ) -> Tuple[TreeEnsemble, Any]:
-        """Train on pre-binned features; returns (ensemble, final margin)."""
-        bins, label, weight, method, onehot, offset = self._fit_inputs(
-            bins, label, weight)
-        margin = self._base_margin(bins.shape[0])
-        trees = []
-        for r in range(self.param.num_boost_round):
-            margin, tree = self._round(margin, bins, label, weight, method,
-                                       onehot, r, offset)
-            trees.append(tree)
-        return _stack_trees(trees), margin
+        """Train on pre-binned features; returns (ensemble, final margin):
+        ``num_boost_round`` rounds appended to no ensemble."""
+        self._check_labels(label)
+        return self.append_rounds(None, bins, label, weight,
+                                  num_rounds=self.param.num_boost_round)
 
     def boost_round(self, margin, bins, label, weight,
                     round_index: Optional[int] = None):
@@ -764,16 +725,10 @@ class GBDT:
                   "colsample_by* are enabled (each tree must draw fresh "
                   "subsets)")
             round_index = 0
-        bins = self._bins(bins)
-        label = as_tensor(label, self.device, torch.float32)
-        weight = _apply_pos_weight(self._rows(weight, bins.shape[0]), label,
-                                   self.param)
-        margin = as_tensor(margin, self.device, torch.float32)
-        method = self._method(bins)
-        onehot = (bin_onehot(bins, self.param.num_bins)
-                  if method == "onehot" else None)
-        return self._round(margin, bins, label, weight, method, onehot,
-                           round_index, self._row_offset(bins.shape[0]))
+        bins, label, weight, plan, offset = self._fit_inputs(bins, label,
+                                                             weight)
+        return self._round(as_tensor(margin, self.device, torch.float32),
+                           bins, label, weight, plan, round_index, offset)
 
     def append_rounds(self, ensemble: Optional[TreeEnsemble], bins, label,
                       weight=None, *, num_rounds: int = 1, margin=None,
@@ -784,18 +739,21 @@ class GBDT:
         is seeded from the ensemble's own predictions unless given.
         ``start_round`` keys the sampling draws of the first new round and
         defaults to ``ensemble.num_trees`` (0 for ``ensemble=None``), so
-        appended trees continue a fresh fit's draw sequence."""
+        appended trees continue a fresh fit's draw sequence.  The inputs
+        are set up once for every round of the call."""
         CHECK(num_rounds >= 1, "append_rounds needs num_rounds >= 1")
-        bins = self._bins(bins)
+        bins, label, weight, plan, offset = self._fit_inputs(bins, label,
+                                                             weight)
         if margin is None:
             margin = (self._base_margin(bins.shape[0]) if ensemble is None
                       else self.predict_margin(ensemble, bins))
+        margin = as_tensor(margin, self.device, torch.float32)
         if start_round is None:
             start_round = 0 if ensemble is None else ensemble.num_trees
         new = []
         for r in range(num_rounds):
-            margin, tree = self.boost_round(margin, bins, label, weight,
-                                            round_index=start_round + r)
+            margin, tree = self._round(margin, bins, label, weight, plan,
+                                       start_round + r, offset)
             new.append(tree)
 
         def cat(old, i):
@@ -895,10 +853,11 @@ class GBDT:
         """
         p = self.param
         K = self._k()
-        if K > 1 and eval_label is not None:
-            _check_softmax_labels(eval_label, K, what="eval labels")
-        bins, label, weight, method, onehot, offset = self._fit_inputs(
-            bins, label, weight)
+        if eval_label is not None:
+            self._check_labels(eval_label, what="eval labels")
+        self._check_labels(label)
+        bins, label, weight, plan, offset = self._fit_inputs(bins, label,
+                                                             weight)
         metric_fn = _eval_metric_fn(eval_metric, p.objective)
         margin = self._base_margin(bins.shape[0])
         eval_margin = None
@@ -911,8 +870,8 @@ class GBDT:
         stopper = _EarlyStop(early_stopping_rounds)
         tree_margin = self._tree_margin_fn()
         for r in range(p.num_boost_round):
-            margin, tree = self._round(margin, bins, label, weight, method,
-                                       onehot, r, offset)
+            margin, tree = self._round(margin, bins, label, weight, plan, r,
+                                       offset)
             trees.append(tree)
             entry = {"round": r,
                      "train_loss": float(_logloss(margin, label,
@@ -937,8 +896,7 @@ class GBDT:
         learning curve, post hoc).  ``metric``: loss (the objective's own)
         | error | rmse | mae.  float32 [num_trees]."""
         p = self.param
-        if p.objective == "softmax":
-            _check_softmax_labels(label, p.num_class)
+        self._check_labels(label)
         metric_fn = _eval_metric_fn(metric, p.objective)
         bins = self._bins(bins)
         label = as_tensor(label, self.device, torch.float32)

@@ -52,9 +52,7 @@ raises.  ``LAUNCHES[name]`` counts kernel launches.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -68,17 +66,11 @@ __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
            "grad_hist_fused_ref", "grad_hist_sharded_ref", "scatter_sums",
            "segment_sum", "node_weights", "hist_node_block",
            "hist_matmul_plan", "grad_hist_fused_plan", "sharded_hist_plan",
-           "kernels_available", "reset_launches", "LAUNCHES",
-           "STAGE_SECONDS", "TILE"]
+           "kernels_available", "reset_launches", "LAUNCHES", "TILE"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"hist_matmul_cuda": 0, "grad_hist_fused_cuda": 0,
                             "grad_hist_sharded_cuda": 0}
-
-# seconds grad_hist_sharded_cuda spends in each stage ("kernel",
-# "all_reduce", "all_gather"), summed while this is a dict; None, the
-# default, times nothing.  Timing synchronises the card around each stage.
-STAGE_SECONDS: Optional[Dict[str, float]] = None
 
 TILE = 256               # rows a CTA stages per step (kTile in hist.cu)
 _SMEM_BYTES = 232448     # dynamic shared memory one block may use on sm_90
@@ -574,21 +566,6 @@ def sharded_hist_plan(model_axis: Optional[str], num_feature: int,
     return mesh
 
 
-@contextlib.contextmanager
-def _stage(name: str):
-    if STAGE_SECONDS is None:
-        yield
-        return
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    start = time.perf_counter()
-    yield
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    STAGE_SECONDS[name] = (STAGE_SECONDS.get(name, 0.0)
-                           + time.perf_counter() - start)
-
-
 def _shard_window(bins, mesh, model_axis: str) -> Tuple[int, int]:
     f_count = bins.shape[1] // mesh.shape[model_axis]
     return mesh.coord(model_axis) * f_count, f_count
@@ -601,10 +578,8 @@ def _shard_collectives(G, H, mesh, model_axis: str):
     order (what GSPMD does before the split scan)."""
     gh = torch.stack([G, H])                         # [2, n, F/mp, nbins]
     if mesh.row_axes:
-        with _stage("all_reduce"):
-            gh = MeshCollective(mesh, mesh.row_axes).psum(gh)
-    with _stage("all_gather"):
-        gh = MeshCollective(mesh, model_axis).allgather(gh, dim=2)
+        gh = MeshCollective(mesh, mesh.row_axes).psum(gh)
+    gh = MeshCollective(mesh, model_axis).allgather(gh, dim=2)
     return gh[0], gh[1]
 
 
@@ -642,9 +617,8 @@ def grad_hist_sharded_cuda(bins, node_ids, grad, hess, num_nodes: int,
                                      num_bins, mesh, model_axis)
     _check_cuda(bins)
     f_offset, f_count = _shard_window(bins, mesh, model_axis)
-    with _stage("kernel"):
-        G, H = grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
-                                    num_bins, f_offset, f_count)
+    G, H = grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
+                                num_bins, f_offset, f_count)
     LAUNCHES["grad_hist_sharded_cuda"] += 1
     return _shard_collectives(G, H, mesh, model_axis)
 

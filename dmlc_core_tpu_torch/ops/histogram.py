@@ -14,7 +14,10 @@ are a numpy copy of the reference's; the device half runs on tensors:
   wrappers of :mod:`.hist_cuda` (K2 and K3; on the card both launch the
   hand-written kernel that builds the node weights in registers).
 
-``models.gbdt._build_tree`` calls :func:`grad_histogram` once a tree
+:func:`hist_plan` makes every decision of a training call once: the
+method (``"auto"`` resolved), K4's gate, the bin one-hot and how the
+leaves are summed (:func:`leaf_sums`).  ``models.gbdt`` plans once a call
+and hands the plan to :func:`grad_histogram`, which it calls once a tree
 level: at the root over every row with one node, below it over half the
 level's nodes, the smaller child of each parent (by hessian sum) with the
 parent's id and every other row's id at -1, which adds nothing; it takes
@@ -22,7 +25,7 @@ the larger child as the parent's histogram less the built one (sibling
 subtraction), outside the call.
 
 Under an ambient mesh (``with mesh:``) each rank holds its own rows.
-``grad_histogram(model_axis=...)`` then takes K4 where the reference's
+With ``model_axis`` the kernel methods take K4 where the reference's
 ``sharded_hist_plan`` gives a plan, and every other method sums its
 histogram over the mesh's ``data`` group; :func:`distributed_quantile_
 boundaries` gives every rank the same bin edges.
@@ -31,7 +34,7 @@ boundaries` gives every rank the same bin edges.
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,7 +45,8 @@ from dmlc_core_tpu_torch.utils.device import resolve_device
 from dmlc_core_tpu_torch.utils.logging import CHECK
 
 __all__ = ["quantile_boundaries", "apply_bins", "grad_histogram",
-           "bin_onehot", "resolve_hist_method", "local_quantile_summary",
+           "bin_onehot", "resolve_hist_method", "HistPlan", "hist_plan",
+           "leaf_sums", "kernel_bins", "local_quantile_summary",
            "merged_quantile_boundaries", "distributed_quantile_boundaries",
            "data_allreduce", "as_tensor"]
 
@@ -80,6 +84,46 @@ def bin_onehot(bins, num_bins: int, dtype=torch.bfloat16):
     B, F = bins.shape
     iota = torch.arange(num_bins, device=bins.device)
     return (bins[:, :, None] == iota).to(dtype).reshape(B, F * num_bins)
+
+
+class HistPlan(NamedTuple):
+    """How a training call builds its histograms and leaf sums."""
+
+    method: str                 # one of METHODS, never "auto"
+    onehot: Any                 # the bin one-hot for "onehot", else None
+    mesh: Any                   # K4's mesh, else None
+    model_axis: Optional[str]   # the axis K4 shards features over
+    leaf_matmul: bool           # leaf sums by matmul, else segment sums
+
+
+def hist_plan(method, bins, num_bins: int, model_axis: Optional[str] = None,
+              num_nodes: int = 1, onehot=None) -> HistPlan:
+    """Every histogram decision of a training call, made once from the
+    method name, the bins' device and width and the ambient mesh (so every
+    rank makes the same): ``"auto"`` resolved (:func:`resolve_hist_method`);
+    with ``model_axis``, the kernel methods as K4 where
+    :func:`.hist_cuda.sharded_hist_plan` gives a mesh (at ``num_nodes``,
+    which does not change its answer), else ``"onehot"``; the bin one-hot
+    for ``"onehot"`` (``onehot`` if given), built once for every level and
+    round; the leaf sums as the reference sums them for the method (a
+    matmul, or the segment sum for ``"scatter"``).  A :class:`HistPlan`
+    passed as ``method`` is returned as it is."""
+    if isinstance(method, HistPlan):
+        return method
+    method = resolve_hist_method(method, bins)
+    mesh = None
+    if method in ("pallas", "pallas_fused") and model_axis is not None:
+        mesh = hist_cuda.sharded_hist_plan(model_axis, bins.shape[1],
+                                           num_nodes, num_bins)
+        if mesh is None:
+            method = "onehot"
+    if method != "onehot":
+        onehot = None
+    elif onehot is None:
+        onehot = bin_onehot(bins, num_bins)
+    return HistPlan(method, onehot, mesh,
+                    model_axis if mesh is not None else None,
+                    method != "scatter")
 
 
 def _strictly_increasing(bounds: np.ndarray) -> np.ndarray:
@@ -213,16 +257,17 @@ def apply_bins(x, boundaries, missing_bin: Optional[int] = None,
     return ids.contiguous()
 
 
-def _kernel_bins(bins):
-    """uint8 bins reach the kernels as they are; other dtypes widen to
-    int32 on the device."""
+def kernel_bins(bins):
+    """Bins as the kernels take them, contiguous: uint8 and int32 as they
+    are (the wire stays narrow), any other integer dtype widened to int32
+    on the device."""
     if bins.dtype in (torch.uint8, torch.int32):
         return bins.contiguous()
     return bins.to(torch.int32).contiguous()
 
 
 def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
-                   model_axis: Optional[str] = None, method: str = "scatter",
+                   model_axis: Optional[str] = None, method="scatter",
                    onehot=None, device=None):
     """Per-(node, feature, bin) gradient/hessian sums.
 
@@ -237,7 +282,9 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
         :func:`.hist_cuda.sharded_hist_plan` gives a plan, else
         ``"onehot"`` on all features, as the reference does.
       method: ``"scatter"`` (exact f32), ``"onehot"``, ``"pallas"`` (K2),
-        ``"pallas_fused"`` (K3) or ``"auto"``.
+        ``"pallas_fused"`` (K3) or ``"auto"``; or a :class:`HistPlan`
+        from :func:`hist_plan`, which has decided ``model_axis`` and
+        ``onehot`` already.
       onehot: optional precomputed :func:`bin_onehot` for ``"onehot"``.
       device: where to run; ``cuda`` unless ``device="cpu"``.
 
@@ -247,49 +294,59 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
     Returns (G, H): each [num_nodes, F, num_bins] float32.
     """
     dev = resolve_device(device)
-    bins = _kernel_bins(as_tensor(bins, dev))
+    bins = kernel_bins(as_tensor(bins, dev))
     node_ids = as_tensor(node_ids, dev, torch.int32).contiguous()
     grad = as_tensor(grad, dev, torch.float32).contiguous()
     hess = as_tensor(hess, dev, torch.float32).contiguous()
-    B, F = bins.shape
-    method = resolve_hist_method(method, bins)
-    if method in ("pallas", "pallas_fused") and model_axis is not None:
-        mesh = hist_cuda.sharded_hist_plan(model_axis, F, num_nodes,
-                                           num_bins)
-        if mesh is None:
-            method = "onehot"
-        else:
-            return hist_cuda.grad_hist_sharded_cuda(
-                bins, node_ids, grad, hess, num_nodes, num_bins, mesh,
-                model_axis)
+    plan = hist_plan(method, bins, num_bins, model_axis, num_nodes, onehot)
+    if plan.mesh is not None:
+        return hist_cuda.grad_hist_sharded_cuda(
+            bins, node_ids, grad, hess, num_nodes, num_bins, plan.mesh,
+            plan.model_axis)
     return data_allreduce(*_local_histogram(
-        bins, node_ids, grad, hess, num_nodes, num_bins, method, onehot))
+        bins, node_ids, grad, hess, num_nodes, num_bins, plan))
 
 
 def _local_histogram(bins, node_ids, grad, hess, num_nodes: int,
-                     num_bins: int, method: str, onehot):
-    """(G, H) of this rank's rows by ``method``, over all F features."""
+                     num_bins: int, plan: HistPlan):
+    """(G, H) of this rank's rows by the plan's method, over all F
+    features."""
     B, F = bins.shape
-    dev = bins.device
-    if method == "pallas":
+    if plan.method == "pallas":
         return hist_cuda.grad_hist_cuda(bins, node_ids, grad, hess,
                                         num_nodes, num_bins)
-    if method == "pallas_fused":
+    if plan.method == "pallas_fused":
         return hist_cuda.grad_hist_fused_cuda(bins, node_ids, grad, hess,
                                               num_nodes, num_bins)
-    if method == "onehot":
-        if onehot is None:
-            onehot = bin_onehot(bins, num_bins)
-        dt = onehot.dtype
+    if plan.method == "onehot":
+        dt = plan.onehot.dtype
         nodehot = (node_ids[:, None] == torch.arange(
-            num_nodes, dtype=torch.int32, device=dev)).to(dt)
+            num_nodes, dtype=torch.int32, device=bins.device)).to(dt)
         # [B, 2n]: per-row node one-hot weighted by g (first n) and h
         w = torch.cat([nodehot * grad[:, None].to(dt),
                        nodehot * hess[:, None].to(dt)], dim=1)
         # bf16 x bf16 products are exact in f32; the sums stay f32
         gh = torch.matmul(w.to(torch.float32).t(),
-                          onehot.to(torch.float32))      # [2n, F*nbins]
+                          plan.onehot.to(torch.float32))  # [2n, F*nbins]
         gh = gh.reshape(2, num_nodes, F, num_bins)
         return gh[0], gh[1]
     return hist_cuda.scatter_sums(bins, node_ids, grad, hess, num_nodes,
                                   num_bins)
+
+
+def leaf_sums(plan: HistPlan, node, grad, hess, num_leaves: int):
+    """Per-leaf (G, H), each [num_leaves] f32 over every rank's rows (summed
+    over the mesh's row axes): ``node`` [B] is each row's leaf.  The plan
+    says how: an f32 one-hot matmul, as the reference sums leaves for its
+    matmul-shaped methods (deterministic on the card, unlike float
+    atomics), or the reference's segment sum, atomics-free on the card
+    too.  The (g, h) pairs are stacked only once the one-hot exists, so
+    they do not add to the peak of memory its compare and cast reach."""
+    if plan.leaf_matmul:
+        leafhot = (node[:, None] == torch.arange(
+            num_leaves, device=node.device)).to(torch.float32)
+        sums = torch.matmul(leafhot.t(), torch.stack([grad, hess], dim=1))
+    else:
+        sums = hist_cuda.segment_sum(torch.stack([grad, hess], dim=1), node,
+                                     num_leaves)
+    return data_allreduce(sums[:, 0], sums[:, 1])

@@ -232,6 +232,50 @@ def test_append_rounds_matches_jax():
                                rtol=1e-5, atol=1e-5)
 
 
+ENTRY_SAMPLING = {
+    "plain": dict(),
+    "sampled": dict(subsample=0.8, colsample_bytree=0.8,
+                    colsample_bylevel=0.8, seed=9),
+}
+
+
+@pytest.mark.parametrize("sampling", sorted(ENTRY_SAMPLING))
+@pytest.mark.parametrize("method", ["auto", "scatter", "onehot", "pallas",
+                                    "pallas_fused"])
+def test_training_entry_points_grow_the_same_bits(method, sampling):
+    """The four training entry points share one set-up and one round:
+    ``fit_binned``, ``append_rounds`` in one call and in two (the margin
+    carried), ``boost_round`` round by round and ``fit_with_eval`` without
+    an eval set grow the same trees and margins, bitwise."""
+    rounds = 3
+    x, y = _data(n=300, seed=8)
+    pm = GBDT(GBDTParam(num_boost_round=rounds, max_depth=3, num_bins=16,
+                        hist_method=method, scale_pos_weight=1.5,
+                        **ENTRY_SAMPLING[sampling]),
+              N_FEATURE, device="cpu")
+    pm.make_bins(x)
+    bins = pm.bin_features(x)
+    weight = np.random.RandomState(2).rand(len(y)).astype(np.float32) + 0.5
+    fit, fit_margin = pm.fit_binned(bins, y, weight)
+    one, one_margin = pm.append_rounds(None, bins, y, weight,
+                                       num_rounds=rounds)
+    first, margin = pm.append_rounds(None, bins, y, weight, num_rounds=1)
+    two, two_margin = pm.append_rounds(first, bins, y, weight,
+                                       num_rounds=rounds - 1, margin=margin)
+    margin, trees = torch.zeros(len(y)), []
+    for r in range(rounds):
+        margin, tree = pm.boost_round(margin, bins, y, weight, round_index=r)
+        trees.append(tree)
+    stepped = [torch.stack([t[i] for t in trees]) for i in range(6)]
+    evaled, history = pm.fit_with_eval(bins, y, weight=weight)
+    assert [h["round"] for h in history] == list(range(rounds))
+    for ens in (one, two, stepped, evaled):
+        for a, b in zip(fit, ens):
+            assert torch.equal(a, b)
+    for m in (one_margin, two_margin, margin):
+        assert torch.equal(fit_margin, m)
+
+
 def test_param_loads_jax_dict_unchanged():
     jp = JaxParam(max_depth=5, hist_method="pallas_fused", reg_alpha=0.25,
                   handle_missing=True, monotone_constraints="(1,0)")

@@ -8,6 +8,8 @@ rtol 1e-6 (f32 sums in another order); the bf16 methods to rtol/atol 1e-5
 (the same bf16 inputs, only the f32 summation order differs).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -194,7 +196,6 @@ def test_model_axis_takes_k4_plain_version(monkeypatch):
         return plain(*args, **kwargs)
 
     monkeypatch.setattr(hist_cuda, "grad_hist_sharded_ref", spy)
-    monkeypatch.setattr(hist_cuda, "STAGE_SECONDS", {})
     hist_cuda.reset_launches()
     with make_mesh({"data": 1, "model": 1}):
         got = port_hist.grad_histogram(*_t(bins, node, g, h), 3, 8,
@@ -202,11 +203,97 @@ def test_model_axis_takes_k4_plain_version(monkeypatch):
                                        device="cpu")
     assert len(calls) == 1
     assert set(hist_cuda.LAUNCHES.values()) == {0}
-    # the collectives are timed when asked; the plain version has no kernel
-    assert set(hist_cuda.STAGE_SECONDS) == {"all_reduce", "all_gather"}
     want = hist_cuda.grad_hist_ref(*_t(bins, node, g, h), 3, 8)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+class _CardBins(torch.Tensor):
+    """CPU bins that report the card as their device: what ``"auto"``
+    decides from, without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+# name: method, bins' device, model_axis, ambient mesh, bins width and bin
+# count, then the plan: method, whether K4 runs
+PLAN_TABLE = {
+    "auto on the CPU": ("auto", "cpu", None, None, (4, 8), "scatter", False),
+    "auto on the card": ("auto", "cuda", None, None, (4, 8), "pallas",
+                         False),
+    "pallas": ("pallas", "cpu", None, None, (4, 8), "pallas", False),
+    "pallas_fused": ("pallas_fused", "cpu", None, None, (4, 8),
+                     "pallas_fused", False),
+    "onehot": ("onehot", "cpu", None, None, (4, 8), "onehot", False),
+    "scatter": ("scatter", "cpu", None, None, (4, 8), "scatter", False),
+    "pallas on K4": ("pallas", "cpu", "model", {"data": 1, "model": 1},
+                     (4, 8), "pallas", True),
+    "pallas_fused on K4": ("pallas_fused", "cpu", "model",
+                           {"data": 1, "model": 1}, (4, 8), "pallas_fused",
+                           True),
+    "pallas, no mesh": ("pallas", "cpu", "model", None, (4, 8), "onehot",
+                        False),
+    "pallas_fused, axis not in the mesh": (
+        "pallas_fused", "cpu", "tensor", {"data": 1, "model": 1}, (4, 8),
+        "onehot", False),
+    # the reference's 8-node accumulator outgrows its budget at this width
+    "pallas, too wide a shard": ("pallas", "cpu", "model",
+                                 {"data": 1, "model": 1}, (130, 1024),
+                                 "onehot", False),
+    "onehot with model_axis": ("onehot", "cpu", "model",
+                               {"data": 1, "model": 1}, (4, 8), "onehot",
+                               False),
+    "scatter with model_axis": ("scatter", "cpu", "model",
+                                {"data": 1, "model": 1}, (4, 8), "scatter",
+                                False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_TABLE))
+def test_hist_plan_decision_table(monkeypatch, case):
+    """``hist_plan`` resolves the method, holds K4's gate, carries the bin
+    one-hot and picks the leaf-sum formulation, once; and its leaf sums
+    are the per-leaf sums of g and h."""
+    from dmlc_core_tpu_torch.parallel.mesh import make_mesh
+
+    method, where, axis, mesh_axes, (F, nb), want, k4 = PLAN_TABLE[case]
+    probes = []
+    monkeypatch.setattr(hist_cuda, "kernels_available",
+                        lambda: probes.append(1) or True)
+    gen = torch.Generator().manual_seed(3)
+    bins = torch.randint(0, nb, (16, F), generator=gen, dtype=torch.int32)
+    if where == "cuda":
+        bins = bins.as_subclass(_CardBins)
+    mesh = make_mesh(mesh_axes) if mesh_axes else None
+    with mesh if mesh is not None else contextlib.nullcontext():
+        plan = port_hist.hist_plan(method, bins, nb, axis, num_nodes=32)
+    assert plan.method == want
+    assert len(probes) == (where == "cuda" and method == "auto")
+    assert (plan.mesh is mesh) if k4 else plan.mesh is None
+    assert plan.model_axis == (axis if k4 else None)
+    if want == "onehot":
+        assert torch.equal(plan.onehot, port_hist.bin_onehot(bins, nb))
+    else:
+        assert plan.onehot is None
+    # the matmul-shaped methods sum leaves by matmul, "scatter" by segments
+    assert plan.leaf_matmul == (want != "scatter")
+    assert port_hist.hist_plan(plan, bins, nb, axis) is plan
+    if where == "cpu":
+        node = torch.randint(-1, 5, (16,), generator=gen)
+        g, h = torch.randn(16, generator=gen), torch.rand(16, generator=gen)
+        G, H = port_hist.leaf_sums(plan, node, g, h, 4)
+        for got, v in ((G, g), (H, h)):
+            want_sums = torch.stack([v[node == i].sum() for i in range(4)])
+            torch.testing.assert_close(got, want_sums, rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_hist_plan_refuses_unknown_methods():
+    bins = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(RuntimeError):
+        port_hist.hist_plan("bogus", bins, 8)
 
 
 # -- the kernels' plain versions vs the Pallas kernels (interpret mode) ------

@@ -128,6 +128,86 @@ def test_port_rule_catches_the_jax_native_build():
                    for n in ast.walk(ast.parse(code))) == names, code
 
 
+HIST_METHODS = ("pallas", "pallas_fused", "onehot", "scatter")
+
+
+def _hist_layering_leaks(tree, methods=HIST_METHODS + ("auto",),
+                         imports=True):
+    """What in a module's AST takes a histogram decision that belongs to
+    ``ops/histogram.py``: a comparison with a ``hist_method`` name and,
+    with ``imports``, an import of ``ops.hist_cuda``, of ``bin_onehot`` or
+    of ``resolve_hist_method``."""
+    def strings(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+        elif isinstance(node, (ast.Tuple, ast.List, ast.Set)):
+            for e in node.elts:
+                yield from strings(e)
+
+    leaks = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) and imports:
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and imports:
+            names = [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Compare):
+            operands = [node.left] + node.comparators
+            if set(methods) & {v for o in operands for v in strings(o)}:
+                leaks.append(ast.unparse(node))
+            continue
+        else:
+            continue
+        leaks += [n for n in names
+                  if n.endswith(("ops.hist_cuda", ".bin_onehot",
+                                 ".resolve_hist_method"))
+                  or ".ops.hist_cuda." in n]
+    return leaks
+
+
+def test_model_layer_leaves_the_histogram_path_to_the_op_layer():
+    """``models/gbdt.py`` takes its histogram plan and leaf sums from
+    ``ops/histogram.py``: it imports nothing from ``ops.hist_cuda``,
+    neither ``bin_onehot`` nor ``resolve_hist_method``, and compares no
+    method name."""
+    path = os.path.join(PKG, "models", "gbdt.py")
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    assert _hist_layering_leaks(tree) == []
+
+
+def test_only_the_op_layer_branches_on_a_hist_method():
+    """No module of the port but ``ops/histogram.py`` compares a
+    ``hist_method`` name (``"auto"`` names other things too)."""
+    leaks = {}
+    for path in _package_files():
+        if path == os.path.join(PKG, "ops", "histogram.py"):
+            continue
+        tree = ast.parse(open(path, encoding="utf-8").read(), path)
+        found = _hist_layering_leaks(tree, HIST_METHODS, imports=False)
+        if found:
+            leaks[os.path.relpath(path, REPO)] = found
+    assert leaks == {}
+
+
+def test_histogram_layering_rule_catches_a_leak():
+    for code, caught in (
+            ("from dmlc_core_tpu_torch.ops import hist_cuda", True),
+            ("import dmlc_core_tpu_torch.ops.hist_cuda", True),
+            ("from dmlc_core_tpu_torch.ops.hist_cuda import segment_sum",
+             True),
+            ("from dmlc_core_tpu_torch.ops.histogram import bin_onehot",
+             True),
+            ("from dmlc_core_tpu_torch.ops.histogram import "
+             "resolve_hist_method", True),
+            ('if method in ("onehot", "pallas"): pass', True),
+            ('x = plan.method == "scatter"', True),
+            ('x = method != "auto"', True),
+            ("from dmlc_core_tpu_torch.ops.histogram import hist_plan",
+             False),
+            ('x = objective == "logistic"', False),
+            ('methods = ["pallas", "scatter"]', False)):
+        assert bool(_hist_layering_leaks(ast.parse(code))) == caught, code
+
+
 # what a spawned parse worker imports (``data.parse_proc`` rebuilds the
 # parsers by module path) and the host-side packages around it
 WORKER_MODULES = ("dmlc_core_tpu_torch", "dmlc_core_tpu_torch.data",
