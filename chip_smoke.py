@@ -35,7 +35,13 @@ Phases (any failure exits non-zero and prints no result line):
    16 bins with bins out of range in int32; windows 14..27, 2..4 and
    4..7; tensors at an offset in their allocations, so both the bulk and
    the cp.async copies), each against its plain version, bitwise over two
-   launches and with its launches counted; last, the traversal kernel
+   launches and with its launches counted; K3's listed mode (a level below
+   the root: ``row_partition``'s list exactly its plain version's, the
+   listed launch against the plain version and the dense launch at 1, 8,
+   32, 64 and 129 built nodes on the ragged rows, and at 2, 4 and 16 on
+   phase 4's 2,000,000 x 28 uint8, the built counts of its levels below
+   the root; the partition's CUDA-event time at 16 beside its plain
+   version's); last, the traversal kernel
    behind ``GBDT.predict_margin`` (``predict_margin_cuda``,
    ``csrc/predict.cu``) at ``higgs.score``'s shape (4,194,304 rows x 28
    uint8 features, 500 full trees of depth 8, 256 bins, 5% of nodes
@@ -48,7 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
    on 2,000,000 HIGGS-shaped rows binned to the uint8 wire, twice through
    ``hist_method="auto"`` (K2) and once through ``"pallas_fused"`` (K3),
    with launch counts read around that run: K3's kernel on every level of
-   the three fits, K1 never, and the ``"auto"`` fit's ensemble and margin
+   the three fits, K1 never, the row partition once on every level below
+   the root (K3's listed mode: 3 x 10 x 5), and the ``"auto"`` fit's
+   ensemble and margin
    bitwise equal to the ``"pallas_fused"`` fit's; ``predict`` on 200,000
    held-out rows, one call of the traversal kernel (counted with the
    fits), its margin bitwise ``predict_margin_ref``'s on the card; two ``"scatter"`` fits of the same rows (segment sums,
@@ -381,15 +389,16 @@ Phases (any failure exits non-zero and prints no result line):
    never synced in this run.
 
 The line before the last is a JSON object with one entry per kernel (K1,
-K3, K4 and the traversal kernel; K2 has no kernel of its own).  Each
-``launches`` is the count of the main path's run (phase 4 for K1, K3 and
-the traversal kernel, phase 5 for K4), with the counts set to 0 just
-before it; the traversal kernel's ``ms`` and ``plain_ms``
-are phase 3's, and no library call computes it (``library_ms`` null): K1 is on no main path, so its count is 0
-(phase 3 prints its launches there on a line of their own, and phase 6
-those of the ingest path, phase 7 those of the serving path, phase 8
-those of the training paths, phase 9 those of the serving tier and
-phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
+K3, K4, the row partition and the traversal kernel; K2 has no kernel of
+its own).  Each ``launches`` is the count of the main path's run (phase 4
+for K1, K3, the row partition and the traversal kernel, phase 5 for K4),
+with the counts set to 0 just before it; the row partition's and the
+traversal kernel's ``ms`` and ``plain_ms`` are phase 3's, and no library
+call computes either (``library_ms`` null): K1 is on no main path, so its
+count is 0 (phase 3 prints its launches there on a line of their own,
+and phase 6 those of the ingest path, phase 7 those of the serving
+path, phase 8 those of the training paths, phase 9 those of the serving
+tier and phase 10 those of the sampled fits); K3's ``launches`` adds rank 0's
 count of phase 11, the multi-worker path's run, phase 12's fit from
 recordio, phase 13's parse and fit from the bucket, phase 15's parse
 and fit through the process pool (and from Parquet, where it ran) and
@@ -532,6 +541,23 @@ K3_RAGGED = [
     (129, 256, torch.int32, (-3, 260), 14, 14, 3),
     # 14a's K4 shapes: 16 bins, 4 nodes, a window of 4 columns
     (4, 16, torch.int32, (-1, 17), 4, 4, 0),
+]
+K3_LISTED = [
+    # K3's listed mode, a level below the root: rows, built nodes,
+    # num_bins, bins dtype, (lo, hi) of the bins, offset of the tensors in
+    # their allocations (elements); 35% of the ids drawn from the built
+    # nodes, the rest -1
+    (RAGGED_ROWS, 1, 256, torch.uint8, (0, 256), 0),
+    (RAGGED_ROWS, 8, 256, torch.uint8, (0, 256), 3),
+    (RAGGED_ROWS, 32, 255, torch.int32, (-3, 260), 0),
+    (RAGGED_ROWS, 64, 256, torch.uint8, (0, 256), 0),
+    (RAGGED_ROWS, 129, 256, torch.int32, (-3, 260), 3),
+    # phase 4's main path: its rows and bins, 2, 4 and 16 built nodes
+    # (depths 2, 3 and 5 of its depth-6 trees; the last is the kernels
+    # line's row partition entry)
+    (N_ROWS, 2, 256, torch.uint8, (0, 256), 0),
+    (N_ROWS, 4, 256, torch.uint8, (0, 256), 0),
+    (N_ROWS, 16, 256, torch.uint8, (0, 256), 0),
 ]
 
 
@@ -750,13 +776,14 @@ def phase_kernels():
         torch.cuda.empty_cache()
     _k1_ragged(bins.shape[1], gen)
     _k3_ragged(bins.shape[1], gen)
+    partition = _k3_listed(bins.shape[1], gen)
     print(f"hist_matmul_cuda launches in this phase's checks: "
           f"{hist_cuda.LAUNCHES['hist_matmul_cuda']}", flush=True)
     del bins, grad, hess
     torch.cuda.empty_cache()
     scoring = _predict_kernel(gen)
     # the line reports the depth-6 main path's deepest level (32 nodes)
-    return entries[("K1", 32)], entries[("K3", 32)], scoring
+    return entries[("K1", 32)], entries[("K3", 32)], partition, scoring
 
 
 def _predict_kernel(gen):
@@ -890,6 +917,78 @@ def _k3_ragged(F, gen):
     torch.cuda.empty_cache()
 
 
+def _k3_listed(F, gen):
+    """K3's listed mode on ``K3_LISTED``: the card's row partition is its
+    plain version's list exactly, and the listed launch agrees with the
+    plain version and the dense launch, bitwise over two calls, with one
+    partition and one K3 launch counted a call.  Returns the row
+    partition's kernels-line entry, timed on phase 4's rows at 16 built
+    nodes (launches set by phase 4)."""
+    from dmlc_core_tpu_torch.ops import hist_cuda
+    from dmlc_core_tpu_torch.utils.timer import cuda_event_ms
+
+    dev = torch.device("cuda")
+    entry = None
+    for B, n, nb, dtype, (lo, hi), shift in K3_LISTED:
+        rb = torch.randint(lo, hi, (B * F + shift,), device=dev,
+                           generator=gen, dtype=torch.int32).to(dtype)
+        rb = rb[shift:].view(B, F)
+        node = torch.randint(0, n, (B + shift,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        out = torch.rand(B + shift, device=dev, generator=gen) >= 0.35
+        node = torch.where(out, -1, node)[shift:]
+        g = torch.randn(B + shift, device=dev, generator=gen)[shift:]
+        h = torch.rand(B + shift, device=dev, generator=gen)[shift:]
+
+        def listed():
+            rows, offsets = hist_cuda.row_partition(node, n)
+            return hist_cuda.grad_hist_fused_cuda(rb, node, g, h, n, nb,
+                                                  rows=rows, offsets=offsets)
+        what = (f"listed grad_hist_fused_cuda on {B} x {F} {dtype}, n={n}, "
+                f"offset {shift}")
+        before = dict(hist_cuda.LAUNCHES)
+        got = listed()
+        for key in ("row_partition", "grad_hist_fused_cuda"):
+            if hist_cuda.LAUNCHES[key] != before[key] + 1:
+                fail(f"{what}: {key} counted "
+                     f"{hist_cuda.LAUNCHES[key] - before[key]} launches for "
+                     f"one call")
+        rows, offsets = hist_cuda.row_partition(node, n)
+        want_rows, want_off = hist_cuda.row_partition_ref(node.cpu(), n)
+        total = int(want_off[n])
+        if not (torch.equal(offsets.cpu(), want_off)
+                and torch.equal(rows[:total].cpu(), want_rows[:total])):
+            fail(f"row_partition on {B} rows, n={n}, differs from its plain "
+                 f"version")
+        want = hist_cuda.grad_hist_fused_ref(rb, node, g, h, n, nb)
+        dense = hist_cuda.grad_hist_fused_cuda(rb, node, g, h, n, nb)
+        _check_close(what, got, want)
+        _check_close(f"{what} (against the dense launch)", got, dense)
+        if not _bitwise(listed):
+            fail(f"{what} is not bitwise repeatable")
+        if (B, n) == (N_ROWS, 16):
+            ms = cuda_event_ms(lambda: hist_cuda.row_partition(node, n),
+                               iters=20, warmup=3)
+            plain_ms = cuda_event_ms(
+                lambda: hist_cuda.row_partition_ref(node, n), iters=5,
+                warmup=1)
+            print(f"{'row_partition':22s} B={B} n={n} ({total} rows listed) "
+                  f"ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+            entry = dict(
+                name="row_partition", route="cuda",
+                source="dmlc_core_tpu_torch/csrc/hist.cu",
+                replaces="none (the TPU kernels read every row)",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None)
+        print(f"{'grad_hist_fused_cuda':22s} listed B={B} n={n} nbins={nb} "
+              f"{str(dtype).split('.')[-1]} offset {shift} ({total} rows "
+              f"listed): max_abs_err={_max_err(got, want):.3g} against the "
+              f"plain version, {_max_err(got, dense):.3g} against the dense "
+              f"launch; partition exact, bitwise=True", flush=True)
+        del rb, node, g, h, got, want, dense, rows, offsets
+    torch.cuda.empty_cache()
+    return entry
+
+
 def _split_agreement(a, b):
     split = a.split_feat >= 0
     same = (a.split_feat == b.split_feat) & (
@@ -952,6 +1051,11 @@ def phase_gbdt(card):
     if launches["hist_matmul_cuda"] != 0:
         fail(f"K1 launched {launches['hist_matmul_cuda']} times on the main "
              f"path, expected 0")
+    # one partition a level below the root: the listed mode on every one
+    if launches["row_partition"] != 3 * ROUNDS * (MAX_DEPTH - 1):
+        fail(f"row_partition launched {launches['row_partition']} times, "
+             f"expected {3 * ROUNDS * (MAX_DEPTH - 1)}: one a level below "
+             f"the root")
     if launches["predict_margin_cuda"] != 1:
         fail(f"predict launched the traversal kernel "
              f"{launches['predict_margin_cuda']} times, expected once")
@@ -5533,10 +5637,11 @@ def main():
         fail(f"no dmlc_core_tpu_torch package beside {__file__}")
     sys.path.insert(0, here)
     phase_build(card)
-    k1, k3, kp = phase_kernels()
+    k1, k3, kr, kp = phase_kernels()
     launches, ref = phase_gbdt(card)
     k1["launches"] = launches["hist_matmul_cuda"]     # 0: K1 is off the path
     k3["launches"] = launches["grad_hist_fused_cuda"]
+    kr["launches"] = launches["row_partition"]
     kp["launches"] = launches["predict_margin_cuda"]
     k4 = phase_distributed(card)
     phase_ingest(card, ref)
@@ -5566,7 +5671,7 @@ def main():
         replaces="dmlc_core_tpu/ops/hist_pallas.py:350",
         launches=k4["launches"], max_abs_err=k4["max_abs_err"],
         ms=k4["ms"], plain_ms=k4["plain_ms"], library_ms=k4["library_ms"]),
-        kp]
+        kr, kp]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))

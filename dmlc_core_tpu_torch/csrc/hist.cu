@@ -14,7 +14,11 @@
 //      G[n, f, b] = sum_i bf16(g_i) * [node_i == n] * [bins[i, f] == b]
 //    (and H from h), as a product transposed onto Hopper's wgmma: the bin
 //    one-hot is A, built in registers, and the node-masked g/h rows are
-//    B, built once a stage in shared memory: no W matrix exists.
+//    B, built once a stage in shared memory: no W matrix exists.  Below
+//    the root it runs listed: it reads only the rows of the nodes it
+//    builds, through a row list that row_partition (three small kernels,
+//    the counterpart of no TPU kernel: the TPU kernel masks every row)
+//    groups by node on the card.
 //
 // grad_hist_pallas (K2) computes K3's function from a W built in XLA and
 // runs K1 over it, sweeping node blocks at deep levels.  It has no kernel of
@@ -706,19 +710,22 @@ __device__ __forceinline__ void k3_step(float (&acc)[U][N / 2],
 
 // Shared memory of one K3 CTA, from a 1024-byte aligned base (allocated
 // with 1024 bytes to spare): kK3BStages stages of B and of patterns,
-// kK3RawStages stages of raw rows (node, g, h as 4 B a row, then the bins
-// slab), then the barriers (raw full, built full, built empty).
+// kK3RawStages stages of raw rows (node, g, h as 4 B a row; in the listed
+// mode a byte a row, the row's shift in its first bins granule; then the
+// bins slab), then the barriers (raw full, built full, built empty).
 struct K3Layout {
   int b_stage, pat_stage, raw_stage;   // bytes of one stage of each
+  int off_slab;                        // the bins slab in a raw stage
   int off_pat, off_raw, off_bar, smem;
 };
 
 __host__ __device__ inline K3Layout k3_layout(int cols, int rows, int span,
-                                              int slab_pitch) {
+                                              int slab_pitch, bool listed) {
   K3Layout l;
   l.b_stage = rows * cols * 2;
   l.pat_stage = span * rows * 2;
-  l.raw_stage = rows * 12 + rows * slab_pitch;
+  l.off_slab = rows * (listed ? 13 : 12);   // 16-byte aligned: rows % 16 == 0
+  l.raw_stage = l.off_slab + rows * slab_pitch;
   l.off_pat = kK3BStages * l.b_stage;
   l.off_raw = l.off_pat + kK3BStages * l.pat_stage;
   l.off_bar = l.off_raw + kK3RawStages * l.raw_stage;
@@ -731,12 +738,29 @@ __host__ __device__ inline K3Layout k3_layout(int cols, int rows, int span,
 // says that the bins come as whole rows by bulk copy (slab_pitch = the
 // row's bytes), else as granules over the CTA's span of columns
 // (slab_pitch a multiple of 16).
-template <typename BinT, int N>
+//
+// The listed mode (kListed, with rows and offsets; a level below the root,
+// where half the rows or more belong to no built node): rows [0,
+// offsets[num_nodes]) is the level's row list grouped by node id, node n's
+// rows at positions [offsets[n], offsets[n + 1]) in row order
+// (row_partition).  A template parameter, so the dense launch of the root
+// compiles to the code it had without the mode.  Node block z
+// then reads the positions [offsets[n0], offsets[min(n0 + N / 2,
+// num_nodes)]) alone, cut into the launch's gridDim.y chunks of
+// ceil(len / gridDim.y) positions rounded up to whole tiles (from the
+// offsets, so from the data alone), and the producer reads each listed
+// row's node, g, h and bins granules through the list by cp.async.  Rows
+// of other blocks and of no built node are never read.  A node block's
+// rows keep their order, so each accumulator still adds its rows in a
+// fixed order.
+template <typename BinT, int N, bool kListed>
 __global__ void __launch_bounds__(K3Shape<N>::kThreads, 1)
 grad_hist_fused_kernel(const BinT* __restrict__ bins,
                        const int* __restrict__ node,
                        const float* __restrict__ grad,
-                       const float* __restrict__ hess, long long num_rows,
+                       const float* __restrict__ hess,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ offsets, long long num_rows,
                        int num_feature, int ld_bins, int f_offset,
                        int num_nodes, int num_bins, long long rows_per_chunk,
                        int slices, int span, int bins_bulk, int slab_pitch,
@@ -744,9 +768,11 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
   constexpr int C = kK3Consumers;
   constexpr int U = K3Shape<N>::kUnits;
   constexpr int R = K3Shape<N>::kRows;
+  constexpr int kRowsPt = R / 128;   // rows of a stage a producer thread
   constexpr int kBinBytes = sizeof(BinT);
   extern __shared__ __align__(16) unsigned char k3_smem_raw[];
-  const K3Layout lay = k3_layout(N, R, span, slab_pitch);
+  constexpr bool listed = kListed;
+  const K3Layout lay = k3_layout(N, R, span, slab_pitch, listed);
   const unsigned sbase = (smem_u32(k3_smem_raw) + 1023) & ~1023u;
   unsigned char* k3_smem = k3_smem_raw + (sbase - smem_u32(k3_smem_raw));
   const unsigned raw_full = sbase + lay.off_bar;         // kK3RawStages
@@ -764,8 +790,19 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
   const int nf = static_cast<int>((u0 + live - 1) / slices) - feat_lo + 1;
   const long long chunk = blockIdx.y;
   const int n0 = blockIdx.z * (N / 2);
-  const long long r_begin = chunk * rows_per_chunk;
-  const long long r_end = min(num_rows, r_begin + rows_per_chunk);
+  // rows [r_begin, r_end) of the array, or positions of the row list
+  long long r_begin, r_end;
+  if constexpr (listed) {
+    const long long lo = offsets[n0];
+    const long long hi = offsets[min(n0 + N / 2, num_nodes)];
+    const long long per =
+        ((hi - lo + gridDim.y - 1) / gridDim.y + kTile - 1) / kTile * kTile;
+    r_begin = min(hi, lo + chunk * per);
+    r_end = min(hi, r_begin + per);
+  } else {
+    r_begin = chunk * rows_per_chunk;
+    r_end = min(num_rows, r_begin + rows_per_chunk);
+  }
   const int n_stages =
       r_end > r_begin ? static_cast<int>((r_end - r_begin + R - 1) / R) : 0;
 
@@ -803,10 +840,19 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
     bool vec_bulk[3];
 #pragma unroll
     for (int v = 0; v < 3; ++v)
-      vec_bulk[v] = (reinterpret_cast<uintptr_t>(vec[v]) & 15) == 0;
+      vec_bulk[v] =
+          !listed && (reinterpret_cast<uintptr_t>(vec[v]) & 15) == 0;
 
-    // the copies of stage i into its raw stage
-    auto issue = [&](int i) {
+    // listed: this thread's rows pt + 128 q of stage i, from the row list
+    auto fetch = [&](int i, int (&rw)[kRowsPt]) {
+      const long long t0 = r_begin + static_cast<long long>(i) * R;
+#pragma unroll
+      for (int q = 0; q < kRowsPt; ++q)
+        rw[q] = t0 + pt + 128 * q < r_end ? rows[t0 + pt + 128 * q] : 0;
+    };
+
+    // the copies of stage i into its raw stage (rw: its listed rows)
+    auto issue = [&](int i, const int (&rw)[kRowsPt]) {
       const int slot = i % kK3RawStages;
       const long long t0 = r_begin + static_cast<long long>(i) * R;
       const int tn = static_cast<int>(min(static_cast<long long>(R),
@@ -827,22 +873,43 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
           if (vec_bulk[v])
             bulk_copy(raw + v * 4 * R, vec[v] + 4 * t0, vec_bytes, bar);
         if (bins_bulk)
-          bulk_copy(raw + 12 * R, bins_b + t0 * ld_s, slab_bytes, bar);
+          bulk_copy(raw + lay.off_slab, bins_b + t0 * ld_s, slab_bytes, bar);
       }
+      if constexpr (listed) {
+        unsigned char* shifts =
+            k3_smem + lay.off_raw + slot * lay.raw_stage + 12 * R;
 #pragma unroll
-      for (int v = 0; v < 3; ++v)
-        if (!vec_bulk[v])
-          for (int r = pt; r < tn; r += 128)
-            cp_async4(raw + v * 4 * R + 4 * r, vec[v] + 4 * (t0 + r));
-      if (!bins_bulk) {
-        for (int idx = pt; idx < tn * granules; idx += 128) {
-          const int r = idx / granules;
-          const int gi = idx - r * granules;
-          const int shift = (lead + r * ld_mod) & 15;
-          if (gi < (shift + seg_bytes + 15) >> 4)
-            cp_async16(raw + 12 * R + r * slab_pitch + 16 * gi,
-                       bins_b + (t0 + r) * ld_s + col_bytes - shift + 16 * gi,
-                       16);
+        for (int q = 0; q < kRowsPt; ++q) {
+          const int r = pt + 128 * q;
+          if (r < tn) {
+            const long long row = rw[q];
+#pragma unroll
+            for (int v = 0; v < 3; ++v)
+              cp_async4(raw + v * 4 * R + 4 * r, vec[v] + 4 * row);
+            const int shift = static_cast<int>((lead + row * ld_mod) & 15);
+            shifts[r] = static_cast<unsigned char>(shift);
+            const char* src = bins_b + row * ld_s + col_bytes - shift;
+            for (int gi = 0; gi < (shift + seg_bytes + 15) >> 4; ++gi)
+              cp_async16(raw + lay.off_slab + r * slab_pitch + 16 * gi,
+                         src + 16 * gi, 16);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 3; ++v)
+          if (!vec_bulk[v])
+            for (int r = pt; r < tn; r += 128)
+              cp_async4(raw + v * 4 * R + 4 * r, vec[v] + 4 * (t0 + r));
+        if (!bins_bulk) {
+          for (int idx = pt; idx < tn * granules; idx += 128) {
+            const int r = idx / granules;
+            const int gi = idx - r * granules;
+            const int shift = (lead + r * ld_mod) & 15;
+            if (gi < (shift + seg_bytes + 15) >> 4)
+              cp_async16(
+                  raw + lay.off_slab + r * slab_pitch + 16 * gi,
+                  bins_b + (t0 + r) * ld_s + col_bytes - shift + 16 * gi, 16);
+          }
         }
       }
       cp_async_arrive(bar);
@@ -850,13 +917,19 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
 
     const unsigned n_count =
         static_cast<unsigned>(min(N / 2, num_nodes - n0));
-    for (int i = 0; i < n_stages && i < kK3RawStages; ++i) issue(i);
+    int rw[kRowsPt] = {};   // listed: the rows of the next stage to issue
+    for (int i = 0; i < n_stages && i < kK3RawStages; ++i) {
+      if (listed) fetch(i, rw);
+      issue(i, rw);
+    }
     for (int i = 0; i < n_stages; ++i) {
       const int rs = i % kK3RawStages;
       const int bs = i % kK3BStages;
       const long long t0 = r_begin + static_cast<long long>(i) * R;
       const int tn = static_cast<int>(min(static_cast<long long>(R),
                                           r_end - t0));
+      // the list's loads stay in flight while this stage is built
+      if (listed && i + kK3RawStages < n_stages) fetch(i + kK3RawStages, rw);
       mbar_wait(raw_full + 8 * rs, (i / kK3RawStages) & 1);
       // a fresh barrier passes parity 1: the first round finds B free
       mbar_wait(b_empty + 8 * bs, ((i / kK3BStages) & 1) ^ 1);
@@ -864,7 +937,8 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
       const int* r_node = reinterpret_cast<const int*>(raw);
       const float* r_g = reinterpret_cast<const float*>(raw + 4 * R);
       const float* r_h = reinterpret_cast<const float*>(raw + 8 * R);
-      const unsigned char* r_bins = raw + 12 * R;
+      const unsigned char* r_shift = raw + 12 * R;
+      const unsigned char* r_bins = raw + lay.off_slab;
       unsigned char* b_st = k3_smem + bs * lay.b_stage;
       unsigned short* pat = reinterpret_cast<unsigned short*>(
           k3_smem + lay.off_pat + bs * lay.pat_stage);
@@ -893,7 +967,8 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
                          + (ks & 1) * 4 + (rr >> 3) * 2 + (rr & 1);
         const unsigned char* cols =
             r_bins + r * slab_pitch
-            + (bins_bulk ? col_bytes : (lead + r * ld_mod) & 15);
+            + (listed ? r_shift[r]
+                      : bins_bulk ? col_bytes : (lead + r * ld_mod) & 15);
         for (int c = 0; c < nf; ++c) {
           unsigned short p = kNoBin;
           if (in) {
@@ -909,7 +984,7 @@ grad_hist_fused_kernel(const BinT* __restrict__ bins,
       // the producer's threads only: B is built and the raw stage read
       asm volatile("bar.sync 1, 128;\n" ::: "memory");
       if (pt == 0) mbar_arrive(b_full + 8 * bs);
-      if (i + kK3RawStages < n_stages) issue(i + kK3RawStages);
+      if (i + kK3RawStages < n_stages) issue(i + kK3RawStages, rw);
     }
   } else if (warp < 4 * live_wg) {
     // ---- consumers: U units a warpgroup ----
@@ -1056,8 +1131,9 @@ int k3_cols(int num_nodes) {
 
 template <typename BinT, int N>
 cudaError_t launch_k3(const void* bins, const void* node, const void* grad,
-                      const void* hess, long long num_rows, int num_feature,
-                      int ld_bins, int f_offset, int num_nodes, int num_bins,
+                      const void* hess, const int* rows, const int* offsets,
+                      long long num_rows, int num_feature, int ld_bins,
+                      int f_offset, int num_nodes, int num_bins,
                       long long rows_per_chunk, int n_chunks, float* partial,
                       cudaStream_t stream) {
   using S = K3Shape<N>;
@@ -1071,15 +1147,19 @@ cudaError_t launch_k3(const void* bins, const void* node, const void* grad,
   int span = (per_cta + slices - 2) / slices + 1;
   if (span > num_feature) span = num_feature;
   const long long ld_s = static_cast<long long>(ld_bins) * sizeof(BinT);
-  const int bulk = (reinterpret_cast<uintptr_t>(bins) & 15) == 0
+  // the listed mode reads rows through the list: granules
+  const int bulk = rows == nullptr
+                   && (reinterpret_cast<uintptr_t>(bins) & 15) == 0
                    && S::kRows * ld_s <= kK3BulkSlab;
   // granules: a row's columns start anywhere in a 16-byte granule
   const int slab_pitch =
       bulk ? static_cast<int>(ld_s)
            : 16 * ((15 + span * static_cast<int>(sizeof(BinT)) + 15) / 16);
-  const K3Layout lay = k3_layout(N, S::kRows, span, slab_pitch);
+  const K3Layout lay =
+      k3_layout(N, S::kRows, span, slab_pitch, rows != nullptr);
   if (lay.smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = grad_hist_fused_kernel<BinT, N>;
+  auto kernel = rows != nullptr ? grad_hist_fused_kernel<BinT, N, true>
+                                 : grad_hist_fused_kernel<BinT, N, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
   if (err != cudaSuccess) return err;
@@ -1088,14 +1168,15 @@ cudaError_t launch_k3(const void* bins, const void* node, const void* grad,
   kernel<<<grid, S::kThreads, lay.smem, stream>>>(
       static_cast<const BinT*>(bins), static_cast<const int*>(node),
       static_cast<const float*>(grad), static_cast<const float*>(hess),
-      num_rows, num_feature, ld_bins, f_offset, num_nodes, num_bins,
-      rows_per_chunk, slices, span, bulk, slab_pitch, partial);
+      rows, offsets, num_rows, num_feature, ld_bins, f_offset, num_nodes,
+      num_bins, rows_per_chunk, slices, span, bulk, slab_pitch, partial);
   return cudaGetLastError();
 }
 
 template <typename BinT>
 cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
                                    const void* grad, const void* hess,
+                                   const int* rows, const int* offsets,
                                    long long num_rows, int num_feature,
                                    int ld_bins, int f_offset,
                                    int num_nodes, int num_bins,
@@ -1110,14 +1191,191 @@ cudaError_t launch_grad_hist_fused(const void* bins, const void* node,
     case 64: launch = launch_k3<BinT, 64>; break;
     default: break;
   }
-  const cudaError_t err = launch(bins, node, grad, hess, num_rows,
-                                 num_feature, ld_bins, f_offset, num_nodes,
-                                 num_bins, rows_per_chunk, n_chunks, partial,
-                                 stream);
+  const cudaError_t err = launch(bins, node, grad, hess, rows, offsets,
+                                 num_rows, num_feature, ld_bins, f_offset,
+                                 num_nodes, num_bins, rows_per_chunk,
+                                 n_chunks, partial, stream);
   if (err != cudaSuccess) return err;
   return sum_chunks(partial,
                     2LL * num_nodes * num_feature * num_bins, n_chunks, out,
                     stream);
+}
+
+// K3's listed mode groups a level's rows by built node first: a stable
+// counting partition of the node ids [0, num_nodes) (an id outside it is a
+// row of no built node and is dropped), in three launches and with no read
+// by the host.  A warp owns the rows [p * rows_per_part, +rows_per_part)
+// (part p, of `parts`):
+//   1. partition_count_kernel: each warp counts its ids, counts[n * parts +
+//      p];
+//   2. partition_scan_kernel: one block scans counts in place, exclusive, in
+//      (id, part) order, so counts[n * parts + p] is where part p's rows of
+//      id n start in the list, and copies offsets[n] = counts[n * parts]
+//      (counts[num_nodes * parts], a 0 before the scan, becomes the listed
+//      total);
+//   3. partition_scatter_kernel: each warp walks its rows in order, 32 at a
+//      time, with a cursor per id from the scan: __match_any_sync gives a
+//      row the lanes of its id, its place is the cursor plus the lanes
+//      before it, and the first of them moves the cursor on.
+// So node n's rows land in row order: the list does not depend on the
+// card, the part count or the timing.  A warp's cursors sit in shared
+// memory up to kPartSmemNodes ids, else in counts itself (a part's column
+// is its warp's alone).  Cost on 10M rows (PERF.md): each row's id is read
+// twice and each listed row's index written once, 4-8 B a row.
+constexpr int kPartSmemNodes = 12288;   // 48 KB of int cursors a warp
+constexpr int kPartStep = 8;            // rows a lane loads at once
+
+template <bool kSmem>
+__global__ void __launch_bounds__(32)
+partition_count_kernel(const int* __restrict__ node, long long num_rows,
+                       int num_nodes, long long rows_per_part, int parts,
+                       int* __restrict__ counts) {
+  extern __shared__ int part_cur[];
+  const int p = blockIdx.x;
+  const int lane = threadIdx.x;
+  const long long r0 = static_cast<long long>(p) * rows_per_part;
+  const long long r1 = min(num_rows, r0 + rows_per_part);
+  for (int k = lane; k < num_nodes; k += 32) {
+    if (kSmem) part_cur[k] = 0;
+    else counts[static_cast<long long>(k) * parts + p] = 0;
+  }
+  if (p == 0 && lane == 0)
+    counts[static_cast<long long>(num_nodes) * parts] = 0;
+  __syncwarp();
+  for (long long base = r0; base < r1; base += 32 * kPartStep) {
+    int id[kPartStep];
+#pragma unroll
+    for (int j = 0; j < kPartStep; ++j) {
+      const long long r = base + 32 * j + lane;
+      id[j] = r < r1 ? node[r] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kPartStep; ++j) {
+      if (static_cast<unsigned>(id[j]) < static_cast<unsigned>(num_nodes)) {
+        if (kSmem) atomicAdd(&part_cur[id[j]], 1);
+        else atomicAdd(&counts[static_cast<long long>(id[j]) * parts + p], 1);
+      }
+    }
+  }
+  if (kSmem) {
+    __syncwarp();
+    for (int k = lane; k < num_nodes; k += 32)
+      counts[static_cast<long long>(k) * parts + p] = part_cur[k];
+  }
+}
+
+// one block of 1024 threads: thread t scans a contiguous segment of counts
+// after a block scan of the segments' sums
+__global__ void __launch_bounds__(1024)
+partition_scan_kernel(int* __restrict__ counts, long long n, int num_nodes,
+                      int parts, int* __restrict__ offsets) {
+  __shared__ int warp_sum[32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long seg = (n + 1023) / 1024;
+  const long long beg = min(n, t * seg);
+  const long long end = min(n, beg + seg);
+  int sum = 0;
+  for (long long i = beg; i < end; ++i) sum += counts[i];
+  int x = sum;   // inclusive scan over the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sum[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, w, d);
+      if (lane >= d) w += y;
+    }
+    warp_sum[lane] = w;
+  }
+  __syncthreads();
+  int run = x - sum + (warp > 0 ? warp_sum[warp - 1] : 0);
+  for (long long i = beg; i < end; ++i) {
+    const int c = counts[i];
+    counts[i] = run;
+    run += c;
+  }
+  __syncthreads();   // the block's writes of counts are visible to it
+  for (int k = t; k <= num_nodes; k += 1024)
+    offsets[k] = counts[static_cast<long long>(k) * parts];
+}
+
+template <bool kSmem>
+__global__ void __launch_bounds__(32)
+partition_scatter_kernel(const int* __restrict__ node, long long num_rows,
+                         int num_nodes, long long rows_per_part, int parts,
+                         int* starts, int* __restrict__ rows_out) {
+  extern __shared__ int part_cur[];
+  const int p = blockIdx.x;
+  const int lane = threadIdx.x;
+  const unsigned before = (1u << lane) - 1;   // the lanes below this one
+  const long long r0 = static_cast<long long>(p) * rows_per_part;
+  const long long r1 = min(num_rows, r0 + rows_per_part);
+  if (kSmem) {
+    for (int k = lane; k < num_nodes; k += 32)
+      part_cur[k] = starts[static_cast<long long>(k) * parts + p];
+    __syncwarp();
+  }
+  for (long long base = r0; base < r1; base += 32 * kPartStep) {
+    int id[kPartStep];
+#pragma unroll
+    for (int j = 0; j < kPartStep; ++j) {
+      const long long r = base + 32 * j + lane;
+      id[j] = r < r1 ? node[r] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kPartStep; ++j) {
+      const bool in =
+          static_cast<unsigned>(id[j]) < static_cast<unsigned>(num_nodes);
+      const int key = in ? id[j] : 0;
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, in ? key : -1);
+      volatile int* cur =
+          kSmem ? part_cur + key
+                : starts + static_cast<long long>(key) * parts + p;
+      const int at = in ? *cur : 0;
+      __syncwarp();   // every lane has read its cursor before one moves
+      if (in) {
+        const int rank = __popc(peers & before);
+        rows_out[at + rank] = static_cast<int>(base + 32 * j + lane);
+        if (rank == 0) *cur = at + __popc(peers);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+cudaError_t row_partition(const int* node, long long num_rows, int num_nodes,
+                          int parts, long long rows_per_part, int* rows_out,
+                          int* counts, int* offsets, cudaStream_t stream) {
+  const bool smem = num_nodes <= kPartSmemNodes;
+  const int bytes = smem ? num_nodes * 4 : 0;   // within the default 48 KB
+  if (smem)
+    partition_count_kernel<true><<<parts, 32, bytes, stream>>>(
+        node, num_rows, num_nodes, rows_per_part, parts, counts);
+  else
+    partition_count_kernel<false><<<parts, 32, 0, stream>>>(
+        node, num_rows, num_nodes, rows_per_part, parts, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  partition_scan_kernel<<<1, 1024, 0, stream>>>(
+      counts, static_cast<long long>(num_nodes) * parts + 1, num_nodes,
+      parts, offsets);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (smem)
+    partition_scatter_kernel<true><<<parts, 32, bytes, stream>>>(
+        node, num_rows, num_nodes, rows_per_part, parts, counts, rows_out);
+  else
+    partition_scatter_kernel<false><<<parts, 32, 0, stream>>>(
+        node, num_rows, num_nodes, rows_per_part, parts, counts, rows_out);
+  return cudaGetLastError();
 }
 
 bool bad_shape(long long num_rows, int num_feature, int ld_bins,
@@ -1176,29 +1434,56 @@ int dmlc_hist_matmul(const void* w, const void* bins, int bins_u8,
 // K3.  bins as for K1, node [num_rows] int32 (num_nodes < 65535),
 // grad/hess [num_rows] f32, partial [n_chunks, 2, num_nodes, F*nbins] f32
 // (may alias out when n_chunks == 1), out [2, num_nodes, F*nbins] f32 with
-// F = num_feature.  Returns the CUDA error of the launches (0 on success).
+// F = num_feature.  rows and offsets are null, or the listed mode's row list
+// [num_rows] and offsets [num_nodes + 1] int32 from dmlc_row_partition on
+// the same node ids.  Returns the CUDA error of the launches (0 on success).
 int dmlc_grad_hist_fused(const void* bins, int bins_u8, const void* node,
-                         const void* grad, const void* hess,
-                         long long num_rows, int num_feature, int ld_bins,
-                         int f_offset, int num_nodes, int num_bins,
+                         const void* grad, const void* hess, const void* rows,
+                         const void* offsets, long long num_rows,
+                         int num_feature, int ld_bins, int f_offset,
+                         int num_nodes, int num_bins,
                          long long rows_per_chunk, int n_chunks,
                          void* partial, void* out, void* stream) {
   if (bad_shape(num_rows, num_feature, ld_bins, f_offset, num_nodes,
                 num_bins, kK3MaxCols / 2, rows_per_chunk, n_chunks)
-      || n_chunks > 65535 || num_nodes >= 65535)
+      || n_chunks > 65535 || num_nodes >= 65535
+      || (rows == nullptr) != (offsets == nullptr)
+      || (rows != nullptr && num_rows >= (1LL << 31)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* r = static_cast<const int*>(rows);
+  const int* off = static_cast<const int*>(offsets);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   return bins_u8
              ? launch_grad_hist_fused<uint8_t>(
-                   bins, node, grad, hess, num_rows, num_feature, ld_bins,
-                   f_offset, num_nodes, num_bins, rows_per_chunk, n_chunks,
-                   p, o, s)
+                   bins, node, grad, hess, r, off, num_rows, num_feature,
+                   ld_bins, f_offset, num_nodes, num_bins, rows_per_chunk,
+                   n_chunks, p, o, s)
              : launch_grad_hist_fused<int32_t>(
-                   bins, node, grad, hess, num_rows, num_feature, ld_bins,
-                   f_offset, num_nodes, num_bins, rows_per_chunk, n_chunks,
-                   p, o, s);
+                   bins, node, grad, hess, r, off, num_rows, num_feature,
+                   ld_bins, f_offset, num_nodes, num_bins, rows_per_chunk,
+                   n_chunks, p, o, s);
+}
+
+// The rows of node ids [0, num_nodes) grouped by id, stable: rows_out
+// [num_rows] int32 holds node n's rows in row order at positions
+// [offsets[n], offsets[n + 1]) of offsets [num_nodes + 1] int32; positions
+// from offsets[num_nodes] on are left as they were.  counts [num_nodes *
+// parts + 1] int32 is scratch.  The row ranges of the parts warps are
+// [p * rows_per_part, +rows_per_part); parts * rows_per_part >= num_rows.
+// Returns the CUDA error of the launches (0 on success).
+int dmlc_row_partition(const void* node, long long num_rows, int num_nodes,
+                       int parts, long long rows_per_part, void* rows_out,
+                       void* counts, void* offsets, void* stream) {
+  if (num_rows <= 0 || num_rows >= (1LL << 31) || num_nodes <= 0
+      || num_nodes >= 65535 || parts <= 0 || rows_per_part <= 0
+      || static_cast<long long>(parts) * rows_per_part < num_rows)
+    return cudaErrorInvalidValue;
+  return row_partition(static_cast<const int*>(node), num_rows, num_nodes,
+                       parts, rows_per_part, static_cast<int*>(rows_out),
+                       static_cast<int*>(counts), static_cast<int*>(offsets),
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

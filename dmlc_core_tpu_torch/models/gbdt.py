@@ -9,7 +9,8 @@ port runs eagerly: a Python loop over rounds and levels, each level one
 histogram (the CUDA kernel on the card) plus a few tensor ops.  Below the
 root a level histograms only the smaller child of each node split above it
 and takes the other child as the parent's histogram less the built one
-(sibling subtraction): the same trees, at half the kernel's nodes.
+(sibling subtraction): the same trees, at half the kernel's nodes, whose
+rows alone the kernel reads.
 
 Distributed training follows the reference's mesh semantics with one
 process per rank (:mod:`..parallel.mesh`): under ``with mesh:`` each rank
@@ -39,9 +40,11 @@ annotations while ``torch.profiler`` records): ``gbdt.round`` around
 each sampling draw (per tree, and per level inside ``gbdt.split_scan``);
 ``gbdt.predict`` around :meth:`GBDT.predict_margin`.  ``gbdt.hist``
 holds the ``grad_histogram`` call alone; its ``nodes`` is the level's node
-count and ``built`` the count the kernel histograms (1 at the root, half
-the level's below).  Under a mesh whose row axes span more than one rank,
-``gbdt.hist`` also holds the level's histogram all-reduce, and
+count, ``built`` the count the kernel histograms (1 at the root, half
+the level's below) and ``rows`` what it reads (``"all"``, or below the
+root for the kernel methods ``"listed"``: the built nodes' rows alone).
+Under a mesh whose row axes span more than one rank, ``gbdt.hist`` also
+holds the level's histogram all-reduce, and
 ``gbdt.leaf`` the leaf sums' all-reduce, each in its own inner
 ``collective.sum`` span (:mod:`..collective.mesh_collectives`), so a span's
 self time leaves the all-reduce out.  Their attributes are host ints and
@@ -273,7 +276,8 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
     unsplit sends every row left, so its empty right child is the one built
     and its left child is the parent's histogram exactly.  The choice is
     made on the device, with no host sync; the larger child carries the f32
-    cancellation, small against its own sums.
+    cancellation, small against its own sums.  With a kernel method the
+    histogram reads only the built children's rows (``listed``).
 
     Under an ambient mesh the histograms and leaf sums cover every rank's
     rows (a plan with K4's mesh shards the histogram's features), so the
@@ -320,10 +324,12 @@ def _build_tree(bins, g, h, max_depth: int, num_bins: int, reg_lambda: float,
         n_nodes = 2 ** depth
         level_off = n_nodes - 1
         built = max(n_nodes // 2, 1)
+        listed = depth > 0 and plan.lists_rows
         with telemetry.span("gbdt.hist", depth=depth, nodes=n_nodes,
-                            built=built, method=plan.method):
+                            built=built, method=plan.method,
+                            rows="listed" if listed else "all"):
             Gb, Hb = grad_histogram(bins, hist_node, g, h, built, num_bins,
-                                    method=plan, device=dev)
+                                    method=plan, device=dev, listed=listed)
         if depth == 0:
             G, H = Gb, Hb                                    # [n, F, nbins]
         else:

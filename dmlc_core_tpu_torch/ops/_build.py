@@ -100,12 +100,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dmlc_hist_matmul.argtypes = [p, p, i, ll, i, i, i, i, i, i, ll, i,
                                      p, p, p]
     lib.dmlc_hist_matmul.restype = i
-    # dmlc_grad_hist_fused(bins, bins_u8, node, grad, hess, num_rows,
-    #   num_feature, ld_bins, f_offset, num_nodes, num_bins, rows_per_chunk,
-    #   n_chunks, partial, out, stream)
-    lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, ll, i, i, i, i, i,
-                                         ll, i, p, p, p]
+    # dmlc_grad_hist_fused(bins, bins_u8, node, grad, hess, rows, offsets,
+    #   num_rows, num_feature, ld_bins, f_offset, num_nodes, num_bins,
+    #   rows_per_chunk, n_chunks, partial, out, stream)
+    lib.dmlc_grad_hist_fused.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, i,
+                                         i, ll, i, p, p, p]
     lib.dmlc_grad_hist_fused.restype = i
+    # dmlc_row_partition(node, num_rows, num_nodes, parts, rows_per_part,
+    #   rows_out, counts, offsets, stream)
+    lib.dmlc_row_partition.argtypes = [p, ll, i, i, ll, p, p, p, p]
+    lib.dmlc_row_partition.restype = i
     # predict.cu: dmlc_predict_margin(bins, bins_u8, num_rows, num_feature,
     #   split_feat, split_bin, default_left, leaf_value, num_trees,
     #   num_class, depth, miss_id, base, bins_smem, trees_per_tile, packed,

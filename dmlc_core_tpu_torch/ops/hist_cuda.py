@@ -15,7 +15,10 @@ Counterpart of ``dmlc_core_tpu/ops/hist_pallas.py``.  The kernels live in
   the same (G, H) as a product transposed onto Hopper's ``wgmma``: the
   bin one-hot is A, built in registers, and the node-masked g/h rows are
   B, built once a stage in shared memory for every feature, so no W
-  matrix is materialised;
+  matrix is materialised.  Its listed mode reads only the rows of the
+  nodes it builds: :func:`row_partition` groups a level's rows by node id
+  on the card (a stable counting partition, no read by the host), and
+  each node block's CTAs walk their own range of that list;
 - :func:`grad_hist_sharded_cuda` replaces ``grad_hist_pallas_sharded``
   (K4): on a rank at mesh coordinate ``(d, m)``, K3's kernel over the rank's
   window of ``F/mp`` feature columns (read in place: the kernels take a
@@ -66,11 +69,14 @@ __all__ = ["hist_matmul_cuda", "grad_hist_cuda", "grad_hist_fused_cuda",
            "grad_hist_fused_ref", "grad_hist_sharded_ref", "scatter_sums",
            "segment_sum", "node_weights", "hist_node_block",
            "hist_matmul_plan", "grad_hist_fused_plan", "sharded_hist_plan",
-           "kernels_available", "reset_launches", "LAUNCHES", "TILE"]
+           "row_partition", "row_partition_ref", "row_partition_plan",
+           "listed_chunk", "kernels_available", "reset_launches",
+           "LAUNCHES", "TILE"]
 
 # kernel launches per wrapper since the last reset_launches()
+# ("row_partition": one a partition, its three kernels together)
 LAUNCHES: Dict[str, int] = {"hist_matmul_cuda": 0, "grad_hist_fused_cuda": 0,
-                            "grad_hist_sharded_cuda": 0}
+                            "grad_hist_sharded_cuda": 0, "row_partition": 0}
 
 TILE = 256               # rows a CTA stages per step (kTile in hist.cu)
 _SMEM_BYTES = 232448     # dynamic shared memory one block may use on sm_90
@@ -87,6 +93,10 @@ _K3_CONSUMERS = 4        # consumer warpgroups per CTA
 _K3_RAW_STAGES = 2       # stages of raw rows in flight
 _K3_B_STAGES = 2         # stages of built B and one-hot patterns
 _K3_BULK_SLAB = 32768    # most bins bytes a stage copies as whole rows
+# the row partition (hist.cu's row_partition): a warp a part of the rows
+_PART_ROWS = 1024        # fewest rows a part
+_PART_MAX = 1024         # most parts
+_PART_COUNTS = 1 << 22   # most (node, part) counts
 
 # the reference's per-sweep budget of its K2's [2*n_pad, F*nbins] f32
 # accumulator (hist_pallas._ACC_BYTES_LIMIT); the port's kernels need none,
@@ -353,7 +363,8 @@ class FusedPlan(NamedTuple):
 def grad_hist_fused_plan(num_nodes: int, num_rows: int, num_feature: int,
                          num_bins: int, bin_bytes: int,
                          ld_bins: Optional[int] = None,
-                         aligned: bool = True) -> FusedPlan:
+                         aligned: bool = True,
+                         listed: bool = False) -> FusedPlan:
     """K3's launch plan, from the shapes alone; ``hist.cu``'s ``launch_k3``
     computes the same.  A node block holds ``cols / 2`` nodes (twice the
     nodes as a power of two, 8 to 64 columns: G and H of each); a CTA's 4
@@ -362,7 +373,10 @@ def grad_hist_fused_plan(num_nodes: int, num_rows: int, num_feature: int,
     warpgroup stages ``stage_rows`` = 512 rows at a time.  The bins come as
     whole rows of ``ld_bins`` columns (``num_feature`` by default) by bulk
     copy when the array is 16-byte ``aligned`` and a stage of them fits
-    ``_K3_BULK_SLAB``, else as the 16-byte granules over the CTA's span."""
+    ``_K3_BULK_SLAB``, else as the 16-byte granules over the CTA's span.
+    The ``listed`` mode reads rows through a row list: granules, a byte
+    more a staged row (its shift in its first granule), and the same grid,
+    whose chunks are cut from the list's offsets (:func:`listed_chunk`)."""
     cols = 8
     while cols < 2 * num_nodes and cols < _K3_MAX_COLS:
         cols *= 2
@@ -373,14 +387,15 @@ def grad_hist_fused_plan(num_nodes: int, num_rows: int, num_feature: int,
     m_blocks = -(-num_nodes // node_block)
     rows = 2 * TILE
     ld = (num_feature if ld_bins is None else ld_bins) * bin_bytes
-    bulk = aligned and rows * ld <= _K3_BULK_SLAB
+    bulk = aligned and not listed and rows * ld <= _K3_BULK_SLAB
     # granules: a row's columns start anywhere in a 16-byte granule
     slab_pitch = ld if bulk else 16 * ((15 + span * bin_bytes + 15) // 16)
     # 1024 bytes to align the B stages, then B and the patterns, the raw
     # rows, and an 8-byte mbarrier a stage of each ring (built: full and
     # empty)
     smem = (1024 + _K3_B_STAGES * (rows * cols * 2 + span * rows * 2)
-            + _K3_RAW_STAGES * (rows * 12 + rows * slab_pitch)
+            + _K3_RAW_STAGES * (rows * (13 if listed else 12)
+                                + rows * slab_pitch)
             + 8 * (_K3_RAW_STAGES + 2 * _K3_B_STAGES))
     n_chunks, rows_per_chunk = _chunks(num_rows, groups * m_blocks,
                                        round_down=True)
@@ -389,6 +404,43 @@ def grad_hist_fused_plan(num_nodes: int, num_rows: int, num_feature: int,
                      span, rows, bulk, slab_pitch, smem,
                      128 * (_K3_CONSUMERS + 1),
                      (groups, n_chunks, m_blocks))
+
+
+def listed_chunk(lo: int, hi: int, n_chunks: int,
+                 chunk: int) -> Tuple[int, int]:
+    """The positions ``[begin, end)`` of the row list that chunk ``chunk``
+    of a listed K3 launch reads, for a node block whose rows lie at
+    ``[lo, hi)``; ``hist.cu``'s ``grad_hist_fused_kernel`` computes the
+    same from the offsets: ``ceil((hi - lo) / n_chunks)`` positions a
+    chunk, rounded up to whole tiles, the last chunks short or empty."""
+    per = -(-(hi - lo) // n_chunks)
+    per = -(-per // TILE) * TILE
+    begin = min(hi, lo + chunk * per)
+    return begin, min(hi, begin + per)
+
+
+def row_partition_plan(num_rows: int, num_nodes: int) -> Tuple[int, int]:
+    """(parts, rows_per_part) of :func:`row_partition`: a warp a part of
+    whole tiles, at least ``_PART_ROWS`` rows, at most ``_PART_MAX`` parts
+    and ``_PART_COUNTS`` (node, part) counts.  The list it makes does not
+    depend on the plan."""
+    most = max(1, min(_PART_MAX, _PART_COUNTS // num_nodes))
+    per = max(_PART_ROWS, -(-num_rows // most))
+    per = -(-per // TILE) * TILE
+    return max(1, -(-num_rows // per)), per
+
+
+def row_partition_ref(node_ids, num_nodes: int):
+    """Plain version of :func:`row_partition`: a stable sort of the ids,
+    with every id outside ``[0, num_nodes)`` last."""
+    ids = node_ids.to(torch.int64)
+    key = torch.where((ids >= 0) & (ids < num_nodes), ids, num_nodes)
+    rows = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(key, minlength=num_nodes + 1)[:num_nodes]
+    offsets = torch.zeros(num_nodes + 1, dtype=torch.int64,
+                          device=ids.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return rows, offsets.to(torch.int32)
 
 
 def _library():
@@ -477,7 +529,7 @@ def _check_grad_args(bins, node_ids, grad, hess, num_nodes: int,
 
 def grad_hist_cuda(bins, node_ids, grad, hess, num_nodes: int,
                    num_bins: int, f_offset: int = 0,
-                   f_count: Optional[int] = None):
+                   f_count: Optional[int] = None, rows=None, offsets=None):
     """K2: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
     f_count`` columns from ``f_offset`` (all by default).
 
@@ -486,15 +538,17 @@ def grad_hist_cuda(bins, node_ids, grad, hess, num_nodes: int,
     for the function is K3's, which needs no W, so a CUDA tensor takes
     :func:`grad_hist_fused_cuda`'s kernel over every node in one launch
     (counted under ``LAUNCHES["grad_hist_fused_cuda"]``) and K2 and K3
-    give the same bits.  CPU tensors take :func:`grad_hist_ref` on a copy
-    of the window."""
+    give the same bits, the listed mode (``rows``, ``offsets``) included.
+    CPU tensors take :func:`grad_hist_ref` on a copy of the window."""
     return grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes,
-                                num_bins, f_offset, f_count)
+                                num_bins, f_offset, f_count, rows=rows,
+                                offsets=offsets)
 
 
 def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
                          num_bins: int, f_offset: int = 0,
-                         f_count: Optional[int] = None):
+                         f_count: Optional[int] = None, rows=None,
+                         offsets=None):
     """K3: (G, H), each [num_nodes, F, num_bins] f32 over the ``F =
     f_count`` columns from ``f_offset`` (all by default), on Hopper's
     ``wgmma``, transposed: per (feature, 64-bin slice) unit and node block,
@@ -504,14 +558,34 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
     (:func:`grad_hist_fused_plan`; ``tools/k3_variants.py`` times its
     parts).  It allocates only ``out`` and the row chunks' partials; no W
     exists.  Rows whose node lies outside ``[0, num_nodes)`` add nothing,
-    nor do bins outside ``[0, num_bins)``.  CPU tensors take
-    :func:`grad_hist_fused_ref` on a copy of the window."""
+    nor do bins outside ``[0, num_bins)``.
+
+    With ``rows`` and ``offsets``, :func:`row_partition` of ``node_ids``,
+    it runs listed: each node block reads only its nodes' rows, through the
+    list, and no other row is read (the same sums, added in another
+    order).  CPU tensors take :func:`grad_hist_fused_ref` on a copy of the
+    window, of the listed rows in the listed mode: with the list grouped
+    stably, every (node, feature, bin) adds its rows in row order, so the
+    result is bitwise the dense call's."""
     _check_grad_args(bins, node_ids, grad, hess, num_nodes, num_bins)
     B = bins.shape[0]
     F = _window(bins, f_offset, f_count)
+    listed = rows is not None
+    if listed:
+        _check_rows("rows", rows, torch.int32, B, bins.device)
+        CHECK(offsets is not None and offsets.dtype == torch.int32
+              and offsets.shape == (num_nodes + 1,)
+              and offsets.device == bins.device,
+              f"offsets must be [{num_nodes + 1}] int32 on {bins.device}")
     if bins.device.type == "cpu":
-        return grad_hist_fused_ref(_columns(bins, f_offset, F), node_ids,
-                                   grad, hess, num_nodes, num_bins)
+        cols = _columns(bins, f_offset, F)
+        if listed:
+            keep = rows[:int(offsets[num_nodes])].to(torch.int64)
+            return grad_hist_fused_ref(cols[keep], node_ids[keep],
+                                       grad[keep], hess[keep], num_nodes,
+                                       num_bins)
+        return grad_hist_fused_ref(cols, node_ids, grad, hess, num_nodes,
+                                   num_bins)
     _check_cuda(bins)
     CHECK(num_nodes < 65535, f"at most 65534 nodes per launch, got "
                              f"{num_nodes}")
@@ -520,9 +594,11 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
     if B == 0:
         out.zero_()
         return out[0], out[1]
+    CHECK(not listed or B < 2**31,
+          f"at most 2**31 - 1 rows in a listed launch, got {B}")
     plan = grad_hist_fused_plan(num_nodes, B, F, num_bins,
                                 bins.element_size(), bins.shape[1],
-                                bins.data_ptr() % 16 == 0)
+                                bins.data_ptr() % 16 == 0, listed)
     partial = out if plan.n_chunks == 1 else torch.empty(
         plan.n_chunks * out.numel(), dtype=torch.float32, device=bins.device)
     lib = _library()
@@ -530,12 +606,58 @@ def grad_hist_fused_cuda(bins, node_ids, grad, hess, num_nodes: int,
         rc = lib.dmlc_grad_hist_fused(
             bins.data_ptr(), int(bins.dtype == torch.uint8),
             node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+            rows.data_ptr() if listed else None,
+            offsets.data_ptr() if listed else None,
             B, F, bins.shape[1], f_offset, num_nodes, num_bins,
             plan.rows_per_chunk, plan.n_chunks, partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "grad_hist_fused_cuda")
     LAUNCHES["grad_hist_fused_cuda"] += 1
     return out[0], out[1]
+
+
+def row_partition(node_ids, num_nodes: int):
+    """The rows of ``node_ids`` [B] int32 grouped by node id, stable:
+    ``(rows, offsets)``, ``rows`` [B] int32 holding node n's rows in row
+    order at positions ``[offsets[n], offsets[n + 1])`` of ``offsets``
+    [num_nodes + 1] int32; rows whose id lies outside ``[0, num_nodes)``
+    are left out (positions from ``offsets[num_nodes]`` on are not
+    written).  K3's listed mode reads a level through it.
+
+    On the card a counting partition in ``hist.cu`` (per-warp counts, one
+    ordered scan, a stable scatter; :func:`row_partition_plan`), launched
+    on the current stream with no read by the host: the listed count stays
+    on the card.  Its one buffer holds the list, the counts and the
+    offsets.  CPU tensors take :func:`row_partition_ref`; both give the
+    same list, the only stable grouping."""
+    CHECK(node_ids.dim() == 1 and node_ids.dtype == torch.int32
+          and node_ids.is_contiguous(),
+          f"node_ids must be a contiguous [B] int32 vector, got "
+          f"{tuple(node_ids.shape)} {node_ids.dtype}")
+    CHECK(1 <= num_nodes < 65535, f"num_nodes must be in [1, 65534], got "
+                                  f"{num_nodes}")
+    if node_ids.device.type == "cpu":
+        return row_partition_ref(node_ids, num_nodes)
+    _check_cuda(node_ids)
+    B = node_ids.shape[0]
+    CHECK(B < 2**31, f"at most 2**31 - 1 rows, got {B}")
+    parts, per = row_partition_plan(B, num_nodes)
+    n = num_nodes * parts + 1
+    buf = torch.empty(B + n + num_nodes + 1, dtype=torch.int32,
+                      device=node_ids.device)
+    rows, counts, offsets = buf[:B], buf[B:B + n], buf[B + n:]
+    if B == 0:
+        offsets.zero_()
+        return rows, offsets
+    lib = _library()
+    with torch.cuda.device(node_ids.device):
+        rc = lib.dmlc_row_partition(
+            node_ids.data_ptr(), B, num_nodes, parts, per, rows.data_ptr(),
+            counts.data_ptr(), offsets.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "row_partition")
+    LAUNCHES["row_partition"] += 1
+    return rows, offsets
 
 
 # -- K4: the model-sharded histogram ------------------------------------------

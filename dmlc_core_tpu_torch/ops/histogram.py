@@ -22,7 +22,10 @@ level: at the root over every row with one node, below it over half the
 level's nodes, the smaller child of each parent (by hessian sum) with the
 parent's id and every other row's id at -1, which adds nothing; it takes
 the larger child as the parent's histogram less the built one (sibling
-subtraction), outside the call.
+subtraction), outside the call.  Below the root the kernel methods read
+only the built nodes' rows (``HistPlan.lists_rows``): the level's rows are
+grouped by node id on the card (:func:`.hist_cuda.row_partition`) and K3
+reads each node block's rows through that list.
 
 Under an ambient mesh (``with mesh:``) each rank holds its own rows.
 With ``model_axis`` the kernel methods take K4 where the reference's
@@ -94,6 +97,7 @@ class HistPlan(NamedTuple):
     mesh: Any                   # K4's mesh, else None
     model_axis: Optional[str]   # the axis K4 shards features over
     leaf_matmul: bool           # leaf sums by matmul, else segment sums
+    lists_rows: bool            # below the root K3 reads listed rows alone
 
 
 def hist_plan(method, bins, num_bins: int, model_axis: Optional[str] = None,
@@ -106,8 +110,10 @@ def hist_plan(method, bins, num_bins: int, model_axis: Optional[str] = None,
     which does not change its answer), else ``"onehot"``; the bin one-hot
     for ``"onehot"`` (``onehot`` if given), built once for every level and
     round; the leaf sums as the reference sums them for the method (a
-    matmul, or the segment sum for ``"scatter"``).  A :class:`HistPlan`
-    passed as ``method`` is returned as it is."""
+    matmul, or the segment sum for ``"scatter"``); whether levels below
+    the root read only their built nodes' rows (the kernel methods off
+    K4).  A :class:`HistPlan` passed as ``method`` is returned as it
+    is."""
     if isinstance(method, HistPlan):
         return method
     method = resolve_hist_method(method, bins)
@@ -123,7 +129,8 @@ def hist_plan(method, bins, num_bins: int, model_axis: Optional[str] = None,
         onehot = bin_onehot(bins, num_bins)
     return HistPlan(method, onehot, mesh,
                     model_axis if mesh is not None else None,
-                    method != "scatter")
+                    method != "scatter",
+                    method in ("pallas", "pallas_fused") and mesh is None)
 
 
 def _strictly_increasing(bounds: np.ndarray) -> np.ndarray:
@@ -268,7 +275,7 @@ def kernel_bins(bins):
 
 def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
                    model_axis: Optional[str] = None, method="scatter",
-                   onehot=None, device=None):
+                   onehot=None, device=None, listed: bool = False):
     """Per-(node, feature, bin) gradient/hessian sums.
 
     Args:
@@ -287,6 +294,10 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
         ``onehot`` already.
       onehot: optional precomputed :func:`bin_onehot` for ``"onehot"``.
       device: where to run; ``cuda`` unless ``device="cpu"``.
+      listed: read only the rows whose ids lie in ``[0, num_nodes)``, for
+        a level below the root where most ids are -1; the caller sets it
+        where the plan's ``lists_rows`` holds (the kernel methods off K4;
+        the other methods read every row).  The sums are the same.
 
     Under an ambient mesh ``bins`` are this rank's rows and the result is
     the histogram of every rank's rows, identical on every rank.
@@ -304,20 +315,24 @@ def grad_histogram(bins, node_ids, grad, hess, num_nodes: int, num_bins: int,
             bins, node_ids, grad, hess, num_nodes, num_bins, plan.mesh,
             plan.model_axis)
     return data_allreduce(*_local_histogram(
-        bins, node_ids, grad, hess, num_nodes, num_bins, plan))
+        bins, node_ids, grad, hess, num_nodes, num_bins, plan, listed))
 
 
 def _local_histogram(bins, node_ids, grad, hess, num_nodes: int,
-                     num_bins: int, plan: HistPlan):
+                     num_bins: int, plan: HistPlan, listed: bool):
     """(G, H) of this rank's rows by the plan's method, over all F
-    features."""
+    features; ``listed``: K3 over the rows of ids in ``[0, num_nodes)``
+    alone, grouped by :func:`.hist_cuda.row_partition`, whose buffers die
+    with the call."""
     B, F = bins.shape
-    if plan.method == "pallas":
-        return hist_cuda.grad_hist_cuda(bins, node_ids, grad, hess,
-                                        num_nodes, num_bins)
-    if plan.method == "pallas_fused":
-        return hist_cuda.grad_hist_fused_cuda(bins, node_ids, grad, hess,
-                                              num_nodes, num_bins)
+    if plan.method in ("pallas", "pallas_fused"):
+        rows = offsets = None
+        if listed:
+            rows, offsets = hist_cuda.row_partition(node_ids, num_nodes)
+        kernel = (hist_cuda.grad_hist_cuda if plan.method == "pallas"
+                  else hist_cuda.grad_hist_fused_cuda)
+        return kernel(bins, node_ids, grad, hess, num_nodes, num_bins,
+                      rows=rows, offsets=offsets)
     if plan.method == "onehot":
         dt = plan.onehot.dtype
         nodehot = (node_ids[:, None] == torch.arange(

@@ -134,6 +134,22 @@ def test_predict_records_one_span_a_call(collection):
         ("gbdt.predict", {"trees": ROUNDS, "rows": ROWS, "method": "ref"})]
 
 
+@pytest.mark.parametrize("method", ["auto", "scatter", "onehot", "pallas",
+                                    "pallas_fused"])
+def test_hist_span_says_which_rows_it_reads(collection, method):
+    """``gbdt.hist``'s ``rows``: ``"all"`` at the root; below it
+    ``"listed"`` for the kernel methods, which read the built nodes' rows
+    alone, and ``"all"`` for the others (``"auto"`` is ``"scatter"`` on
+    the CPU)."""
+    _fit(hist_method=method)
+    hists = _spans(collection.events(), "gbdt.hist")
+    assert len(hists) == ROUNDS * DEPTH
+    lists = method in ("pallas", "pallas_fused")
+    for e in hists:
+        below = e["args"]["depth"] > 0
+        assert e["args"]["rows"] == ("listed" if below and lists else "all")
+
+
 @pytest.mark.parametrize("sampled", [False, True])
 def test_span_attributes_are_host_ints_and_strings(collection, sampled):
     model, ens, bins = _fit(**(SAMPLED if sampled else {}))

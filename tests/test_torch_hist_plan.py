@@ -232,6 +232,162 @@ def test_grad_hist_fused_plan(num_nodes, num_rows, num_feature, num_bins):
     assert _epilogue_misses(num_nodes, num_feature, num_bins) == 0
 
 
+# -- K3's listed mode: the row partition and the chunks ----------------------
+def _level_ids(num_rows, num_nodes, seed, share=0.35):
+    """A level's ids below the root: a ``share`` of the rows in built nodes
+    [0, num_nodes) (some nodes left empty), the rest -1 or past the end."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, num_nodes, num_rows)
+    if num_nodes > 2:
+        ids[ids == num_nodes // 2] = num_nodes - 1       # an empty node
+    out = rng.rand(num_rows) >= share
+    ids[out] = rng.choice([-1, num_nodes, -7], out.sum())
+    return ids.astype(np.int32)
+
+
+PARTITION_CASES = {
+    # name: ids
+    "ids of -1 and past the end": _level_ids(700, 5, 1),
+    "empty nodes": np.array([4, 4, -1, 0, 4, 0, 9, 4], np.int32),
+    "every row in one node": np.zeros(1000, np.int32),
+    "no row in any node": np.full(300, -1, np.int32),
+    "one row": np.array([0], np.int32),
+    "rows not a multiple of the tile": _level_ids(3 * 256 + 17, 64, 2),
+    "many nodes": _level_ids(20_000, 13_000, 3, share=0.9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARTITION_CASES))
+def test_row_partition_is_stable_and_grouped(case):
+    ids = PARTITION_CASES[case]
+    n = max(1, int(ids.max()))     # the largest id lies past the nodes
+    rows, offsets = hist_cuda.row_partition(torch.from_numpy(ids), n)
+    assert rows.dtype == offsets.dtype == torch.int32
+    assert rows.shape == ids.shape and offsets.shape == (n + 1,)
+    rows, offsets = rows.numpy(), offsets.numpy()
+    assert offsets[0] == 0 and (np.diff(offsets) >= 0).all()
+    for k in range(n):
+        # node k's rows, in row order, at [offsets[k], offsets[k + 1])
+        np.testing.assert_array_equal(rows[offsets[k]:offsets[k + 1]],
+                                      np.flatnonzero(ids == k))
+    assert offsets[n] == ((ids >= 0) & (ids < n)).sum()
+    assert set(hist_cuda.LAUNCHES.values()) == {0}   # no kernel on the CPU
+
+
+def _partition_model(ids, num_nodes):
+    """hist.cu's row_partition step by step on the host: per-part counts,
+    the exclusive scan in (id, part) order, then each part's rows placed
+    in order at its cursors.  Returns (rows, offsets, parts)."""
+    B = len(ids)
+    parts, per = hist_cuda.row_partition_plan(B, num_nodes)
+    counts = np.zeros((num_nodes, parts), np.int64)
+    inside = (ids >= 0) & (ids < num_nodes)
+    for p in range(parts):
+        seg = ids[p * per:(p + 1) * per]
+        seg = seg[(seg >= 0) & (seg < num_nodes)]
+        counts[:, p] = np.bincount(seg, minlength=num_nodes)
+    flat = np.append(counts.reshape(-1), 0)
+    starts = np.cumsum(flat) - flat                  # exclusive, in place
+    offsets = starts[np.arange(num_nodes + 1) * parts]
+    cursor = starts[:-1].reshape(num_nodes, parts).copy()
+    rows = np.full(B, -1, np.int64)
+    for r in np.flatnonzero(inside):
+        k, p = ids[r], r // per
+        rows[cursor[k, p]] = r
+        cursor[k, p] += 1
+    return rows, offsets, parts
+
+
+@pytest.mark.parametrize("num_rows,num_nodes", [
+    (1, 1), (700, 5), (5000, 1), (300_001, 64), (70_000, 3000)])
+def test_row_partition_plan_model_is_the_plain_partition(num_rows,
+                                                         num_nodes):
+    """The kernel's three steps over the plan's parts give the plain
+    version's list and offsets: the list does not depend on the parts."""
+    ids = _level_ids(num_rows, num_nodes, num_rows + num_nodes)
+    parts, per = hist_cuda.row_partition_plan(num_rows, num_nodes)
+    assert per % hist_cuda.TILE == 0 and per >= hist_cuda._PART_ROWS
+    assert parts * per >= num_rows > (parts - 1) * per
+    assert parts <= hist_cuda._PART_MAX
+    assert parts == 1 or num_nodes * parts <= hist_cuda._PART_COUNTS
+    rows, offsets, _ = _partition_model(ids, num_nodes)
+    want_rows, want_off = hist_cuda.row_partition_ref(
+        torch.from_numpy(ids), num_nodes)
+    np.testing.assert_array_equal(offsets, want_off.numpy())
+    total = offsets[-1]
+    np.testing.assert_array_equal(rows[:total], want_rows.numpy()[:total])
+    assert (rows[total:] == -1).all()                # never written
+
+
+def test_row_partition_plan_bounds_its_counts():
+    # 10M rows at 64 nodes: 1,002 warps of 9,984 rows
+    assert hist_cuda.row_partition_plan(10_000_000, 64) == (1002, 9984)
+    # a wide level: fewer parts, so the (node, part) counts stay bounded
+    parts, per = hist_cuda.row_partition_plan(10_000_000, 65534)
+    assert parts * 65534 <= hist_cuda._PART_COUNTS and parts * per >= 1e7
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 37, 150])
+@pytest.mark.parametrize("lo,hi", [(0, 0), (5, 5), (0, 1), (7, 200),
+                                   (0, 256), (3, 260), (100, 100_003),
+                                   (0, 3_300_000)])
+def test_listed_chunks_cover_the_range_once(lo, hi, n_chunks):
+    """A listed launch's chunks of one node block: in order, whole tiles
+    but the last that holds rows, empty past the range, and together the
+    block's positions [lo, hi) exactly once (from the offsets alone)."""
+    spans = [hist_cuda.listed_chunk(lo, hi, n_chunks, c)
+             for c in range(n_chunks)]
+    seen = np.zeros(hi - lo, np.int32)
+    for c, (b, e) in enumerate(spans):
+        assert lo <= b <= e <= hi
+        seen[b - lo:e - lo] += 1
+        if e < hi:
+            assert (e - b) % hist_cuda.TILE == 0
+        if c and spans[c - 1][1] < hi:
+            assert b == spans[c - 1][1]
+    assert (seen == 1).all()
+    per = spans[0][1] - spans[0][0]
+    assert per == 0 or per < hi - lo + hist_cuda.TILE
+
+
+@pytest.mark.parametrize("num_nodes", [1, 2, 8, 16, 32, 64, 129])
+@pytest.mark.parametrize("num_feature,bin_bytes", [(28, 1), (28, 4),
+                                                   (2000, 1), (67, 1)])
+def test_listed_plan_keeps_the_grid_and_writes_every_output_once(
+        num_nodes, num_feature, bin_bytes):
+    """The listed plan is the dense plan's grid and chunk count (so the
+    same partials, summed in chunk order), with the bins as granules and a
+    byte more a staged row within shared memory; whatever rows the
+    offsets give a chunk (none, less than a tile, ragged), its CTAs write
+    every (G|H, node, feature, bin) of its partial exactly once."""
+    B = 10_000_000 if num_feature < 100 else 400_000
+    dense = hist_cuda.grad_hist_fused_plan(num_nodes, B, num_feature, 256,
+                                           bin_bytes)
+    listed = hist_cuda.grad_hist_fused_plan(num_nodes, B, num_feature, 256,
+                                            bin_bytes, listed=True)
+    same = ("n_chunks", "cols", "node_block", "m_blocks", "units_per_wg",
+            "groups", "span", "stage_rows", "threads", "grid")
+    assert all(getattr(listed, k) == getattr(dense, k) for k in same)
+    assert not listed.bins_bulk
+    assert listed.slab_pitch % 16 == 0
+    assert listed.slab_pitch >= 15 + listed.span * bin_bytes
+    assert listed.smem <= SMEM_LIMIT
+    # a level's offsets with empty nodes: each block's chunks cover its
+    # positions once, and the epilogue, which runs for empty chunks too,
+    # writes each output element once a chunk
+    ids = _level_ids(5000, num_nodes, num_nodes)
+    _, offsets = hist_cuda.row_partition_ref(torch.from_numpy(ids),
+                                             num_nodes)
+    offsets = offsets.numpy()
+    for z in range(listed.m_blocks):
+        lo = offsets[z * listed.node_block]
+        hi = offsets[min((z + 1) * listed.node_block, num_nodes)]
+        got = sorted(hist_cuda.listed_chunk(lo, hi, listed.n_chunks, c)
+                     for c in range(listed.n_chunks))
+        assert sum(e - b for b, e in got) == hi - lo
+    assert _epilogue_misses(num_nodes, min(num_feature, 67), 256) == 0
+
+
 def test_hist_matmul_cpu_window_matches_pallas(monkeypatch):
     """The wrapper's CPU path on a column window with ragged rows and
     weight rows, against the Pallas kernel on a copy of the window."""
@@ -338,6 +494,122 @@ def test_grad_hist_fused_cuda_ragged(card, case):
         assert a.shape == (n, count, nbins)
         assert torch.equal(a, b)
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-3)
+
+
+LISTED_CARD_CASES = [
+    # built nodes, num_rows, columns, num_bins, dtype, (lo, hi) of the
+    # bins, offset of the tensors in their allocations (elements: 0 keeps
+    # uint8 rows of 28 bytes 16-byte aligned at the start, 3 does not)
+    (1, 1_000_003, 28, 256, torch.uint8, (0, 256), 0),
+    (8, 1_000_003, 28, 256, torch.uint8, (0, 256), 3),
+    (32, 1_000_003, 28, 255, torch.int32, (-3, 260), 0),
+    (64, 1_000_003, 28, 256, torch.uint8, (0, 256), 0),
+    (64, 400_001, 2000, 256, torch.uint8, (0, 256), 1),
+    (129, 100_003, 28, 256, torch.int32, (-3, 260), 3),
+]
+
+
+def _card_level(card, n, rows, cols, dtype, lo, hi, off):
+    """A level's tensors on the card: ~35% of the rows in the n built
+    nodes (one left empty), the rest -1 or past them."""
+    gen = torch.Generator().manual_seed(rows + n)
+    bins = torch.randint(lo, hi, (rows * cols + off,), generator=gen)
+    ids = torch.from_numpy(_level_ids(rows + off, n, n))
+    g = torch.randn(rows + off, generator=gen)
+    h = torch.rand(rows + off, generator=gen)
+    bins = bins.to(dtype).to(card)[off:].view(rows, cols)
+    ids, g, h = (t.to(card)[off:] for t in (ids, g, h))
+    return bins, ids, g, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LISTED_CARD_CASES)
+def test_listed_k3_matches_dense_k3_on_the_card(card, case):
+    """K3's listed mode on one level against the dense launch (f32 sums in
+    another order) and the plain version; the partition is the plain
+    one's list exactly; both bitwise over two launches; one partition and
+    one K3 launch counted each."""
+    n, rows, cols, nbins, dtype, (lo, hi), off = case
+    bins, ids, g, h = _card_level(card, n, rows, cols, dtype, lo, hi, off)
+    before = dict(hist_cuda.LAUNCHES)
+    part = hist_cuda.row_partition(ids, n)
+    part2 = hist_cuda.row_partition(ids, n)
+    want_rows, want_off = hist_cuda.row_partition_ref(ids.cpu(), n)
+    total = int(want_off[n])
+    for r, o in (part, part2):
+        assert torch.equal(o.cpu(), want_off)
+        assert torch.equal(r[:total].cpu(), want_rows[:total])
+    listed = hist_cuda.grad_hist_fused_cuda(bins, ids, g, h, n, nbins,
+                                            rows=part[0], offsets=part[1])
+    again = hist_cuda.grad_hist_fused_cuda(bins, ids, g, h, n, nbins,
+                                           rows=part2[0], offsets=part2[1])
+    dense = hist_cuda.grad_hist_fused_cuda(bins, ids, g, h, n, nbins)
+    assert hist_cuda.LAUNCHES["row_partition"] == before["row_partition"] + 2
+    assert (hist_cuda.LAUNCHES["grad_hist_fused_cuda"]
+            == before["grad_hist_fused_cuda"] + 3)
+    want = hist_cuda.grad_hist_fused_ref(bins, ids, g, h, n, nbins)
+    for a, b, d, c in zip(listed, again, dense, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, d, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PARTITION_CASES))
+def test_row_partition_on_the_card_is_the_plain_one(card, case):
+    ids = torch.from_numpy(PARTITION_CASES[case])
+    n = max(1, int(ids.max()))
+    rows, offsets = hist_cuda.row_partition(ids.to(card), n)
+    want_rows, want_off = hist_cuda.row_partition_ref(ids, n)
+    total = int(want_off[n])
+    assert torch.equal(offsets.cpu(), want_off)
+    assert torch.equal(rows[:total].cpu(), want_rows[:total])
+
+
+def _higgs_fit(card, **param):
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, GBDTParam
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(300_000, 28).astype(np.float32)
+    y = (x[:, :3].sum(1) + 0.5 * np.sin(3 * x[:, 3])
+         + 0.3 * rng.randn(len(x)) > 0).astype(np.float32)
+    model = GBDT(GBDTParam(num_boost_round=4, max_depth=7, num_bins=256,
+                           **param), 28)
+    model.make_bins(x[:50_000])
+    bins = model.bin_features(x).to(card).to(torch.uint8)
+    return model.fit_binned(bins, torch.from_numpy(y).to(card))
+
+
+@pytest.mark.cuda
+def test_listed_fit_on_the_card(card, monkeypatch):
+    """A higgs-shaped fit: bitwise from call to call and between ``auto``
+    and ``pallas_fused``, one partition a level below the root, and the
+    trees of the dense launch (every row read at every level) within f32
+    rounding: the first tree's splits the same, leaves within 1e-5."""
+    from dmlc_core_tpu_torch.models import gbdt
+
+    hist_cuda.reset_launches()
+    (ens, margin) = _higgs_fit(card)
+    assert hist_cuda.LAUNCHES["row_partition"] == 4 * 6
+    (ens2, margin2) = _higgs_fit(card)
+    (fused, fmargin) = _higgs_fit(card, hist_method="pallas_fused")
+    for a, b, c in zip(ens, ens2, fused):
+        if a is not None:
+            assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(margin, margin2) and torch.equal(margin, fmargin)
+    plan = gbdt.hist_plan
+    monkeypatch.setattr(gbdt, "hist_plan", lambda *a, **k: plan(
+        *a, **k)._replace(lists_rows=False))
+    hist_cuda.reset_launches()
+    (dense, dmargin) = _higgs_fit(card)
+    assert hist_cuda.LAUNCHES["row_partition"] == 0
+    split_feat, split_bin, leaf = ens[0], ens[1], ens[2]
+    assert torch.equal(split_feat[0], dense[0][0])
+    assert torch.equal(split_bin[0], dense[1][0])
+    torch.testing.assert_close(leaf[0], dense[2][0], rtol=0, atol=1e-5)
+    same = (split_feat == dense[0]).float().mean().item()
+    assert same >= 0.95
+    torch.testing.assert_close(margin, dmargin, rtol=0, atol=1e-3)
 
 
 # -- the build ----------------------------------------------------------------

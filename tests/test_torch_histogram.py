@@ -279,6 +279,9 @@ def test_hist_plan_decision_table(monkeypatch, case):
         assert plan.onehot is None
     # the matmul-shaped methods sum leaves by matmul, "scatter" by segments
     assert plan.leaf_matmul == (want != "scatter")
+    # below the root the kernel methods off K4 read the listed rows alone
+    lists = want in ("pallas", "pallas_fused") and not k4
+    assert plan.lists_rows == lists
     assert port_hist.hist_plan(plan, bins, nb, axis) is plan
     if where == "cpu":
         node = torch.randint(-1, 5, (16,), generator=gen)
@@ -386,3 +389,47 @@ def test_grad_histogram_dispatches_kernel_methods(interpret_mode):
         got = port_hist.grad_histogram(*_t(bins, node, g, h), 6, 16,
                                        method=method, device="cpu")
         _close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -- K3's listed mode on CPU tensors: bitwise the dense call ------------------
+LISTED_CASES = [
+    # b, f, nbins, built nodes, uint8 bins, column window (offset, count)
+    (700, 3, 16, 1, False, (0, None)),
+    (1000, 5, 256, 8, True, (0, None)),
+    (777, 6, 32, 13, False, (2, 3)),
+    (300, 4, 16, 64, True, (1, 2)),
+]
+
+
+@pytest.mark.parametrize("b,f,nbins,built,u8,window", LISTED_CASES)
+def test_listed_histogram_is_bitwise_the_dense_one(b, f, nbins, built, u8,
+                                                   window):
+    """A level below the root (most ids -1 or past the built nodes): K3's
+    listed call and ``grad_histogram(listed=True)`` with both kernel
+    methods give the dense call's bits, since the stable grouping keeps
+    each (node, feature, bin)'s rows in row order; no kernel runs."""
+    rng = np.random.RandomState(b + built)
+    bins, _, g, h = _case(b, f, nbins, built, seed=b)
+    ids = rng.randint(-1, 3 * built, b).astype(np.int32)
+    tb = torch.from_numpy(bins.astype(np.uint8) if u8 else bins)
+    tn, tg, th = _t(ids, g, h)
+    hist_cuda.reset_launches()
+    rows, offsets = hist_cuda.row_partition(tn, built)
+    dense = hist_cuda.grad_hist_fused_cuda(tb, tn, tg, th, built, nbins,
+                                           *window)
+    listed = hist_cuda.grad_hist_fused_cuda(tb, tn, tg, th, built, nbins,
+                                            *window, rows=rows,
+                                            offsets=offsets)
+    k2 = hist_cuda.grad_hist_cuda(tb, tn, tg, th, built, nbins, *window,
+                                  rows=rows, offsets=offsets)
+    for a, c, d in zip(dense, listed, k2):
+        assert torch.equal(a, c) and torch.equal(a, d)
+    for method in ("pallas", "pallas_fused"):
+        got = port_hist.grad_histogram(tb, tn, tg, th, built, nbins,
+                                       method=method, device="cpu",
+                                       listed=True)
+        want = port_hist.grad_histogram(tb, tn, tg, th, built, nbins,
+                                        method=method, device="cpu")
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+    assert set(hist_cuda.LAUNCHES.values()) == {0}

@@ -29,16 +29,18 @@ def _inputs(rows, cols, num_nodes, num_bins, seed):
                                               (37, (3, 2))])
 def test_k2_is_one_call_of_k3_at_any_depth(monkeypatch, num_nodes, window):
     """K2 hands K3's wrapper every node and the window in one call, also
-    where the reference's K2 would sweep node blocks."""
+    where the reference's K2 would sweep node blocks (with no row list:
+    dense)."""
     monkeypatch.setattr(hist_cuda, "_ACC_BYTES_LIMIT", 2 * 8 * 5 * 16 * 4)
     assert hist_cuda.hist_node_block(num_nodes, 5, 16) == 8
     args = _inputs(300, 5, num_nodes, 16, seed=num_nodes)
     calls = []
     fused = hist_cuda.grad_hist_fused_cuda
 
-    def spy(*a):
+    def spy(*a, **kw):
         calls.append(a[4:])
-        return fused(*a)
+        assert kw == {"rows": None, "offsets": None}
+        return fused(*a, **kw)
 
     monkeypatch.setattr(hist_cuda, "grad_hist_fused_cuda", spy)
     got = hist_cuda.grad_hist_cuda(*args, num_nodes, 16, *window)

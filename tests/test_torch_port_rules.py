@@ -276,14 +276,19 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     w = torch.from_numpy(rng.randn(16, 50).astype(np.float32)).bfloat16()
     hist_cuda.reset_launches()
     want = hist_cuda.grad_hist_ref(bins, node, g, h, 3, 8)
+    rows, offsets = hist_cuda.row_partition(node, 3)
     for fn in (hist_cuda.grad_hist_cuda, hist_cuda.grad_hist_fused_cuda):
         for a, b in zip(fn(bins, node, g, h, 3, 8), want):
+            assert torch.equal(a, b)
+        for a, b in zip(fn(bins, node, g, h, 3, 8, rows=rows,
+                           offsets=offsets), want):
             assert torch.equal(a, b)
     assert torch.equal(hist_cuda.hist_matmul_cuda(w, bins, 8),
                        hist_cuda.hist_matmul_ref(w, bins, 8))
     assert hist_cuda.LAUNCHES == {"hist_matmul_cuda": 0,
                                   "grad_hist_fused_cuda": 0,
-                                  "grad_hist_sharded_cuda": 0}
+                                  "grad_hist_sharded_cuda": 0,
+                                  "row_partition": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -302,6 +307,25 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(RuntimeError, match="contiguous"):
         hist_cuda.hist_matmul_cuda(torch.zeros(16, 10).bfloat16(),
                                    bins.t().contiguous().t(), 4)
+
+
+def test_listed_mode_rejects_bad_inputs():
+    bins = torch.zeros((10, 2), dtype=torch.int32)
+    node = torch.zeros(10, dtype=torch.int32)
+    g = torch.zeros(10)
+    rows, offsets = hist_cuda.row_partition(node, 2)
+    with pytest.raises(RuntimeError, match="rows"):
+        hist_cuda.grad_hist_fused_cuda(bins, node, g, g, 2, 4,
+                                       rows=rows.long(), offsets=offsets)
+    with pytest.raises(RuntimeError, match="offsets"):
+        hist_cuda.grad_hist_fused_cuda(bins, node, g, g, 3, 4, rows=rows,
+                                       offsets=offsets)
+    with pytest.raises(RuntimeError, match="offsets"):
+        hist_cuda.grad_hist_cuda(bins, node, g, g, 2, 4, rows=rows)
+    with pytest.raises(RuntimeError, match="int32"):
+        hist_cuda.row_partition(node.long(), 2)
+    with pytest.raises(RuntimeError, match="num_nodes"):
+        hist_cuda.row_partition(node, 65535)
 
 
 def test_row_chunking_depends_on_shapes_only():
